@@ -1,0 +1,695 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path — pseudo-projection point queries on a
+population-scale mixed-mode network — on the card, through the
+``repro_torch.core.api`` entry points a user calls, and fails (non-zero
+exit) if any phase fails:
+
+1. device   — the card's name and power limit (nvidia-smi);
+2. build    — compiles the CUDA kernels (``src/repro_torch/csrc``);
+3. kernels  — each CUDA kernel against its plain torch version on seeded
+              inputs at the recipe's widths (exact match required);
+4. network  — builds the register-style network with the port's own
+              builders: Households / Workplaces / Schools two-mode layers
+              (1, 4, 6 memberships per node over n/2.5, n/20, n/400
+              groups) plus an Erdős–Rényi layer of mean degree 10 and an
+              ``income`` attribute, at 10M nodes by default;
+5. main     — getedge / checkedge / getnodealters / getdegree, unfiltered
+              and filtered, with launch counts reset just before and read
+              just after (both kernels must launch; no union row may take
+              the sort path);
+6. oracle   — 256 seeded queries of each kind: kernel path bit-identical
+              to the port's padded plain path, plus a small network
+              against the materialized projection;
+7. timing   — each kernel, its plain version and its bound at the shapes
+              the main path launched (device time from torch.profiler;
+              the phase fails if the profiler sees no device activity);
+8. hubs     — a Workplaces layer whose group sizes are heavy-tailed, as
+              employer sizes are: counts how many union rows exceed the
+              segmented-union kernel's capacity and take the sort path,
+              and checks a subsample against the padded plain path.
+
+Its last lines are the ``kernels`` JSON record and then
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+repository's ``src/repro_torch`` beside it, it exits non-zero and prints
+no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# Memberships drawn per node per layer; group spaces scale with n. At 10M
+# nodes: 10M households memberships over 4M groups, 40M workplaces over
+# 500k, 60M schools over 25k -> ~110M memberships.
+LAYER_RECIPE = (
+    # (name, per_node, nodes_per_group)
+    ("Households", 1, 2.5),
+    ("Workplaces", 4, 20.0),
+    ("Schools", 6, 400.0),
+)
+CHUNK = 4_000_000  # COO rows per streamed chunk
+ER_MEAN_DEGREE = 10.0
+# The repository's population scale (10M nodes, ~110M memberships). A run
+# that must be cut lowers N_NODES only; the recipe per node stays.
+N_NODES = 10_000_000
+SEED = 0
+
+# Hub phase: the Workplaces recipe (4 memberships per node over n/20
+# groups) with group popularity drawn from a Pareto law of tail index
+# 1.05, the firm-size law of Axtell (Science 293:1818, 2001), and the
+# largest group held to 0.5 % of the nodes.
+HUB_TAIL = 1.05
+HUB_MAX_SHARE = 0.005
+HUB_QUERIES = 1024
+HUB_ORACLE_QUERIES = 64
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor peak (float32 table entry)
+
+POINT_PAIRS = 8192
+ALTERS_NODES = 2048
+DEGREE_NODES = 8192
+MAX_ALTERS = 4096
+ORACLE_QUERIES = 256
+REPEATS = 5
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def membership_chunks(n_nodes: int, per_node: int, n_groups: int, seed: int):
+    """Yield (node_ids, group_ids) chunks: per_node draws for each node."""
+    rng = np.random.default_rng(seed)
+    rows_per_chunk = max(CHUNK // per_node, 1)
+    for start in range(0, n_nodes, rows_per_chunk):
+        stop = min(start + rows_per_chunk, n_nodes)
+        nodes = np.repeat(np.arange(start, stop, dtype=np.int64), per_node)
+        groups = rng.integers(0, n_groups, nodes.size, dtype=np.int64)
+        yield nodes, groups
+
+
+def build_network(n_nodes: int, seed: int, device):
+    """The register-style mixed-mode network, built with the port's builders."""
+    from repro_torch.core import api
+    from repro_torch.core.layers import two_mode_from_membership_chunks
+
+    net = api.createnetwork(api.createnodeset(n_nodes, device=device))
+    for i, (name, per_node, npg) in enumerate(LAYER_RECIPE):
+        n_groups = max(int(n_nodes / npg), 1)
+        t0 = time.perf_counter()
+        layer = two_mode_from_membership_chunks(
+            n_nodes, n_groups,
+            membership_chunks(n_nodes, per_node, n_groups, seed + 100 + i),
+            device=device,
+        )
+        net = net.with_layer(name, layer)
+        log(f"network: {name}: {layer.n_memberships} memberships over "
+            f"{n_groups} groups, max {layer.max_memberships} per node, "
+            f"largest group {layer.max_hyperedge_size}, "
+            f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    net = api.generate(api.addlayer(net, "Random", 1), "Random", type="er",
+                       p=ER_MEAN_DEGREE / n_nodes, seed=seed + 7)
+    log(f"network: Random: {net.layer('Random').n_edges} edges, "
+        f"{time.perf_counter() - t0:.3f} s")
+    income = np.random.default_rng(seed + 8).integers(
+        0, 100_000, n_nodes, dtype=np.int64
+    )
+    net = api.setnodeattr(net, "income", np.arange(n_nodes), income, kind="int")
+    return net, int(np.median(income))
+
+
+def device_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, after a warm-up."""
+    import torch
+
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device busy time per call of ``fn``: the summed duration of every
+    kernel, copy and fill it puts on the card (torch.profiler/CUPTI),
+    over ``iters`` calls after a warm-up. Raises if the profiler records
+    no device activity, so a time reported as device time always is one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with warnings.catch_warnings():
+        # each profile() is one cycle; its "clears events" notice is moot
+        warnings.filterwarnings("ignore", message=".*Profiler clears events")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            sync()
+    busy_us = sum(
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    if busy_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return busy_us / 1e3 / iters
+
+
+def host_median_ms(fn) -> tuple[float, object]:
+    """Median wall time of ``fn`` (which ends in a host copy) after a warm-up."""
+    out = fn()
+    times = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def max_abs_err(got, want) -> int:
+    got = got.cpu().to(dtype=want.dtype)
+    want = want.cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0
+    return int((got.long() - want.long()).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Seeded kernel inputs
+# ---------------------------------------------------------------------------
+
+
+def sorted_rows(rng, rows: int, width: int, universe: int, device):
+    """Sorted unique SENTINEL-padded membership-like rows on the device."""
+    import torch
+
+    from repro_torch.core.csr import SENTINEL
+
+    vals = torch.from_numpy(rng.integers(0, universe, (rows, width), dtype=np.int32))
+    lens = torch.from_numpy(rng.integers(0, width + 1, rows))
+    vals = torch.sort(vals, dim=1).values
+    dup = torch.zeros_like(vals, dtype=torch.bool)
+    dup[:, 1:] = vals[:, 1:] == vals[:, :-1]
+    keep = (~dup) & (torch.arange(width)[None, :] < lens[:, None])
+    vals = torch.where(keep, vals, int(SENTINEL))
+    return torch.sort(vals, dim=1).values.contiguous().to(device)
+
+
+def flat_rows(rng, rows: int, width: int, device):
+    """Unsorted rows with duplicates and SENTINEL holes, like a gathered
+    co-member block."""
+    import torch
+
+    from repro_torch.core.csr import SENTINEL
+
+    flat = rng.integers(0, max(width // 3, 2), (rows, width), dtype=np.int32)
+    flat[rng.random((rows, width)) < 0.25] = SENTINEL
+    return torch.from_numpy(flat).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels(device, seed: int) -> dict:
+    """Each CUDA kernel against its plain version at the recipe's widths."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segmented_union import MAX_FLAT
+
+    rng = np.random.default_rng(seed + 1)
+    worst = {"intersect_count": 0, "segmented_union": 0}
+    max_memb = max(p for _, p, _ in LAYER_RECIPE)
+    for width in (8, 32, 128, max_memb):
+        a = sorted_rows(rng, POINT_PAIRS, width, 4 * width, device)
+        b = sorted_rows(rng, POINT_PAIRS, width, 4 * width, device)
+        err = max_abs_err(ops.intersect_count(a, b), ref.intersect_count_ref(a, b))
+        worst["intersect_count"] = max(worst["intersect_count"], err)
+        log(f"kernels: intersect_count width {width} rows {POINT_PAIRS}: "
+            f"max_abs_err {err}")
+    for width, rows, max_out in ((1 * 32, 2048, MAX_ALTERS),
+                                 (4 * 256, 2048, MAX_ALTERS),
+                                 (6 * 2048, 1024, MAX_ALTERS),
+                                 (4 * MAX_ALTERS, 1024, MAX_ALTERS),
+                                 (MAX_FLAT, 256, MAX_FLAT)):
+        flat = flat_rows(rng, rows, width, device)
+        gv, gm = ops.segmented_union(flat, max_out)
+        wv, wm = ref.segmented_union_ref(flat, max_out)
+        err = max(max_abs_err(gv, wv), max_abs_err(gm.int(), wm.int()))
+        worst["segmented_union"] = max(worst["segmented_union"], err)
+        log(f"kernels: segmented_union width {width} rows {rows} max_out "
+            f"{max_out}: max_abs_err {err}")
+    if any(worst.values()):
+        raise AssertionError(f"kernels disagree with their plain versions: {worst}")
+    return worst
+
+
+def pair_ids(layer, n: int, count: int, rng, device):
+    """Seeded (u, v) pairs; in the first half v is a co-member of u in one
+    of u's groups, so those pairs share at least one group."""
+    import torch
+
+    u = rng.integers(0, n, count)
+    v = rng.integers(0, n, count)
+    half = count // 2
+    he, hm = layer.memberships(torch.from_numpy(u[:half].astype(np.int32)).to(device))
+    pick = torch.from_numpy(rng.integers(0, 1 << 30, half)).to(device)
+    k = hm.sum(dim=1).clamp(min=1)
+    col = (pick % k).unsqueeze(1)
+    h = torch.gather(he, 1, col)[:, 0]
+    size = layer.hyperedge_sizes()[torch.where(hm[:, 0], h, 0).long()].clamp(min=1)
+    mem, mm = layer.member_rows(torch.where(hm[:, 0], h, 0), layer.max_hyperedge_size)
+    pick = torch.from_numpy(rng.integers(0, 1 << 30, half)).to(device)
+    w = torch.gather(mem, 1, (pick % size).unsqueeze(1).long())[:, 0]
+    ok = (hm[:, 0] & mm[:, 0]).cpu().numpy()
+    v[:half] = np.where(ok, w.cpu().numpy(), v[:half])
+    return u, v
+
+
+def busy_share(fn, wall_ms: float) -> str:
+    busy = device_ms(fn, 1)
+    return (f"device busy {busy:.3f} ms, idle "
+            f"{max(0.0, 1.0 - busy / wall_ms) * 100:.1f}% of the median call")
+
+
+def main_path(net, median_income: int, seed: int, device) -> tuple[dict, dict]:
+    """The point-query path through the api, timed per call. Returns the
+    median latencies and the ids each call was given."""
+    from repro_torch.core import api
+
+    rng = np.random.default_rng(seed + 2)
+    n = net.n_nodes
+    sel = api.selectnodes(net, "income", ">", median_income)
+    log(f"main: filter income > {median_income} keeps {sel.count} nodes")
+    results, queries = {}, {}
+    for name, _, _ in LAYER_RECIPE:
+        u, v = pair_ids(net.layer(name), n, POINT_PAIRS, rng, device)
+        queries[f"getedge/{name}"] = (u, v)
+        ms, vals = host_median_ms(lambda: api.getedge(net, name, u, v))
+        results[f"getedge/{name}"] = ms
+        ms2, hits = host_median_ms(
+            lambda: api.checkedge(net, name, u, v).cpu())
+        results[f"checkedge/{name}"] = ms2
+        if not (vals.shape == (POINT_PAIRS,) and bool((vals >= 0).all())
+                and bool(((vals > 0) == hits).all())
+                and int((vals[: POINT_PAIRS // 2] > 0).sum()) > POINT_PAIRS // 4):
+            raise AssertionError(f"getedge/checkedge on {name} out of range")
+        log(f"main: getedge {name} x{POINT_PAIRS}: median {ms:.3f} ms, "
+            f"{int((vals > 0).sum())} pairs share a group (max "
+            f"{float(vals.max()):.0f}); checkedge median {ms2:.3f} ms, "
+            + busy_share(lambda: api.checkedge(net, name, u, v).cpu(), ms2))
+    u = rng.integers(0, n, ALTERS_NODES)
+    queries["getnodealters"] = u
+    for label, filt in (("unfiltered", None), ("filtered", sel)):
+        call = lambda: api.getnodealters(net, u, max_alters=MAX_ALTERS, filter=filt)  # noqa: E731
+        ms, (vals, mask) = host_median_ms(call)
+        results[f"getnodealters/{label}"] = ms
+        if vals.shape != (ALTERS_NODES, MAX_ALTERS):
+            raise AssertionError(f"getnodealters shape {tuple(vals.shape)}")
+        log(f"main: getnodealters {label} x{ALTERS_NODES} over "
+            f"{len(net.layers)} layers: median {ms:.3f} ms, mean "
+            f"{float(mask.sum(dim=1).float().mean()):.1f} alters per node, "
+            + busy_share(call, ms))
+    u = rng.integers(0, n, DEGREE_NODES)
+    queries["getdegree"] = u
+    for label, filt in (("unfiltered", None), ("filtered", sel)):
+        call = lambda: api.getdegree(net, u, filter=filt)  # noqa: E731
+        ms, deg = host_median_ms(call)
+        results[f"getdegree/{label}"] = ms
+        if deg.shape != (DEGREE_NODES,) or (deg < 0).any():
+            raise AssertionError("getdegree out of range")
+        log(f"main: getdegree {label} x{DEGREE_NODES}: median {ms:.3f} ms, "
+            f"mean degree {float(deg.mean()):.2f}, " + busy_share(call, ms))
+    return results, queries
+
+
+def phase_oracle(net, median_income: int, seed: int, device) -> None:
+    """Kernel path vs the port's padded plain path, bit for bit."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(seed + 3)
+    n = net.n_nodes
+    sel = api.selectnodes(net, "income", ">", median_income)
+    nf = sel.device_mask(device)
+    q = ORACLE_QUERIES
+    bad = []
+    for name, _, _ in LAYER_RECIPE:
+        layer = net.layer(name)
+        u, v = pair_ids(layer, n, q, rng, device)
+        ut = torch.from_numpy(u.astype(np.int32)).to(device)
+        vt = torch.from_numpy(v.astype(np.int32)).to(device)
+        want = layer.edge_value_padded(ut, vt).cpu()
+        got = api.getedge(net, name, u, v)
+        if not torch.equal(got, want):
+            bad.append(f"getedge/{name}")
+        if not torch.equal(api.checkedge(net, name, u, v).cpu(), want > 0):
+            bad.append(f"checkedge/{name}")
+    u = rng.integers(0, n, q)
+    ut = torch.from_numpy(u.astype(np.int32)).to(device)
+    for label, filt, mask in (("unfiltered", None, None), ("filtered", sel, nf)):
+        parts = []
+        for layer in net.layers:
+            if layer.mode == 2:
+                parts.append(layer.node_alters_padded(ut, MAX_ALTERS, node_filter=mask)[0])
+            else:
+                parts.append(layer.node_alters(ut, MAX_ALTERS, node_filter=mask)[0])
+        want, _ = ref.segmented_union_ref(torch.cat(parts, dim=-1), MAX_ALTERS)
+        got, _ = api.getnodealters(net, u, max_alters=MAX_ALTERS, filter=filt)
+        if not torch.equal(got, want.cpu()):
+            bad.append(f"getnodealters/{label}")
+        deg = api.getdegree(net, u, filter=filt)
+        if mask is None:
+            want_deg = sum(layer.degrees()[ut.long()].cpu().long() for layer in net.layers)
+        else:
+            want_deg = sum(layer.filtered_degree_padded(ut, mask).cpu().long()
+                           for layer in net.layers)
+        if not np.array_equal(deg, want_deg.numpy()):
+            bad.append(f"getdegree/{label}")
+    small_projection_check(device, seed, bad)
+    if bad:
+        raise AssertionError(f"kernel path differs from the plain path: {bad}")
+    log(f"oracle: {q} queries per kind (getedge/checkedge on "
+        f"{len(LAYER_RECIPE)} layers, getnodealters and getdegree unfiltered "
+        f"and filtered): bit-identical to the padded plain path")
+
+
+def small_projection_check(device, seed: int, bad: list) -> None:
+    """A small network on the card against the materialized projection."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.projection import project_two_mode
+
+    net = api.createnetwork(api.createnodeset(3000, device=device))
+    net = api.generate(net, "wk", type="2mode", h=60, a=3, seed=seed + 4)
+    layer = net.layer("wk")
+    proj = project_two_mode(layer)
+    rng = np.random.default_rng(seed + 5)
+    u = rng.integers(0, 3000, 1000)
+    v = rng.integers(0, 3000, 1000)
+    ut = torch.from_numpy(u.astype(np.int32)).to(device)
+    vt = torch.from_numpy(v.astype(np.int32)).to(device)
+    if not torch.equal(api.getedge(net, "wk", u, v), proj.edge_value(ut, vt).cpu()):
+        bad.append("small/getedge-vs-projection")
+    full = proj.max_degree()
+    got, _ = api.getnodealters(net, u[:200], max_alters=full)
+    want, _ = proj.node_alters(ut[:200], full)
+    if not torch.equal(got, want.cpu()):
+        bad.append("small/getnodealters-vs-projection")
+
+
+def main_path_shapes(net, queries: dict) -> dict:
+    """The heaviest launch shape of each kernel on the main path, from the
+    dispatcher's own plan for the ids the main path was given."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.overlay import eff_host_degrees
+
+    widths = []
+    for name, _, _ in LAYER_RECIPE:
+        layer = net.layer(name)
+        u, v = queries[f"getedge/{name}"]
+        deg = np.maximum(eff_host_degrees(layer.memb, layer.memb_ov, u),
+                         eff_host_degrees(layer.memb, layer.memb_ov, v))
+        for idx, w in dispatch.plan_buckets(deg, layer.max_memberships):
+            r = dispatch._pow2_rows(idx.size)
+            widths.append((r * w, r, w))
+    _, rows, width = max(widths)
+    u = queries["getdegree"]
+    flats = []
+    for name, _, _ in LAYER_RECIPE:
+        layer = net.layer(name)
+        deg = eff_host_degrees(layer.memb, layer.memb_ov, u)
+        for idx, wm in dispatch.plan_buckets(deg, layer.max_memberships):
+            wn = dispatch._second_hop_width(layer, u, idx, dispatch.DEFAULT_BUCKET_WIDTHS)
+            r = dispatch._pow2_rows(idx.size)
+            flats.append((r * wm * wn, r, wm * wn, name))
+    _, urows, uwidth, uname = max(flats)
+    return {"intersect": (rows, width), "union": (urows, uwidth, uname)}
+
+
+def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
+                 device) -> list:
+    """Kernel, plain version and bound at the main path's heaviest shapes.
+
+    ``ms`` and ``plain_ms`` are device busy time per call (every kernel a
+    call puts on the card); the event-timed time per call, which also
+    counts the host's launch overhead, is printed beside them.
+    """
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segmented_union import MAX_FLAT
+
+    shapes = main_path_shapes(net, queries)
+    rng = np.random.default_rng(seed + 6)
+    records = []
+
+    rows, width = shapes["intersect"]
+    a = sorted_rows(rng, rows, width, 4 * width, device)
+    b = sorted_rows(rng, rows, width, 4 * width, device)
+    err = max_abs_err(ops.intersect_count(a, b), ref.intersect_count_ref(a, b))
+    kernel = lambda: ops.intersect_count(a, b)  # noqa: E731
+    plain = lambda: ref.intersect_count_ref(a, b)  # noqa: E731
+    nbytes = 4 * rows * (2 * width) + 4 * rows
+    valid = int((a != 2**31 - 1).sum())
+    ops_count = valid * max(math.log2(width), 1.0)
+    records.append(kernel_record(
+        "intersect_count", "src/repro_torch/csrc/intersect.cu",
+        "src/repro/kernels/intersect.py:64", launches["intersect_count"],
+        max(err, worst["intersect_count"]), kernel, plain, 50, nbytes,
+        ops_count, f"[{rows},{width}]x[{rows},{width}]",
+    ))
+
+    rows, width, layer_name = shapes["union"]
+    if width > MAX_FLAT:
+        raise AssertionError(f"{layer_name} union rows {width} wide exceed {MAX_FLAT}")
+    flat = flat_rows(rng, rows, width, device)
+    gv, gm = ops.segmented_union(flat, width)
+    wv, wm = ref.segmented_union_ref(flat, width)
+    err = max(max_abs_err(gv, wv), max_abs_err(gm.int(), wm.int()))
+    kernel = lambda: ops.segmented_union(flat, width)  # noqa: E731
+    plain = lambda: ref.segmented_union_ref(flat, width)  # noqa: E731
+    nbytes = 4 * rows * width + 4 * rows * width
+    ops_count = rows * width * max(math.log2(width), 1.0)
+    records.append(kernel_record(
+        "segmented_union", "src/repro_torch/csrc/segmented_union.cu",
+        "src/repro/kernels/segmented_union.py:94", launches["segmented_union"],
+        max(err, worst["segmented_union"]), kernel, plain, 5, nbytes,
+        ops_count, f"[{rows},{width}]->[{rows},{width}] ({layer_name} filtered degree)",
+    ))
+    for r in records:
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{r['name']} disagrees at the main-path shape")
+    return records
+
+
+def kernel_record(name, source, replaces, launches, err, kernel, plain,
+                  iters, nbytes, ops_count, shape) -> dict:
+    ms = device_ms(kernel, iters)
+    plain_ms = device_ms(plain, max(iters // 5, 2))
+    call_ms = cuda_ms(kernel, iters)
+    plain_call_ms = cuda_ms(plain, max(iters // 5, 2))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_count / SCALAR_OPS_PER_S * 1e3
+    rec = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": int(launches), "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        # no single PyTorch call computes a per-row intersection count or a
+        # per-row sorted unique (torch.unique has no per-row form)
+        "library_ms": None, "shape": shape,
+    }
+    log(f"timing: {name} at {shape}: device {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}); per call with host launch {call_ms:.4f} ms, "
+        f"plain {plain_call_ms:.4f} ms; {launches} launches on the main path")
+    return rec
+
+
+def skewed_membership_chunks(n_nodes: int, per_node: int, n_groups: int,
+                             seed: int):
+    """Like ``membership_chunks``, but each draw picks a group with
+    probability proportional to its target size: Pareto(HUB_TAIL) sizes,
+    scaled to ``per_node * n_nodes`` memberships, with the largest groups
+    held to ``HUB_MAX_SHARE`` of the nodes (clip and rescale until the
+    rest carry the mass)."""
+    rng = np.random.default_rng(seed)
+    total = float(per_node) * n_nodes
+    cap = HUB_MAX_SHARE * n_nodes
+    size = rng.pareto(HUB_TAIL, n_groups) + 1.0
+    for _ in range(32):
+        size = np.minimum(size * (total / size.sum()), cap)
+    cdf = np.cumsum(size)
+    cdf /= cdf[-1]
+    rows_per_chunk = max(CHUNK // per_node, 1)
+    for start in range(0, n_nodes, rows_per_chunk):
+        stop = min(start + rows_per_chunk, n_nodes)
+        nodes = np.repeat(np.arange(start, stop, dtype=np.int64), per_node)
+        groups = np.searchsorted(cdf, rng.random(nodes.size), side="right")
+        yield nodes, np.minimum(groups, n_groups - 1).astype(np.int64)
+
+
+def phase_hubs(net, median_income: int, device) -> None:
+    """Union rows past the kernel's capacity on heavy-tailed group sizes.
+
+    Builds a Workplaces layer (4 memberships per node over n/20 groups)
+    whose group sizes follow ``skewed_membership_chunks`` on the main
+    network's nodes, drives getnodealters and filtered getdegree through
+    the api with the launch counts set to 0 just before and read just
+    after, prints how many union rows took the sort path, and checks a
+    subsample bit for bit against the padded plain path.
+    """
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.layers import two_mode_from_membership_chunks
+    from repro_torch.kernels import build
+
+    n = net.n_nodes
+    n_groups = max(int(n / 20.0), 1)
+    t0 = time.perf_counter()
+    layer = two_mode_from_membership_chunks(
+        n, n_groups, skewed_membership_chunks(n, 4, n_groups, SEED + 200),
+        device=device,
+    )
+    hub = api.createnetwork(net.nodeset).with_layer("Employers", layer)
+    sizes = layer.hyperedge_sizes().cpu().numpy()
+    log(f"hubs: Employers: {layer.n_memberships} memberships over {n_groups} "
+        f"groups, max {layer.max_memberships} per node, group sizes median "
+        f"{int(np.median(sizes))} / p99 {int(np.percentile(sizes, 99))} / "
+        f"max {layer.max_hyperedge_size}, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    sel = api.selectnodes(hub, "income", ">", median_income)
+    u = np.random.default_rng(SEED + 9).integers(0, n, HUB_QUERIES)
+    build.launch_counts.clear()
+    alters = lambda: api.getnodealters(hub, u, max_alters=MAX_ALTERS)  # noqa: E731
+    degree = lambda: api.getdegree(hub, u, filter=sel)  # noqa: E731
+    alt_ms, (vals, _) = host_median_ms(alters)
+    deg_ms, deg = host_median_ms(degree)
+    sync()
+    counts = dict(build.launch_counts)
+    calls = REPEATS + 1  # warm-up + repeats, each over HUB_QUERIES rows
+    sort_rows = counts.get("segmented_union_sort_rows", 0)
+    share = sort_rows / (2 * calls * HUB_QUERIES)
+    log(f"hubs: launch counts {json.dumps(counts, sort_keys=True)}; "
+        f"{sort_rows} of {2 * calls * HUB_QUERIES} two-mode union rows "
+        f"({share * 100:.1f} %) exceeded the kernel's capacity and took "
+        f"the sort path")
+    log(f"hubs: getnodealters x{HUB_QUERIES}: median {alt_ms:.3f} ms, "
+        + busy_share(alters, alt_ms))
+    log(f"hubs: filtered getdegree x{HUB_QUERIES}: median {deg_ms:.3f} ms, "
+        f"mean degree {float(deg.mean()):.2f}, " + busy_share(degree, deg_ms))
+
+    q = HUB_ORACLE_QUERIES
+    ut = torch.from_numpy(u[:q].astype(np.int32)).to(device)
+    nf = sel.device_mask(device)
+    want, _ = layer.node_alters_padded(ut, MAX_ALTERS)
+    want_deg = layer.filtered_degree_padded(ut, nf).cpu().numpy()
+    if not (torch.equal(vals[:q], want.cpu())
+            and np.array_equal(deg[:q], want_deg)):
+        raise AssertionError("hubs: kernel path differs from the plain path")
+    log(f"hubs: {q} queries of each kind bit-identical to the padded plain path")
+
+
+def run() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch is missing beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda")
+    log(device_line())  # name, power limit: as nvidia-smi prints them
+    log(f"device: torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} visible")
+
+    secs = build.build(verbose=True)  # prints nvcc's register/spill report
+    log(f"build: kernels {', '.join(build.KERNEL_SOURCES)} built in {secs:.3f} s")
+
+    worst = phase_kernels(device, SEED)
+
+    cut = "no cut" if N_NODES >= 10_000_000 else "cut; recipe per node kept"
+    log(f"scale: n_nodes={N_NODES} ({cut})")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net, median_income = build_network(N_NODES, SEED, device)
+    sync()
+    memberships = sum(net.layer(nm).n_memberships for nm, _, _ in LAYER_RECIPE)
+    log(f"network: {N_NODES} nodes, {memberships} memberships, built in "
+        f"{time.perf_counter() - t0:.3f} s; device bytes held {net.nbytes}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
+
+    build.launch_counts.clear()
+    latencies, queries = main_path(net, median_income, SEED, device)
+    sync()
+    launches = dict(build.launch_counts)
+    log(f"main: launch counts {json.dumps(launches, sort_keys=True)}")
+    for k in ("intersect_count", "segmented_union"):
+        if launches.get(k, 0) == 0:
+            raise AssertionError(f"kernel {k} never launched on the main path")
+    if launches.get("segmented_union_sort_rows", 0):
+        raise AssertionError("union rows took the sort path on the main path")
+    log(f"main: latencies ms {json.dumps(latencies, sort_keys=True)}")
+
+    phase_oracle(net, median_income, SEED, device)
+    records = phase_timing(net, queries, SEED, launches, worst, device)
+    phase_hubs(net, median_income, device)
+    log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(run())

@@ -1,0 +1,92 @@
+"""Public wrappers around the hand-written CUDA kernels.
+
+On a CUDA tensor each op launches its kernel (``kernels/intersect.py``,
+``kernels/segmented_union.py``); on a CPU tensor it runs the plain torch
+version from ``kernels/ref.py``. The choice is made by the device of the
+tensors given, never by catching a failure: a CUDA tensor that the kernel
+refuses raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.csr import SENTINEL, take_clip
+from . import ref
+from .intersect import intersect_count_cuda
+from .segmented_union import segmented_union_cuda
+
+_SENT = int(SENTINEL)
+
+
+# ---------------------------------------------------------------------------
+# intersect (pseudo-projection GetEdgeValue / CheckEdge)
+# ---------------------------------------------------------------------------
+
+
+def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched |row∩row| for SENTINEL-padded sorted rows -> int32[B]."""
+    if a.is_cuda:
+        return intersect_count_cuda(a.contiguous(), b.contiguous())
+    return ref.intersect_count_ref(a, b)
+
+
+def pseudo_edge_value(layer, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """LayerTwoMode.edge_value at the layer-global membership width."""
+    a, am = layer.memberships(u)
+    b, bm = layer.memberships(v)
+    a = torch.where(am, a, _SENT)
+    b = torch.where(bm, b, _SENT)
+    return intersect_count(a, b).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# segmented union (pseudo-projection GetNodeAlters)
+# ---------------------------------------------------------------------------
+
+
+def segmented_union(
+    flat: torch.Tensor, max_out: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dedup + sort + compact SENTINEL-padded rows -> (int32[..., max_out], mask)."""
+    if not flat.is_cuda:
+        return ref.segmented_union_ref(flat, max_out)
+    batch_shape = flat.shape[:-1]
+    out = segmented_union_cuda(
+        flat.reshape(-1, flat.shape[-1]).contiguous(), max_out
+    )
+    out = out.reshape(batch_shape + (max_out,))
+    return out, out != _SENT
+
+
+def pseudo_node_alters(
+    layer,
+    u: torch.Tensor,
+    max_alters: int,
+    *,
+    width_m: int | None = None,
+    width_n: int | None = None,
+    node_filter: torch.Tensor | None = None,
+    use_kernel: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """LayerTwoMode.node_alters: two-hop gather then segmented union.
+
+    ``width_m`` / ``width_n`` override the gather pad widths (membership
+    count / hyperedge size); None means the layer-global maxima.
+    ``node_filter`` (device bool[n_nodes]) drops gathered co-members that
+    fail a predicate before the union, so the cap applies post-filter.
+    ``use_kernel=False`` dedups with the plain sort path (the padded
+    oracle, and the dispatcher's rule for rows wider than the kernel's
+    capacity).
+    """
+    he, he_mask = layer.memberships(u, width_m)
+    wn = layer.max_hyperedge_size if width_n is None else max(width_n, 1)
+    mem, mem_mask = layer.member_rows(torch.where(he_mask, he, 0), wn)
+    mem_mask = mem_mask & he_mask[..., None]
+    if node_filter is not None:
+        mem_mask = mem_mask & take_clip(node_filter, mem)
+    flat = torch.where(mem_mask, mem, _SENT).reshape(u.shape + (-1,))
+    flat = torch.where(flat == u[..., None], _SENT, flat)  # drop ego
+    if use_kernel:
+        return segmented_union(flat, max_alters)
+    return ref.segmented_union_ref(flat, max_alters)
