@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — pseudo-projection point queries on a
-population-scale mixed-mode network — on the card, through the
-``repro_torch.core.api`` entry points a user calls, and fails (non-zero
-exit) if any phase fails:
+Drives the port's main paths — pseudo-projection point queries and
+batched traversal on a population-scale mixed-mode network — on the card,
+through the ``repro_torch.core`` entry points a user calls, and fails
+(non-zero exit) if any phase fails:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — compiles the CUDA kernels (``src/repro_torch/csrc``);
@@ -24,13 +24,27 @@ exit) if any phase fails:
 6. oracle   — 256 seeded queries of each kind: kernel path bit-identical
               to the port's padded plain path, plus a small network
               against the materialized projection;
-7. timing   — each kernel, its plain version and its bound at the shapes
-              the main path launched (device time from torch.profiler;
-              the phase fails if the profiler sees no device activity);
-8. hubs     — a Workplaces layer whose group sizes are heavy-tailed, as
+7. hubs     — a Workplaces layer whose group sizes are heavy-tailed, as
               employer sizes are: counts how many union rows exceed the
               segmented-union kernel's capacity and take the sort path,
-              and checks a subsample against the padded plain path.
+              and checks a subsample against the padded plain path;
+8. traversal — on the same network, with launch counts reset just before
+              and read just after: a k-hop over all 4 layers (512
+              sources, k=2, frontier cap 256, 128 alters per node), a
+              one-mode k-hop over ``Random`` (1,024 sources, k=3), ego
+              networks (512 egos, k=2) and component counts (unfiltered
+              and ``income > median``); the frontier kernel must launch
+              and no frontier row may take the plain path. 64 sources of
+              each k-hop and ego batch must be bit-identical to the plain
+              path on the card, and a small network's components and
+              k-hops must equal scipy's on its materialized projection.
+              Each call prints its wall time, device-idle share and the
+              device activities that took most of its busy time;
+9. timing   — each kernel, its plain version and its bound at the heaviest
+              shape its phase launched (device times from torch.profiler:
+              the kernel's own launches, the plain version's busy time per
+              call; the phase fails if the profiler sees no launch of the
+              kernel).
 
 Its last lines are the ``kernels`` JSON record and then
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -40,6 +54,7 @@ no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -88,6 +103,24 @@ MAX_ALTERS = 4096
 ORACLE_QUERIES = 256
 REPEATS = 5
 
+# Traversal phase. The register k-hop takes benchmarks/run.py:469-472's
+# threadleR traversal settings (k=2, per-hop frontier cap 256, per-node
+# gather cap 128) with the sources cut from 1,000 to 512: hop 2 expands up
+# to 65,536 distinct nodes, and the Schools gather for them holds several
+# int32 copies of 65,536 x 8 x 2,611 entries (~20 GB peak).
+KHOP_SOURCES = 512
+KHOP_K = 2
+KHOP_MAX_FRONTIER = 256
+KHOP_NODE_CAP = 128
+ONEMODE_SOURCES = 1024
+ONEMODE_K = 3
+EGO_NODES = 512
+EGO_K = 2
+EGO_MAX_ALTERS = 256
+TRAVERSAL_SUBSAMPLE = 64
+TRAVERSAL_REPEATS = 3
+SMALL_NODES = 3000
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -135,12 +168,15 @@ def build_network(n_nodes: int, seed: int, device):
     return net, int(np.median(income))
 
 
-def device_line() -> str:
+def device_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+CLOCK_FIELDS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 
 
 def sync():
@@ -165,37 +201,56 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device busy time per call of ``fn``: the summed duration of every
-    kernel, copy and fill it puts on the card (torch.profiler/CUPTI),
-    over ``iters`` calls after a warm-up. Raises if the profiler records
-    no device activity, so a time reported as device time always is one."""
+PROFILER_WINDOWS = 3
+
+
+def device_activity(fn, iters: int) -> dict:
+    """Every kernel, copy and fill that ``iters`` calls of ``fn`` put on
+    the card, after a warm-up (torch.profiler/CUPTI): {name: [events,
+    microseconds]}.
+
+    Late in this long process the profiler sometimes delivers only part
+    of a window's device events, or none. An empty window is profiled
+    again, up to ``PROFILER_WINDOWS`` windows; if all are empty this
+    raises, so a time reported as device time always is one. A busy time
+    summed from a window that lost events is a lower bound.
+    """
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    with warnings.catch_warnings():
-        # each profile() is one cycle; its "clears events" notice is moot
-        warnings.filterwarnings("ignore", message=".*Profiler clears events")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            sync()
-    busy_us = sum(
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if busy_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    return busy_us / 1e3 / iters
+    for _ in range(PROFILER_WINDOWS):
+        with warnings.catch_warnings():
+            # each profile() is one cycle; its "clears events" notice is moot
+            warnings.filterwarnings("ignore", message=".*Profiler clears events")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                sync()
+        acts = collections.defaultdict(lambda: [0, 0.0])
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                acts[e.name][0] += 1
+                acts[e.name][1] += e.time_range.elapsed_us()
+        if sum(us for _, us in acts.values()) > 0:
+            return acts
+    raise RuntimeError(
+        f"torch.profiler recorded no device activity in {PROFILER_WINDOWS} windows")
 
 
-def host_median_ms(fn) -> tuple[float, object]:
+def device_ms(fn, iters: int) -> float:
+    """Device busy time per call of ``fn``: the summed duration of
+    everything it puts on the card, over ``iters`` profiled calls."""
+    acts = device_activity(fn, iters)
+    return sum(us for _, us in acts.values()) / 1e3 / iters
+
+
+def host_median_ms(fn, repeats: int = REPEATS) -> tuple[float, object]:
     """Median wall time of ``fn`` (which ends in a host copy) after a warm-up."""
     out = fn()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         t0 = time.perf_counter()
         out = fn()
         sync()
@@ -234,14 +289,15 @@ def sorted_rows(rng, rows: int, width: int, universe: int, device):
     return torch.sort(vals, dim=1).values.contiguous().to(device)
 
 
-def flat_rows(rng, rows: int, width: int, device):
+def flat_rows(rng, rows: int, width: int, device, universe: int | None = None):
     """Unsorted rows with duplicates and SENTINEL holes, like a gathered
-    co-member block."""
+    co-member block; ids below ``universe`` (default width // 3)."""
     import torch
 
     from repro_torch.core.csr import SENTINEL
 
-    flat = rng.integers(0, max(width // 3, 2), (rows, width), dtype=np.int32)
+    universe = max(width // 3, 2) if universe is None else universe
+    flat = rng.integers(0, universe, (rows, width), dtype=np.int32)
     flat[rng.random((rows, width)) < 0.25] = SENTINEL
     return torch.from_numpy(flat).to(device)
 
@@ -253,11 +309,14 @@ def flat_rows(rng, rows: int, width: int, device):
 
 def phase_kernels(device, seed: int) -> dict:
     """Each CUDA kernel against its plain version at the recipe's widths."""
+    import torch
+
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.frontier import MAX_CAND
     from repro_torch.kernels.segmented_union import MAX_FLAT
 
     rng = np.random.default_rng(seed + 1)
-    worst = {"intersect_count": 0, "segmented_union": 0}
+    worst = {"intersect_count": 0, "segmented_union": 0, "frontier_compact": 0}
     max_memb = max(p for _, p, _ in LAYER_RECIPE)
     for width in (8, 32, 128, max_memb):
         a = sorted_rows(rng, POINT_PAIRS, width, 4 * width, device)
@@ -278,6 +337,21 @@ def phase_kernels(device, seed: int) -> dict:
         worst["segmented_union"] = max(worst["segmented_union"], err)
         log(f"kernels: segmented_union width {width} rows {rows} max_out "
             f"{max_out}: max_abs_err {err}")
+    # candidate widths of the traversal's chunks; visited widths of hop 1
+    # (the source column), a 256-cap hop 2 and a 4096-cap hop 3
+    for width in (32, 1024, 8192, MAX_CAND):
+        for kv in (1, 257, 8193):
+            cand = flat_rows(rng, 256, width, device)
+            visited = flat_rows(rng, 256, kv, device, universe=max(width // 3, 2))
+            err = 0
+            for max_out in (256, width):
+                gv, gm = ops.frontier_compact(cand, visited, max_out)
+                wv, wm = ref.frontier_search_ref(
+                    cand, torch.sort(visited, dim=-1).values, max_out)
+                err = max(err, max_abs_err(gv, wv), max_abs_err(gm.int(), wm.int()))
+            worst["frontier_compact"] = max(worst["frontier_compact"], err)
+            log(f"kernels: frontier_compact width {width} visited {kv} rows 256 "
+                f"max_out 256 and {width}: max_abs_err {err}")
     if any(worst.values()):
         raise AssertionError(f"kernels disagree with their plain versions: {worst}")
     return worst
@@ -305,10 +379,19 @@ def pair_ids(layer, n: int, count: int, rng, device):
     return u, v
 
 
-def busy_share(fn, wall_ms: float) -> str:
-    busy = device_ms(fn, 1)
-    return (f"device busy {busy:.3f} ms, idle "
-            f"{max(0.0, 1.0 - busy / wall_ms) * 100:.1f}% of the median call")
+def busy_share(fn, wall_ms: float, top: int = 0) -> str:
+    """Device busy time of one profiled call and the idle share of the
+    median call; ``top`` > 0 adds the device activities that took most of
+    the busy time (name, launches, ms)."""
+    acts = device_activity(fn, 1)
+    busy = sum(us for _, us in acts.values()) / 1e3
+    out = (f"device busy {busy:.3f} ms, idle "
+           f"{max(0.0, 1.0 - busy / wall_ms) * 100:.1f}% of the median call")
+    if top:
+        ranked = sorted(acts.items(), key=lambda kv: -kv[1][1])[:top]
+        out += "; most busy: " + ", ".join(
+            f"{name[:72]} x{n} {us / 1e3:.3f} ms" for name, (n, us) in ranked)
+    return out
 
 
 def main_path(net, median_income: int, seed: int, device) -> tuple[dict, dict]:
@@ -470,12 +553,11 @@ def main_path_shapes(net, queries: dict) -> dict:
 
 
 def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
-                 device) -> list:
-    """Kernel, plain version and bound at the main path's heaviest shapes.
-
-    ``ms`` and ``plain_ms`` are device busy time per call (every kernel a
-    call puts on the card); the event-timed time per call, which also
-    counts the host's launch overhead, is printed beside them.
+                 traversal: dict, device) -> list:
+    """Kernel, plain version and bound at the heaviest shape each kernel's
+    phase launched: the main path's for intersect and union, the
+    traversal phase's (its recorded inputs) for the frontier kernel. What
+    each time means is set out in ``kernel_record``.
     """
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.segmented_union import MAX_FLAT
@@ -494,7 +576,8 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     valid = int((a != 2**31 - 1).sum())
     ops_count = valid * max(math.log2(width), 1.0)
     records.append(kernel_record(
-        "intersect_count", "src/repro_torch/csrc/intersect.cu",
+        "intersect_count", "intersect_count_kernel",
+        "src/repro_torch/csrc/intersect.cu",
         "src/repro/kernels/intersect.py:64", launches["intersect_count"],
         max(err, worst["intersect_count"]), kernel, plain, 50, nbytes,
         ops_count, f"[{rows},{width}]x[{rows},{width}]",
@@ -512,10 +595,31 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     nbytes = 4 * rows * width + 4 * rows * width
     ops_count = rows * width * max(math.log2(width), 1.0)
     records.append(kernel_record(
-        "segmented_union", "src/repro_torch/csrc/segmented_union.cu",
+        "segmented_union", "segmented_union_kernel",
+        "src/repro_torch/csrc/segmented_union.cu",
         "src/repro/kernels/segmented_union.py:94", launches["segmented_union"],
         max(err, worst["segmented_union"]), kernel, plain, 5, nbytes,
         ops_count, f"[{rows},{width}]->[{rows},{width}] ({layer_name} filtered degree)",
+    ))
+
+    _, cand, visited, max_out, call = traversal["heaviest"]
+    rows, kc = cand.shape
+    kv = visited.shape[1]
+    gv, gm = ops.frontier_compact(cand, visited, max_out, visited_sorted=True)
+    wv, wm = ref.frontier_search_ref(cand, visited, max_out)
+    err = max(max_abs_err(gv, wv), max_abs_err(gm.int(), wm.int()))
+    kernel = lambda: ops.frontier_compact(  # noqa: E731
+        cand, visited, max_out, visited_sorted=True)
+    plain = lambda: ref.frontier_search_ref(cand, visited, max_out)  # noqa: E731
+    nbytes = 4 * rows * (kc + kv) + 4 * rows * max_out
+    # a sort of each candidate row and a search of the visited row per slot
+    ops_count = rows * kc * (max(math.log2(kc), 1.0) + max(math.log2(kv), 1.0))
+    records.append(kernel_record(
+        "frontier_compact", "frontier_kernel",
+        "src/repro_torch/csrc/frontier.cu", "src/repro/kernels/frontier.py:105",
+        traversal["launches"]["frontier_compact"],
+        max(err, worst["frontier_compact"]), kernel, plain, 20, nbytes,
+        ops_count, f"[{rows},{kc}] vs [{rows},{kv}] -> [{rows},{max_out}] ({call})",
     ))
     for r in records:
         if r["max_abs_err"] != 0:
@@ -523,9 +627,22 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     return records
 
 
-def kernel_record(name, source, replaces, launches, err, kernel, plain,
+def kernel_record(name, symbol, source, replaces, launches, err, kernel, plain,
                   iters, nbytes, ops_count, shape) -> dict:
-    ms = device_ms(kernel, iters)
+    """``ms`` is the mean device duration of the kernel's own launches (the
+    profiler's events named ``symbol``); ``plain_ms`` the device busy time
+    per call of the plain version. Busy time per kernel call and the
+    event-timed time per call (host launch included) are printed beside."""
+    for _ in range(PROFILER_WINDOWS):
+        acts = device_activity(kernel, iters)
+        own = [v for k, v in acts.items() if symbol in k]
+        seen = sum(n for n, _ in own)
+        if seen:
+            break
+    else:
+        raise RuntimeError(f"the profiler saw no launch of {symbol}")
+    ms = sum(us for _, us in own) / seen / 1e3
+    busy_ms = sum(us for _, us in acts.values()) / 1e3 / iters
     plain_ms = device_ms(plain, max(iters // 5, 2))
     call_ms = cuda_ms(kernel, iters)
     plain_call_ms = cuda_ms(plain, max(iters // 5, 2))
@@ -536,14 +653,17 @@ def kernel_record(name, source, replaces, launches, err, kernel, plain,
         "launches": int(launches), "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        # no single PyTorch call computes a per-row intersection count or a
-        # per-row sorted unique (torch.unique has no per-row form)
+        # no single PyTorch call computes a per-row intersection count, a
+        # per-row sorted unique (torch.unique has no per-row form) or a
+        # per-row dedup against a second row
         "library_ms": None, "shape": shape,
     }
-    log(f"timing: {name} at {shape}: device {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}); per call with host launch {call_ms:.4f} ms, "
-        f"plain {plain_call_ms:.4f} ms; {launches} launches on the main path")
+    log(f"timing: {name} at {shape}: kernel {ms:.4f} ms per launch "
+        f"({seen} of {iters} launches seen by the profiler), device busy "
+        f"{busy_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); per call with host "
+        f"launch {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; {launches} "
+        f"launches in its phase; {device_line(CLOCK_FIELDS)}")
     return rec
 
 
@@ -632,6 +752,175 @@ def phase_hubs(net, median_income: int, device) -> None:
     log(f"hubs: {q} queries of each kind bit-identical to the padded plain path")
 
 
+class FrontierLaunches:
+    """Within the block, records the shape of every frontier-kernel launch
+    and keeps a copy of the inputs of the heaviest one (by the bytes the
+    kernel must move), so the timing phase runs the kernel on the data the
+    traversal gave it. Wraps ``ops.frontier_compact_cuda``; it counts
+    nothing in ``launch_counts``."""
+
+    def __init__(self):
+        self.shapes = collections.Counter()
+        self.heaviest = None  # (bytes, cand, visited, max_out, call)
+        self.call = ""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        inner = self._inner = ops.frontier_compact_cuda
+
+        def record(cand, visited, max_out):
+            rows, kc = cand.shape
+            kv = visited.shape[1]
+            self.shapes[(rows, kc, kv, max_out)] += 1
+            nbytes = 4 * rows * (kc + kv + max_out)
+            if self.heaviest is None or nbytes > self.heaviest[0]:
+                self.heaviest = (nbytes, cand.clone(), visited.clone(), max_out,
+                                 self.call)
+            return inner(cand, visited, max_out)
+
+        ops.frontier_compact_cuda = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.frontier_compact_cuda = self._inner
+
+
+def phase_traversal(net, median_income: int, seed: int, device) -> dict:
+    """Batched traversal through the entry points, timed per call, with the
+    launch counts set to 0 just before and read just after; then the
+    subsample and small-network checks. Returns the counts and the
+    heaviest frontier launch."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.traversal import ego_batch, khop_neighborhood, khop_records
+    from repro_torch.kernels import build
+
+    rng = np.random.default_rng(seed + 10)
+    n = net.n_nodes
+    reg_src = rng.integers(0, n, KHOP_SOURCES)
+    one_src = rng.integers(0, n, ONEMODE_SOURCES)
+    egos = rng.integers(0, n, EGO_NODES)
+    sel = api.selectnodes(net, "income", ">", median_income)
+    reg_kw = dict(max_frontier=KHOP_MAX_FRONTIER, max_alters_per_node=KHOP_NODE_CAP)
+    calls = {
+        # api.khop has no per-node cap (nor has the JAX package's), so the
+        # capped k-hop goes through Network.khop and the same records
+        f"khop all layers x{KHOP_SOURCES} k={KHOP_K} frontier "
+        f"{KHOP_MAX_FRONTIER} node cap {KHOP_NODE_CAP}":
+            lambda: khop_records(reg_src, *net.khop(reg_src, KHOP_K, **reg_kw)),
+        f"khop Random x{ONEMODE_SOURCES} k={ONEMODE_K}":
+            lambda: api.khop(net, one_src, ONEMODE_K, layernames=["Random"]),
+        f"egosample x{EGO_NODES} k={EGO_K} max_alters {EGO_MAX_ALTERS}":
+            lambda: api.egosample(net, egos, max_alters=EGO_MAX_ALTERS, k=EGO_K),
+        "countcomponents unfiltered": lambda: api.countcomponents(net),
+        f"countcomponents income > {median_income}":
+            lambda: api.countcomponents(net, filter=sel),
+    }
+    # host_median_ms: a warm-up and the repeats; busy_share: a warm-up and
+    # the profiled call
+    per_call_runs = TRAVERSAL_REPEATS + 3
+    outputs, latencies = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    with FrontierLaunches() as rec:
+        for name, call in calls.items():
+            rec.call = name
+            before = collections.Counter(build.launch_counts)
+            t0 = time.perf_counter()
+            ms, out = host_median_ms(call, TRAVERSAL_REPEATS)
+            busy = busy_share(call, ms, top=4)
+            delta = collections.Counter(build.launch_counts)
+            delta.subtract(before)
+            per_call = {k: v / per_call_runs for k, v in delta.items() if v}
+            outputs[name], latencies[name] = out, ms
+            if name.startswith("countcomponents"):
+                size = f"{out} components"
+            elif name.startswith("egosample"):
+                size = f"mean {np.mean([len(r) for r in out]):.1f} alters per ego"
+            else:
+                size = f"mean {np.mean([r['count'] for r in out]):.1f} nodes per source"
+            log(f"traversal: {name}: median {ms:.3f} ms, {size}, {busy}; "
+                f"per call {json.dumps(per_call, sort_keys=True)}; "
+                f"{time.perf_counter() - t0:.3f} s in all")
+    sync()
+    launches = dict(build.launch_counts)
+    log(f"traversal: launch counts {json.dumps(launches, sort_keys=True)}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
+    log("traversal: frontier launch shapes (rows, cand, visited, max_out): "
+        + ", ".join(f"{k}x{v}" for k, v in sorted(rec.shapes.items())))
+    log(f"traversal: latencies ms {json.dumps(latencies, sort_keys=True)}")
+    if launches.get("frontier_compact", 0) == 0:
+        raise AssertionError("kernel frontier_compact never launched on the traversal path")
+    if launches.get("frontier_sort_rows", 0):
+        raise AssertionError("frontier rows took the plain path on the traversal path")
+
+    # per-source results do not depend on the batch: a subsample of each
+    # call against the plain compaction and merge on the card
+    q = TRAVERSAL_SUBSAMPLE
+    (reg, one, ego, n_all, n_sel) = outputs.values()
+    bad = []
+    want = khop_records(reg_src[:q], *khop_neighborhood(
+        net, reg_src[:q], KHOP_K, use_kernel=False, **reg_kw))
+    if reg[:q] != want:
+        bad.append("khop all layers")
+    want = khop_records(one_src[:q], *khop_neighborhood(
+        net, one_src[:q], ONEMODE_K, layer_names=["Random"], use_kernel=False))
+    if one[:q] != want:
+        bad.append("khop Random")
+    vals, mask = ego_batch(net, egos[:q], EGO_MAX_ALTERS, k=EGO_K, use_kernel=False)
+    vals, mask = vals.cpu().numpy(), mask.cpu().numpy()
+    if ego[:q] != [vals[i][mask[i]].tolist() for i in range(q)]:
+        bad.append("egosample")
+    if not 1 <= n_all <= n_sel <= n:
+        bad.append(f"component counts {n_all} / {n_sel}")
+    small_traversal_check(device, seed, bad)
+    if bad:
+        raise AssertionError(f"traversal differs from its reference: {bad}")
+    log(f"traversal: {q} sources of each k-hop and ego batch bit-identical to "
+        f"the plain path; {SMALL_NODES}-node network: components and k-hops "
+        f"equal scipy's on the materialized projection")
+    return {"launches": launches, "heaviest": rec.heaviest}
+
+
+def small_traversal_check(device, seed: int, bad: list) -> None:
+    """The small network of ``small_projection_check``: components and
+    k-hop groups against scipy on the materialized projection."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from repro_torch.core import api
+    from repro_torch.core.projection import project_two_mode
+    from repro_torch.core.traversal import components_batched
+
+    net = api.createnetwork(api.createnodeset(SMALL_NODES, device=device))
+    net = api.generate(net, "wk", type="2mode", h=60, a=3, seed=seed + 4)
+    out = project_two_mode(net.layer("wk")).out
+    adj = sp.csr_matrix(
+        (np.ones(out.nnz), out.indices.cpu().numpy().astype(np.int64),
+         out.indptr_host.astype(np.int64)),
+        shape=(SMALL_NODES, SMALL_NODES),
+    )
+    n_comp, comp = csgraph.connected_components(adj, directed=False)
+    min_id = np.full(n_comp, SMALL_NODES, np.int64)
+    np.minimum.at(min_id, comp, np.arange(SMALL_NODES))
+    labels = components_batched(net).cpu().numpy()
+    if api.countcomponents(net) != n_comp or not np.array_equal(labels, min_id[comp]):
+        bad.append("small/components-vs-scipy")
+    src = np.random.default_rng(seed + 11).integers(0, SMALL_NODES, 32)
+    dist = csgraph.shortest_path(adj, unweighted=True, indices=src)
+    records = api.khop(net, src, 3, max_frontier=SMALL_NODES)
+    for i, rec in enumerate(records):
+        want = [v for h in (1, 2, 3) for v in np.nonzero(dist[i] == h)[0].tolist()]
+        hops = [h for h in (1, 2, 3) for _ in range(int((dist[i] == h).sum()))]
+        if rec["nodes"] != want or rec["hops"] != hops:
+            bad.append(f"small/khop-vs-bfs source {int(src[i])}")
+            break
+
+
 def run() -> int:
     import torch
 
@@ -680,8 +969,9 @@ def run() -> int:
     log(f"main: latencies ms {json.dumps(latencies, sort_keys=True)}")
 
     phase_oracle(net, median_income, SEED, device)
-    records = phase_timing(net, queries, SEED, launches, worst, device)
     phase_hubs(net, median_income, device)
+    traversal = phase_traversal(net, median_income, SEED, device)
+    records = phase_timing(net, queries, SEED, launches, worst, traversal, device)
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

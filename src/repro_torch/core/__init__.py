@@ -35,4 +35,10 @@ from .generators import (
     watts_strogatz,
 )
 from .projection import project_two_mode
+from .traversal import (
+    components_batched,
+    ego_batch,
+    khop_neighborhood,
+    khop_records,
+)
 from .convert import network_from_arrays

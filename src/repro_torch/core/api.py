@@ -1,4 +1,5 @@
-"""Script-style API mirroring the paper's command set, point-query surface.
+"""Script-style API mirroring the paper's command set: the point queries,
+batched traversal (``khop``, ``egosample``) and component counts.
 
     nodes = createnodeset(createnodes=10_000_000)       # on the CUDA card
     net   = createnetwork(nodeset=nodes)
@@ -25,11 +26,13 @@ from .layers import one_mode_from_edges, two_mode_empty
 from .network import Network, create_network
 from .nodeset import NodeSelection, Nodeset, create_nodeset
 from .request import QueryRequest, merge_filter_kwargs, run_queries, run_query
+from .traversal import components_batched
 
 __all__ = [
     "createnodeset", "createnetwork", "addlayer", "generate",
     "checkedge", "getedge", "getnodealters", "getdegree",
     "setnodeattr", "selectnodes",
+    "khop", "egosample", "countcomponents", "componentsfast",
 ]
 
 
@@ -152,6 +155,76 @@ def getdegree(
     if ids.size == 1:
         return int(out) if np.isscalar(out) or np.ndim(out) == 0 else int(out[0])
     return np.asarray(out)
+
+
+def countcomponents(
+    net: Network, layernames: Sequence[str] | None = None, filter=None,
+    node_filter=None,
+) -> int:
+    """Component count; ``filter`` restricts to the induced selection
+    (filtered-out nodes count as singletons). (``node_filter=`` is a
+    deprecated alias.)
+
+    The JAX package goes through ``analysis.connected_components``, which
+    only delegates to ``components_batched``; ``analysis.py`` is not
+    ported yet (ROADMAP Queue 1 item 7), so this calls it directly.
+    """
+    filter = merge_filter_kwargs(filter, node_filter)
+    labels = components_batched(net, layernames, node_filter=filter)
+    return int(torch.unique(labels).numel())
+
+
+def componentsfast(
+    net: Network, layernames: Sequence[str] | None = None, filter=None,
+    node_filter=None,
+) -> int:
+    """CLI ``componentsfast``: filter-aware component count, the same as
+    ``countcomponents``. (``node_filter=`` is a deprecated alias.)"""
+    filter = merge_filter_kwargs(filter, node_filter)
+    return countcomponents(net, layernames, filter=filter)
+
+
+# ---------------------------------------------------------------------------
+# Batched traversal (core/traversal.py)
+# ---------------------------------------------------------------------------
+
+
+def khop(
+    net: Network, sources, k: int,
+    layernames: Sequence[str] | None = None,
+    max_frontier: int | None = None, filter=None, node_filter=None,
+) -> list[dict]:
+    """CLI ``khop``: k-hop neighborhoods for a batch of sources.
+
+    Returns one record per source: ``{"source", "count", "nodes", "hops"}``
+    with ``nodes`` the reached ids (source excluded) grouped by hop order
+    and ``hops`` the matching hop index per id. Routed through
+    :class:`QueryRequest`. (``node_filter=`` is a deprecated alias.)
+    """
+    filter = merge_filter_kwargs(filter, node_filter)
+    src = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+    layers = None if layernames is None else list(layernames)
+    return run_query(net, QueryRequest.khop(
+        [int(s) for s in src], int(k), layers=layers,
+        max_frontier=None if max_frontier is None else int(max_frontier),
+        filter=filter,
+    ))
+
+
+def egosample(
+    net: Network, egos, max_alters: int = 4096, k: int = 1,
+    layernames: Sequence[str] | None = None, filter=None, node_filter=None,
+) -> list[list[int]]:
+    """CLI ``egosample``: batched (k-hop) ego networks, one sorted-unique
+    alter list per ego. (``node_filter=`` is a deprecated alias.)"""
+    filter = merge_filter_kwargs(filter, node_filter)
+    ids = np.atleast_1d(np.asarray(egos, dtype=np.int64))
+    vals, mask = net.ego_batch(
+        ids.astype(np.int32), int(max_alters), k=int(k),
+        layer_names=layernames, node_filter=filter,
+    )
+    vals, mask = vals.cpu().numpy(), mask.cpu().numpy()
+    return [vals[i][mask[i]].tolist() for i in range(ids.size)]
 
 
 # ---------------------------------------------------------------------------

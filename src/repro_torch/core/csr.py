@@ -499,6 +499,14 @@ def csr_transpose(csr: CSR, policy: DtypePolicy | None = None) -> CSR:
     )
 
 
+def csr_row_ids(csr: CSR) -> torch.Tensor:
+    """Expanded per-edge source row ids, int32[nnz], on the CSR's device."""
+    rows = torch.arange(csr.n_rows, dtype=torch.int32, device=csr.device)
+    return torch.repeat_interleave(
+        rows, csr.degrees().long(), output_size=csr.nnz
+    )
+
+
 # ---------------------------------------------------------------------------
 # Batched device-side queries
 # ---------------------------------------------------------------------------

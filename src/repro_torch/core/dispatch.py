@@ -390,13 +390,19 @@ def union_rows(
     vals: torch.Tensor,
     valid: torch.Tensor,
     max_out: int,
+    *,
+    use_kernel: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sorted-unique rows capped at ``max_out`` (multilayer alters merge).
 
     Rows up to ``UNION_KERNEL_MAX_FLAT`` wide go to the segmented-union
     kernel, wider ones to the ``padded_unique`` sort path (counted).
+    ``use_kernel=False`` takes the sort path for every row (the plain
+    reference of the traversal).
     """
     flat = torch.where(valid, vals, _SENT)
+    if not use_kernel:
+        return kref.segmented_union_ref(flat, max_out)
     if flat.shape[-1] <= UNION_KERNEL_MAX_FLAT:
         return kops.segmented_union(flat, max_out)
     launch_counts["segmented_union_sort_rows"] += int(

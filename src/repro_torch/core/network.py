@@ -164,6 +164,53 @@ class Network:
                 total = total + layer.filtered_degree(u, nf)
         return total
 
+    # -- batched traversal (core/traversal.py) -------------------------------
+
+    def khop(
+        self,
+        sources,
+        k: int,
+        *,
+        max_frontier: int | None = None,
+        max_alters_per_node: int | None = None,
+        layer_names: Sequence[str] | None = None,
+        node_filter=None,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Batched k-hop neighborhoods -> (nodes, mask, hop_of_slot).
+
+        Frontier-based multi-source BFS through the degree-bucketed
+        dispatch — see ``traversal.khop_neighborhood`` for the layout
+        (slot 0 = source, then k sorted hop groups of ``max_frontier``)."""
+        from .traversal import khop_neighborhood
+
+        return khop_neighborhood(
+            self, sources, k, max_frontier=max_frontier,
+            max_alters_per_node=max_alters_per_node,
+            layer_names=layer_names, node_filter=node_filter,
+        )
+
+    def ego_batch(
+        self,
+        egos,
+        max_alters: int,
+        *,
+        k: int = 1,
+        max_alters_per_node: int | None = None,
+        layer_names: Sequence[str] | None = None,
+        node_filter=None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batched k-hop ego networks -> (int32[B, max_alters], dedup mask).
+
+        Sorted-unique alters within k hops of each ego (ego excluded);
+        every alter appears once however many paths reach it."""
+        from .traversal import ego_batch
+
+        return ego_batch(
+            self, egos, max_alters, k=k,
+            max_alters_per_node=max_alters_per_node,
+            layer_names=layer_names, node_filter=node_filter,
+        )
+
     @property
     def nbytes(self) -> int:
         return self.nodeset.nbytes + sum(l.nbytes for l in self.layers)

@@ -9,7 +9,9 @@ of the rebuilt layer bit for bit.
 Overlays reach the port ready-made (``core/convert.py``); building and
 updating them (``overlay_update``) is mutation, which this slice does not
 port. The overlay keeps a host mirror of ``dirty`` beside the device mask
-for bucket planning, like ``CSR.indptr_host``.
+for bucket planning, like ``CSR.indptr_host``. ``eff_coo`` and
+``eff_edge_stream`` read the effective entries (clean base rows + dirty
+delta rows) for the min-label component sweeps.
 """
 
 from __future__ import annotations
@@ -19,7 +21,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .csr import CSR, csr_contains, csr_row_gather, csr_value_at, take_clip
+from .csr import (
+    CSR,
+    csr_contains,
+    csr_row_gather,
+    csr_row_ids,
+    csr_value_at,
+    take_clip,
+    to_numpy,
+    to_tensor,
+    widen_ids,
+)
 
 __all__ = [
     "DeltaOverlay",
@@ -33,6 +45,8 @@ __all__ = [
     "eff_max_degree",
     "eff_host_degrees",
     "eff_host_degree_table",
+    "eff_coo",
+    "eff_edge_stream",
 ]
 
 
@@ -165,3 +179,54 @@ def eff_max_degree(base: CSR, ov: DeltaOverlay | None) -> int:
         return base.max_degree()
     tab = eff_host_degree_table(base, ov)
     return int(tab.max()) if tab.size else 0
+
+
+def _csr_coo_np(csr: CSR) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
+    rows = np.repeat(
+        np.arange(csr.n_rows, dtype=np.int64), np.diff(csr.indptr_host)
+    )
+    cols = to_numpy(csr.indices).astype(np.int64)
+    vals = None if csr.values is None else to_numpy(csr.values)
+    return rows, cols, vals
+
+
+def eff_coo(
+    base: CSR, ov: DeltaOverlay | None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
+    """Effective host COO: clean base rows + dirty delta rows.
+
+    Each row's entries stay contiguous and column-sorted. O(nnz) host
+    copy: compaction/export cost, never on a query path.
+    """
+    if ov is None:
+        return _csr_coo_np(base)
+    br, bc, bv = _csr_coo_np(base)
+    keep = ~ov.dirty_host[: base.n_rows][br]
+    dr, dc, dv = _csr_coo_np(ov.delta)
+    rows = np.concatenate([br[keep], dr])
+    cols = np.concatenate([bc[keep], dc])
+    if bv is None and dv is None:
+        vals = None
+    else:
+        vals = np.concatenate([
+            bv[keep] if bv is not None else np.ones(int(keep.sum()), np.float32),
+            dv if dv is not None else np.ones(dr.size, np.float32),
+        ])
+    return rows, cols, vals
+
+
+def eff_edge_stream(
+    base: CSR, ov: DeltaOverlay | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-edge (row, col) int32 device streams (min-label sweeps).
+
+    Overlay-free CSRs expand on the device; a live overlay goes through
+    the host ``eff_coo`` read.
+    """
+    if ov is None:
+        return csr_row_ids(base), widen_ids(base.indices)
+    rows, cols, _ = eff_coo(base, ov)
+    return (
+        to_tensor(rows.astype(np.int32), base.device),
+        to_tensor(cols.astype(np.int32), base.device),
+    )

@@ -5,12 +5,14 @@ The wire/trace schema maps 1:1 onto the fields:
     {"kind": "getedge", "layer": L, "u": i, "v": j}
     {"kind": "alters",  "u": i [, "layers": [...]] [, "max_alters": m]}
     {"kind": "degree",  "u": i|[ids] [, "layers": [...]]}
+    {"kind": "khop",    "sources": [ids], "k": k [, "layers": [...]]
+                        [, "max_frontier": f]}
 
 plus an optional ``"filter"``: a NodeSelection, a bool mask, or a spec
 ``{"attr": a, "op": eq|ne|lt|le|gt|ge|has [, "value": v]}`` resolved
 against the network's attribute store, and an optional ``"timeout"``.
-The ``khop`` and ``walkbatch`` kinds are part of the schema but not of
-this port yet: canonicalizing one raises ``NotImplementedError``.
+The ``walkbatch`` kind is part of the schema but not of this port yet:
+canonicalizing one raises ``NotImplementedError``.
 
 :func:`run_query` executes one request; :func:`run_queries` a batch,
 grouped so requests sharing kind, static arguments and filter run as one
@@ -47,7 +49,6 @@ REQUEST_KINDS = POINT_KINDS + HEAVY_KINDS
 
 # Where each unported kind waits (ROADMAP.md, Queue 1).
 _NOT_PORTED = {
-    "khop": "ROADMAP Queue 1 item 6 (core/traversal.py, frontier kernel)",
     "walkbatch": "ROADMAP Queue 1 item 7 (walks and the RNG contract)",
 }
 
@@ -128,6 +129,13 @@ class QueryRequest:
     @classmethod
     def degree(cls, u, *, layers=None, filter=None, timeout=None):
         return cls(kind="degree", u=u, layers=layers, filter=filter,
+                   timeout=timeout)
+
+    @classmethod
+    def khop(cls, sources, k, *, layers=None, max_frontier=None,
+             filter=None, timeout=None):
+        return cls(kind="khop", sources=sources, k=k, layers=layers,
+                   max_frontier=max_frontier, filter=filter,
                    timeout=timeout)
 
     def to_dict(self) -> dict:
@@ -258,10 +266,21 @@ def canonical_request(net, req, *, _filter_memo: dict | None = None
         gk = (kind, layers, m, fp)
         return CanonicalRequest(kind, gk, gk + (u,), u, (), mask)
 
+    if kind == "degree":
+        layers = _canon_layers(net, q.layers)
+        u = _canon_ids(_need(q.u, "u"), what="u")
+        gk = (kind, layers, fp)
+        return CanonicalRequest(kind, gk, gk + (u,), u, (), mask)
+
+    # khop
     layers = _canon_layers(net, q.layers)
-    u = _canon_ids(_need(q.u, "u"), what="u")
-    gk = (kind, layers, fp)
-    return CanonicalRequest(kind, gk, gk + (u,), u, (), mask)
+    k = int(_need(q.k, "k"))
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    mf = None if q.max_frontier is None else int(q.max_frontier)
+    src = _canon_ids(_need(q.sources, "sources"), what="sources")
+    gk = (kind, layers, k, mf, fp)
+    return CanonicalRequest(kind, gk, gk + (src,), src, (), mask)
 
 
 # ---------------------------------------------------------------------------
@@ -302,10 +321,29 @@ def _exec_degree(net, group_key, creqs):
     return res
 
 
+def _exec_khop(net, group_key, creqs):
+    from .traversal import khop_records
+
+    _, layers, k, mf, _ = group_key
+    flat = [s for c in creqs for s in c.ids]
+    nodes, mask, hops = net.khop(
+        np.asarray(flat, np.int32), k, max_frontier=mf,
+        layer_names=layers, node_filter=creqs[0].mask,
+    )
+    records = khop_records(flat, nodes, mask, hops)
+    res, lo = [], 0
+    for c in creqs:
+        hi = lo + len(c.ids)
+        res.append(records[lo:hi])
+        lo = hi
+    return res
+
+
 _EXECUTORS = {
     "getedge": _exec_getedge,
     "alters": _exec_alters,
     "degree": _exec_degree,
+    "khop": _exec_khop,
 }
 
 

@@ -11,8 +11,9 @@
 //
 // Design: one block per row. The row is loaded into dynamic shared memory,
 // padded with SENTINEL to the next power of two P (at least 32), and sorted
-// there with a bitonic network (O(P log^2 P) compares instead of O(K^2)).
-// A value is kept when it is not SENTINEL and differs from its
+// there with a bitonic network (O(P log^2 P) compares instead of O(K^2));
+// the load, the sort and the block scan live in row_sort.cuh, shared with
+// frontier.cu. A value is kept when it is not SENTINEL and differs from its
 // predecessor; a block-wide exclusive scan of the keep flags, taken in
 // rounds of blockDim.x consecutive slots, gives each kept value its rank,
 // and out[row, rank] is written for rank < max_out (consecutive ranks, so
@@ -28,42 +29,12 @@
 // (log2(P)*(log2(P)+1)/2 barrier-separated sweeps) are what the block
 // spends its time on; that is the first thing a faster version would cut.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_sort.cuh"
 
 namespace {
 
-constexpr int32_t kSentinel = 0x7fffffff;
-constexpr int kMaxPadded = 32768;
-
-// Exclusive scan of one int per thread across the block; blockDim.x is a
-// multiple of 32 and at most 1024. `warp_sums` is 32 ints of shared memory.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < nwarps ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < nwarps) warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const int prefix = warp > 0 ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[nwarps - 1];
-  __syncthreads();  // warp_sums is rewritten by the next call
-  return prefix + x - v;
-}
+using row_sort::kMaxPadded;
+using row_sort::kSentinel;
 
 __global__ void segmented_union_kernel(const int32_t* __restrict__ flat,
                                        int32_t* __restrict__ out, int k,
@@ -72,33 +43,11 @@ __global__ void segmented_union_kernel(const int32_t* __restrict__ flat,
   int32_t* s = smem;                // padded row
   int* warp_sums = smem + padded;   // scan scratch, 32 ints
   const int64_t row = blockIdx.x;
-  const int32_t* src = flat + row * k;
   int32_t* dst = out + row * static_cast<int64_t>(max_out);
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
 
-  for (int i = tid; i < padded; i += nt) s[i] = i < k ? src[i] : kSentinel;
-  __syncthreads();
-
-  // Bitonic sort, ascending. Thread t handles the pair (i, i + stride),
-  // where i is t with a zero bit inserted at the stride's position.
-  const int half = padded >> 1;
-  for (int size = 2; size <= padded; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < half; t += nt) {
-        const int i = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
-        const int j = i + stride;
-        const bool ascending = (i & size) == 0;
-        const int32_t x = s[i];
-        const int32_t y = s[j];
-        if ((x > y) == ascending) {
-          s[i] = y;
-          s[j] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  row_sort::load_and_sort(flat + row * k, k, s, padded);
 
   // Keep first occurrences, rank them, write the compacted row.
   int base = 0;
@@ -107,7 +56,8 @@ __global__ void segmented_union_kernel(const int32_t* __restrict__ flat,
     const int32_t x = s[i];
     const int keep = (x != kSentinel && (i == 0 || s[i - 1] != x)) ? 1 : 0;
     int total;
-    const int rank = base + block_exclusive_scan(keep, warp_sums, &total);
+    const int rank =
+        base + row_sort::block_exclusive_scan(keep, warp_sums, &total);
     if (keep && rank < max_out) dst[rank] = x;
     base += total;
   }
@@ -127,19 +77,10 @@ extern "C" int segmented_union_launch(const int32_t* flat, int32_t* out,
   if (k > kMaxPadded || k < 0 || max_out < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int padded = 32;
-  while (padded < k) padded <<= 1;
-  int threads = padded / 2;
-  if (threads < 32) threads = 32;
-  if (threads > 1024) threads = 1024;
-  const size_t smem = (static_cast<size_t>(padded) + 32) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        segmented_union_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  segmented_union_kernel<<<static_cast<unsigned>(rows), threads, smem,
-                           stream>>>(flat, out, k, max_out, padded);
+  const row_sort::RowLaunch l = row_sort::row_launch(k);
+  const cudaError_t e = row_sort::allow_smem(segmented_union_kernel, l.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  segmented_union_kernel<<<static_cast<unsigned>(rows), l.threads, l.smem,
+                           stream>>>(flat, out, k, max_out, l.padded);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,14 +3,18 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use by ``nvcc`` for Hopper (``sm_90a``) into its own shared library
 under ``build/repro_torch/`` at the repository root, named by a hash of
-its source and flags so an edited source rebuilds. Libraries load with
+its source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds. Libraries load with
 ``ctypes``. :func:`build` starts one ``nvcc`` per missing library, all at
 once, and waits for them.
 
 ``launch_counts`` holds one plain integer per kernel: each wrapper adds
-one where it launches its kernel, and nowhere else. The degree-bucketed
-dispatcher counts the union rows it sends to the sort path under
-``"segmented_union_sort_rows"``.
+one where it launches its kernel, and nowhere else. Rows that a kernel
+cannot take and that go to the plain torch path on the card are counted
+too: union rows under ``"segmented_union_sort_rows"`` (degree-bucketed
+dispatcher) and frontier rows under ``"frontier_sort_rows"`` (k-hop
+traversal). ``core/traversal.py`` counts its label sweeps under
+``"components_sweeps"``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNEL_SOURCES = ("intersect", "segmented_union")
+KERNEL_SOURCES = ("intersect", "segmented_union", "frontier")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,6 +52,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,8 +1,8 @@
 """Public wrappers around the hand-written CUDA kernels.
 
 On a CUDA tensor each op launches its kernel (``kernels/intersect.py``,
-``kernels/segmented_union.py``); on a CPU tensor it runs the plain torch
-version from ``kernels/ref.py``. The choice is made by the device of the
+``kernels/segmented_union.py``, ``kernels/frontier.py``); on a CPU tensor
+it runs the plain torch version from ``kernels/ref.py``. The choice is made by the device of the
 tensors given, never by catching a failure: a CUDA tensor that the kernel
 refuses raises.
 """
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.csr import SENTINEL, take_clip
 from . import ref
+from .frontier import frontier_compact_cuda
 from .intersect import intersect_count_cuda
 from .segmented_union import segmented_union_cuda
 
@@ -54,6 +55,40 @@ def segmented_union(
     batch_shape = flat.shape[:-1]
     out = segmented_union_cuda(
         flat.reshape(-1, flat.shape[-1]).contiguous(), max_out
+    )
+    out = out.reshape(batch_shape + (max_out,))
+    return out, out != _SENT
+
+
+# ---------------------------------------------------------------------------
+# frontier compaction (batched k-hop BFS)
+# ---------------------------------------------------------------------------
+
+
+def frontier_compact(
+    cand: torch.Tensor,
+    visited: torch.Tensor,
+    max_out: int,
+    *,
+    visited_sorted: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-BFS-frontier compaction -> (int32[..., max_out], mask).
+
+    Keeps the first occurrence of every SENTINEL-padded candidate that is
+    not present in the matching ``visited`` row, sorted ascending and
+    capped at ``max_out``. ``visited_sorted=True`` promises each visited
+    row is already sorted ascending (SENTINEL pads last): callers
+    compacting several candidate chunks against one visited buffer sort
+    it once; otherwise it is sorted here.
+    """
+    vs = visited if visited_sorted else torch.sort(visited, dim=-1).values
+    if not cand.is_cuda:
+        return ref.frontier_search_ref(cand, vs, max_out)
+    batch_shape = cand.shape[:-1]
+    out = frontier_compact_cuda(
+        cand.reshape(-1, cand.shape[-1]).contiguous(),
+        vs.reshape(-1, vs.shape[-1]).contiguous(),
+        max_out,
     )
     out = out.reshape(batch_shape + (max_out,))
     return out, out != _SENT

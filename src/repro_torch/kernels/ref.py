@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.csr import SENTINEL, padded_unique, take_clip
+from repro_torch.core.csr import SENTINEL, padded_unique, sorted_isin, take_clip
 
 _SENT = int(SENTINEL)
 
@@ -40,6 +40,37 @@ def segmented_union_ref(
         uniq = torch.nn.functional.pad(uniq, pad, value=_SENT)
         mask = torch.nn.functional.pad(mask, pad, value=False)
     return uniq[..., :max_out], mask[..., :max_out]
+
+
+def frontier_ref(
+    cand: torch.Tensor, visited: torch.Tensor, max_out: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-frontier oracle: drop candidates present in the visited row,
+    then dedup/sort/cap like ``segmented_union_ref``.
+
+    cand: int32[..., Kc] SENTINEL-padded (unsorted, duplicates allowed);
+    visited: int32[..., Kv] SENTINEL-padded (any order). All-pairs
+    membership, O(Kc*Kv): the simplest obviously-correct form.
+    """
+    valid = cand != _SENT
+    seen = (
+        (cand[..., :, None] == visited[..., None, :]) & valid[..., :, None]
+    ).any(dim=-1)
+    flat = torch.where(valid & ~seen, cand, _SENT)
+    return segmented_union_ref(flat, max_out)
+
+
+def frontier_search_ref(
+    cand: torch.Tensor, visited_sorted: torch.Tensor, max_out: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``frontier_ref`` by binary search, O(Kc log Kv): the plain path of
+    ``ops.frontier_compact``. Each visited row must be sorted ascending
+    (SENTINEL pads last); outputs are bit-identical to ``frontier_ref``.
+    """
+    valid = cand != _SENT
+    seen = sorted_isin(cand, valid, visited_sorted, visited_sorted != _SENT)
+    flat = torch.where(valid & ~seen, cand, _SENT)
+    return segmented_union_ref(flat, max_out)
 
 
 def filtered_alters_ref(

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain torch
-versions, and the point-query api on CUDA against the same api on the CPU.
+versions, and the point-query and traversal api on CUDA against the same
+api on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -20,6 +21,7 @@ from repro_torch.core import api
 from repro_torch.core.csr import SENTINEL
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.build import launch_counts
+from repro_torch.kernels.frontier import MAX_CAND
 from repro_torch.kernels.segmented_union import MAX_FLAT
 
 S = int(SENTINEL)
@@ -77,7 +79,28 @@ def test_segmented_union_kernel_matches_plain(cuda_device, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Kc", [32, 300, 4096, MAX_CAND])
+@pytest.mark.parametrize("Kv", [1, 257, 8193])
+def test_frontier_kernel_matches_plain(cuda_device, Kc, Kv):
+    rng = np.random.default_rng(700 + Kc + Kv)  # seed 700+Kc+Kv
+    universe = max(Kc // 2, 2)
+    cand = _flat_rows(rng, 24, Kc, universe)
+    visited = _flat_rows(rng, 24, Kv, universe)
+    for max_out in (1, 256, Kc + 7):
+        before = launch_counts["frontier_compact"]
+        gv, gm = ops.frontier_compact(cand.to(cuda_device), visited.to(cuda_device),
+                                      max_out)
+        assert launch_counts["frontier_compact"] == before + 1
+        # the binary-search plain version (frontier_ref's all-pairs form
+        # would hold 24 x Kc x Kv booleans); the CPU tests hold the two equal
+        wv, wm = ref.frontier_search_ref(cand, torch.sort(visited).values, max_out)
+        torch.testing.assert_close(gv.cpu(), wv, rtol=0, atol=0)
+        assert torch.equal(gm.cpu(), wm)
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_refuse_bad_operands(cuda_device):
+    from repro_torch.kernels.frontier import frontier_compact_cuda
     from repro_torch.kernels.intersect import intersect_count_cuda
     from repro_torch.kernels.segmented_union import segmented_union_cuda
 
@@ -89,6 +112,15 @@ def test_kernel_wrappers_refuse_bad_operands(cuda_device):
     with pytest.raises(ValueError):
         segmented_union_cuda(
             torch.zeros((2, MAX_FLAT + 1), dtype=torch.int32, device=cuda_device), 4
+        )
+    with pytest.raises(TypeError):
+        frontier_compact_cuda(x.long(), x, 4)
+    with pytest.raises(ValueError):
+        frontier_compact_cuda(x[:, ::2], x, 4)
+    with pytest.raises(ValueError):
+        frontier_compact_cuda(
+            torch.zeros((4, MAX_CAND + 1), dtype=torch.int32, device=cuda_device),
+            x, 4,
         )
 
 
@@ -124,3 +156,22 @@ def test_api_on_cuda_matches_cpu(cuda_device):
             assert torch.equal(ac[0], ag[0]) and torch.equal(ac[1], ag[1])
         np.testing.assert_array_equal(api.getdegree(cpu, u, filter=fc),
                                       api.getdegree(gpu, u, filter=fg))
+
+
+@pytest.mark.cuda
+def test_traversal_api_on_cuda_matches_cpu(cuda_device):
+    cpu, gpu = _network("cpu"), _network(None)
+    src = np.random.default_rng(602).integers(0, 2000, 64)  # seed 602
+    before = launch_counts["frontier_compact"]
+    for filtered in (False, True):
+        fc = api.selectnodes(cpu, "income", ">", 50) if filtered else None
+        fg = api.selectnodes(gpu, "income", ">", 50) if filtered else None
+        for layers in (None, ["wk"], ["er"]):
+            assert api.khop(cpu, src, 2, layernames=layers, max_frontier=64,
+                            filter=fc) == \
+                api.khop(gpu, src, 2, layernames=layers, max_frontier=64, filter=fg)
+        assert api.egosample(cpu, src[:16], max_alters=128, k=2, filter=fc) == \
+            api.egosample(gpu, src[:16], max_alters=128, k=2, filter=fg)
+        assert api.countcomponents(cpu, filter=fc) == \
+            api.countcomponents(gpu, filter=fg)
+    assert launch_counts["frontier_compact"] > before
