@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — pseudo-projection point queries and
-batched traversal on a population-scale mixed-mode network — on the card,
-through the ``repro_torch.core`` entry points a user calls, and fails
-(non-zero exit) if any phase fails:
+batched traversal on a population-scale mixed-mode network, and LM
+serving at full width — on the card, through the entry points a user
+calls (``repro_torch.core.api``, ``repro_torch.models.lm_serve``), and
+fails (non-zero exit) if any phase fails:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — compiles the CUDA kernels (``src/repro_torch/csrc``);
@@ -40,11 +41,31 @@ through the ``repro_torch.core`` entry points a user calls, and fails
               k-hops must equal scipy's on its materialized projection.
               Each call prints its wall time, device-idle share and the
               device activities that took most of its busy time;
-9. timing   — each kernel, its plain version and its bound at the heaviest
+9. lm       — LM serving at full width, bf16, through
+              ``ServeEngine.generate``: qwen3-1.7b (28 layers, d_model
+              2048) and mamba2-130m (24 layers, d_model 768), each with
+              weights drawn from a seeded generator, serving 8 requests of
+              2,048 seeded prompt tokens and 64 new tokens, greedy and at
+              temperature 0.8, with launch counts reset just before and
+              read just after (flash_attention, rmsnorm and ssd_scan must
+              launch). Prints per call the wall time, tokens/s, prefill ms
+              and decode ms per step, the device-idle share and busiest
+              device activities of one profiled prefill and decode step,
+              and max_memory_allocated. Checks each LM kernel against its
+              plain version evaluated in f32 at every shape the phase
+              launched, element by element within a limit scaled to the
+              reference (and that the limit rejects a zeroed output and
+              the reference rounded to 5 bits), the greedy first tokens
+              against the argmax of ``Model.apply``, and, in an f32 copy
+              of each model, prefill + 8 decode steps against
+              ``Model.apply`` (2 requests, 256-token prompts);
+10. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (device times from torch.profiler:
               the kernel's own launches, the plain version's busy time per
               call; the phase fails if the profiler sees no launch of the
-              kernel).
+              kernel), and for the LM kernels the one torch call that
+              computes the same function (SDPA, ``F.rms_norm``) as a
+              yardstick the port never calls.
 
 Its last lines are the ``kernels`` JSON record and then
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -120,6 +141,37 @@ EGO_MAX_ALTERS = 256
 TRAVERSAL_SUBSAMPLE = 64
 TRAVERSAL_REPEATS = 3
 SMALL_NODES = 3000
+
+# LM phase: both configurations at full width in bf16 (depth not cut),
+# random weights from SEED. Traffic: LM_REQUESTS prompts of LM_PROMPT
+# seeded tokens, LM_NEW new tokens, greedy and at LM_TEMPERATURE.
+LM_ARCHS = ("qwen3-1.7b", "mamba2-130m")
+LM_REQUESTS = 8
+LM_PROMPT = 2048
+LM_NEW = 64
+LM_MAX_SEQ = LM_PROMPT + LM_NEW
+LM_TEMPERATURE = 0.8
+# decode against the full forward, in an f32 copy of each model
+LM_CHECK_REQUESTS = 2
+LM_CHECK_PROMPT = 256
+LM_CHECK_STEPS = 8
+# f32 logits of decode vs Model.apply: the same function, with the decode
+# attention and SSD recurrence in plain torch and the prefill through the
+# kernels, sums over d_model 2048 and 28 layers taken in another order
+# (3.8e-5 and 1.2e-5 measured on the H100; logits std 0.9 and 0.55)
+LM_F32_ATOL = 2e-4
+# bf16 kernels against their plain versions evaluated in f32 on the same
+# inputs (the upcast is exact): each kernel computes in f32 and rounds its
+# output to bf16 once, within 2^-8 of the value (8 significant bits), so an
+# element may differ by LM_REL_TOL of its own size, plus LM_FLOOR_TOL of the
+# reference's largest value for f32 sums taken in another order
+LM_REL_TOL = 2.0**-7
+LM_FLOOR_TOL = 2.0**-12
+# planted faults the same check must reject at every launched shape: a
+# zeroed output, and the reference rounded to LM_FAULT_BITS significant bits
+LM_FAULT_BITS = 5
+LM_REPEATS = 3  # timed generate calls per call kind, after one warm-up
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 
 def log(msg: str) -> None:
@@ -553,11 +605,12 @@ def main_path_shapes(net, queries: dict) -> dict:
 
 
 def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
-                 traversal: dict, device) -> list:
+                 traversal: dict, lm: dict, device) -> list:
     """Kernel, plain version and bound at the heaviest shape each kernel's
     phase launched: the main path's for intersect and union, the
-    traversal phase's (its recorded inputs) for the frontier kernel. What
-    each time means is set out in ``kernel_record``.
+    traversal phase's (its recorded inputs) for the frontier kernel, the
+    lm phase's (its recorded inputs) for the LM kernels. What each time
+    means is set out in ``kernel_record``.
     """
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.segmented_union import MAX_FLAT
@@ -581,6 +634,7 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
         "src/repro/kernels/intersect.py:64", launches["intersect_count"],
         max(err, worst["intersect_count"]), kernel, plain, 50, nbytes,
         ops_count, f"[{rows},{width}]x[{rows},{width}]",
+        library_none="no torch call counts a per-row intersection",
     ))
 
     rows, width, layer_name = shapes["union"]
@@ -600,6 +654,7 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
         "src/repro/kernels/segmented_union.py:94", launches["segmented_union"],
         max(err, worst["segmented_union"]), kernel, plain, 5, nbytes,
         ops_count, f"[{rows},{width}]->[{rows},{width}] ({layer_name} filtered degree)",
+        library_none="torch.unique has no per-row form",
     ))
 
     _, cand, visited, max_out, call = traversal["heaviest"]
@@ -620,19 +675,25 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
         traversal["launches"]["frontier_compact"],
         max(err, worst["frontier_compact"]), kernel, plain, 20, nbytes,
         ops_count, f"[{rows},{kc}] vs [{rows},{kv}] -> [{rows},{max_out}] ({call})",
+        library_none="no torch call dedups per row against a second row",
     ))
     for r in records:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{r['name']} disagrees at the main-path shape")
+    records += lm_timing(lm)
     return records
 
 
 def kernel_record(name, symbol, source, replaces, launches, err, kernel, plain,
-                  iters, nbytes, ops_count, shape) -> dict:
+                  iters, nbytes, ops_count, shape, *, ops_rate=SCALAR_OPS_PER_S,
+                  library=None, library_none="") -> dict:
     """``ms`` is the mean device duration of the kernel's own launches (the
     profiler's events named ``symbol``); ``plain_ms`` the device busy time
-    per call of the plain version. Busy time per kernel call and the
-    event-timed time per call (host launch included) are printed beside."""
+    per call of the plain version, ``library_ms`` that of ``library``, one
+    torch call computing the same function (None where there is none, for
+    the reason ``library_none``). The bound counts ``ops_count`` at
+    ``ops_rate``. Busy time per kernel call and the event-timed time per
+    call (host launch included) are printed beside."""
     for _ in range(PROFILER_WINDOWS):
         acts = device_activity(kernel, iters)
         own = [v for k, v in acts.items() if symbol in k]
@@ -646,24 +707,25 @@ def kernel_record(name, symbol, source, replaces, launches, err, kernel, plain,
     plain_ms = device_ms(plain, max(iters // 5, 2))
     call_ms = cuda_ms(kernel, iters)
     plain_call_ms = cuda_ms(plain, max(iters // 5, 2))
+    library_ms = None if library is None else device_ms(library, iters)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops_count / SCALAR_OPS_PER_S * 1e3
+    ops_ms = ops_count / ops_rate * 1e3
     rec = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": int(launches), "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        # no single PyTorch call computes a per-row intersection count, a
-        # per-row sorted unique (torch.unique has no per-row form) or a
-        # per-row dedup against a second row
-        "library_ms": None, "shape": shape,
+        "library_ms": library_ms, "shape": shape,
     }
+    lib = (f"library {library_ms:.4f} ms" if library is not None
+           else f"no library call ({library_none})")
     log(f"timing: {name} at {shape}: kernel {ms:.4f} ms per launch "
         f"({seen} of {iters} launches seen by the profiler), device busy "
-        f"{busy_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); per call with host "
-        f"launch {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; {launches} "
-        f"launches in its phase; {device_line(CLOCK_FIELDS)}")
+        f"{busy_ms:.4f} ms per call, plain {plain_ms:.4f} ms, {lib}, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: bytes {bytes_ms:.4f}, "
+        f"operations {ops_ms:.4f}); per call with host launch {call_ms:.4f} ms, "
+        f"plain {plain_call_ms:.4f} ms; {launches} launches in its phase; "
+        f"{device_line(CLOCK_FIELDS)}")
     return rec
 
 
@@ -921,6 +983,393 @@ def small_traversal_check(device, seed: int, bad: list) -> None:
             break
 
 
+class KernelInputs:
+    """Within the block, keeps a copy of the inputs of the first launch of
+    every distinct shape of each LM kernel, under ``label``, so the checks
+    and the timing phase run each kernel on the data the lm phase gave it.
+    Wraps ``ops.<kernel>_cuda``; it counts nothing in ``launch_counts``."""
+
+    NAMES = ("flash_attention", "rmsnorm", "ssd_scan")
+
+    def __init__(self, label: str):
+        self.label = label
+        self.seen = {}  # (kernel, label, shapes) -> (args, kwargs)
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        self._inner = {n: getattr(ops, f"{n}_cuda") for n in self.NAMES}
+
+        def recorder(name, inner):
+            def record(*args, **kwargs):
+                key = (name, self.label, tuple(
+                    (tuple(a.shape), str(a.dtype)) for a in args
+                    if isinstance(a, torch.Tensor)))
+                if key not in self.seen:
+                    self.seen[key] = (
+                        [a.clone() if isinstance(a, torch.Tensor) else a
+                         for a in args], dict(kwargs))
+                return inner(*args, **kwargs)
+            return record
+
+        for n, inner in self._inner.items():
+            setattr(ops, f"{n}_cuda", recorder(n, inner))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for n, inner in self._inner.items():
+            setattr(ops, f"{n}_cuda", inner)
+
+
+def lm_plain(name: str):
+    """The plain torch version of an LM kernel's CUDA wrapper, same
+    arguments."""
+    from repro_torch.kernels import ref
+
+    return {
+        "flash_attention": ref.attention_ref,
+        "rmsnorm": ref.rmsnorm_ref,
+        "ssd_scan": ref.ssd_scan_heads_ref,
+    }[name]
+
+
+def lm_kernel(name: str):
+    from repro_torch.kernels import ops
+
+    return getattr(ops, f"{name}_cuda")
+
+
+def lm_excess(got, want) -> tuple[float, float]:
+    """(max |got - want|, largest ratio of |got - want| to its limit
+    LM_REL_TOL |want| + LM_FLOOR_TOL max |want|); NaN in ``got`` gives NaN."""
+    import torch
+
+    diff = (got - want).abs()
+    limit = (LM_REL_TOL * want.abs() + LM_FLOOR_TOL * float(want.abs().max())
+             ).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(diff.max()), float((diff / limit).max())
+
+
+def round_bits(t, bits: int):
+    """``t`` rounded to ``bits`` significant bits (a planted fault)."""
+    import torch
+
+    m, e = torch.frexp(t)
+    return torch.ldexp(torch.round(m * 2.0**bits) / 2.0**bits, e)
+
+
+def lm_kernel_checks(seen: dict) -> dict:
+    """Each LM kernel against its plain version, evaluated in f32 on the
+    same inputs, at every shape the lm phase launched it at -> {kernel: max
+    abs error}. Every element must lie within its limit (``lm_excess``
+    ratio <= 1), and the same check must reject two planted faults."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst, bad = {}, []
+    for (name, label, shapes), (args, kwargs) in seen.items():
+        got = lm_kernel(name)(*args, **kwargs).float()
+        want = lm_plain(name)(*[a.float() if isinstance(a, torch.Tensor) else a
+                                for a in args], **kwargs)
+        err, ratio = lm_excess(got, want) if got.numel() else (0.0, 0.0)
+        worst[name] = max(worst.get(name, 0.0), err)
+        _, zero_ratio = lm_excess(torch.zeros_like(want), want)
+        _, coarse_ratio = lm_excess(round_bits(want, LM_FAULT_BITS), want)
+        ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
+        caught = zero_ratio > 1.0 and coarse_ratio > 1.0
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        log(f"lm: {label} {name} at {[list(sh) for sh, _ in shapes]} "
+            f"{shapes[0][1]} against its plain version in f32: max_abs_err "
+            f"{err:.3e} (reference max |y| {float(want.abs().max()):.3e}, "
+            f"norm-relative error {rel:.3e}); worst ratio to the limit "
+            f"{ratio:.3f} ({'ok' if ok else 'FAILS'}; limit {LM_REL_TOL:g} |y| + "
+            f"{LM_FLOOR_TOL:g} max |y|); planted faults: zeroed output "
+            f"{zero_ratio:.3g}, reference rounded to {LM_FAULT_BITS} bits "
+            f"{coarse_ratio:.3g} ({'both rejected' if caught else 'NOT REJECTED'})")
+        if not ok or not caught:
+            bad.append(f"{label}/{name}{[list(sh) for sh, _ in shapes]}")
+        del got, want
+    if bad:
+        raise AssertionError(
+            f"LM kernel checks failed (disagreement, or a planted fault not "
+            f"rejected): {bad}")
+    return worst
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def lm_phases(model, engine, prompts, reqs, device) -> tuple:
+    """The phases of one generate call with a sync around each: median
+    prefill ms of 3 calls, median ms per decode step (sampling included),
+    and the caches, tokens and position of the last step."""
+    import torch
+
+    tokens = torch.from_numpy(prompts).to(device)
+    B, P = prompts.shape
+    pre = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(tokens, LM_MAX_SEQ)
+        sync()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    cur = engine._sample(logits[:, 0], reqs)
+    steps = []
+    for t in range(1, LM_NEW):
+        pos = torch.full((B,), P + t - 1, dtype=torch.int32, device=device)
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(cur[:, None], caches, pos)
+        cur = engine._sample(logits[:, 0], reqs)
+        sync()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(pre), statistics.median(steps), caches, cur, pos
+
+
+def lm_serve(arch: str, cfg, device, seed: int) -> dict:
+    """One configuration in bf16 through ``ServeEngine.generate``, with the
+    launch counts set to 0 just before and read just after; then its
+    timing, profile and checks."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models.config import param_count
+    from repro_torch.models.lm_serve import Request, ServeEngine
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    sync()
+    n_params = param_count(cfg)
+    log(f"lm: {arch}: {n_params} parameters in {cfg.dtype}, {cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}; drawn on the "
+        f"card in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(seed + 20)
+    prompts = rng.integers(2, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+    calls = {
+        "greedy": [Request(prompt=p, max_new_tokens=LM_NEW, rid=i)
+                   for i, p in enumerate(prompts)],
+        f"temperature {LM_TEMPERATURE}": [
+            Request(prompt=p, max_new_tokens=LM_NEW, temperature=LM_TEMPERATURE,
+                    rid=i) for i, p in enumerate(prompts)],
+    }
+    engine = ServeEngine(model, max_seq=LM_MAX_SEQ, seed=seed)
+    n_tokens = LM_REQUESTS * LM_NEW
+
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    outputs, walls = {}, {}
+    with KernelInputs(arch) as rec:
+        for label, reqs in calls.items():
+            ms, out = host_median_ms(lambda: engine.generate(reqs), LM_REPEATS)
+            outputs[label], walls[label] = out, ms
+    sync()
+    launches = dict(build.launch_counts)
+    runs = len(calls) * (LM_REPEATS + 1)
+    log(f"lm: {arch}: launch counts {json.dumps(launches, sort_keys=True)} over "
+        f"{runs} generate calls ({ {k: v / runs for k, v in launches.items()} } "
+        f"per call); max_memory_allocated {torch.cuda.max_memory_allocated()}")
+    for k in ("rmsnorm", "flash_attention" if cfg.family != "ssm" else "ssd_scan"):
+        if launches.get(k, 0) == 0:
+            raise AssertionError(f"kernel {k} never launched on the {arch} path")
+
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    for label, reqs in calls.items():
+        pre_ms, step_ms, caches, cur, pos = lm_phases(model, engine, prompts, reqs,
+                                                     device)
+        log(f"lm: {arch} {label} x{LM_REQUESTS}, prompt {LM_PROMPT}, {LM_NEW} new: "
+            f"median {walls[label]:.3f} ms per generate call, "
+            f"{n_tokens / walls[label] * 1e3:.1f} tokens/s; prefill {pre_ms:.3f} ms, "
+            f"decode {step_ms:.3f} ms per step (weights {weight_bytes} bytes: "
+            f">= {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms a step); "
+            f"{device_line()}")
+    tokens = torch.from_numpy(prompts).to(device)
+    log(f"lm: {arch} prefill: " + busy_share(
+        lambda: model.prefill(tokens, LM_MAX_SEQ), pre_ms, top=4))
+    log(f"lm: {arch} decode step: " + busy_share(
+        lambda: model.decode_step(cur[:, None], caches, pos), step_ms, top=4))
+    del caches
+
+    # checks: tokens in range, greedy deterministic and equal to the argmax
+    # of the full forward, temperature draws not all greedy
+    greedy = np.stack([c.tokens for c in outputs["greedy"]])
+    hot = np.stack([c.tokens for c in outputs[f"temperature {LM_TEMPERATURE}"]])
+    for name, toks in (("greedy", greedy), ("temperature", hot)):
+        if toks.shape != (LM_REQUESTS, LM_NEW) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{arch} {name} tokens out of range: {toks.shape}")
+    again = np.stack([c.tokens for c in engine.generate(calls["greedy"])])
+    if not np.array_equal(again, greedy):
+        raise AssertionError(f"{arch}: greedy generate is not deterministic")
+    if np.array_equal(hot, greedy):
+        raise AssertionError(f"{arch}: temperature sampling returned the greedy tokens")
+    last = model.apply(tokens)[0][:, -1].float()
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{arch}: non-finite logits from Model.apply")
+    want = last.argmax(dim=-1).cpu().numpy()
+    ties = 0
+    for i in np.nonzero(want != greedy[:, 0])[0]:
+        top, got = float(last[i, want[i]]), float(last[i, greedy[i, 0]])
+        if top - got > bf16_ulp(top):
+            raise AssertionError(
+                f"{arch}: request {i} served token {greedy[i, 0]} (logit {got}) "
+                f"where Model.apply's argmax is {want[i]} (logit {top})")
+        ties += 1
+    log(f"lm: {arch}: greedy tokens deterministic; first tokens equal the argmax "
+        f"of Model.apply for {LM_REQUESTS - ties} of {LM_REQUESTS} requests "
+        f"({ties} within one bf16 ulp of a tie); temperature {LM_TEMPERATURE} "
+        f"differs from greedy in {int((hot != greedy).sum())} of {hot.size} tokens")
+    del model, engine, last
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seen": rec.seen}
+
+
+def lm_decode_check(arch: str, cfg, device, seed: int) -> float:
+    """An f32 copy of the configuration at full width: prefill of
+    LM_CHECK_PROMPT tokens and LM_CHECK_STEPS teacher-forced decode steps
+    against ``Model.apply`` at the same positions -> max |Δ logit|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = Model(cfg32, device=device).init(
+        torch.Generator(device=device).manual_seed(seed))
+    P, n = LM_CHECK_PROMPT, LM_CHECK_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(seed + 21).integers(
+        2, cfg.vocab_size, (LM_CHECK_REQUESTS, P + n))).to(device)
+    full = model.apply(tokens)[0]
+    last, caches = model.prefill(tokens[:, :P], P + n)
+    errs = [float((last[:, 0] - full[:, P - 1]).abs().max())]
+    for t in range(P, P + n):
+        pos = torch.full((LM_CHECK_REQUESTS,), t, dtype=torch.int32, device=device)
+        logits, caches = model.decode_step(tokens[:, t:t + 1], caches, pos)
+        errs.append(float((logits[:, 0] - full[:, t]).abs().max()))
+    err = max(errs)
+    finite = bool(torch.isfinite(full).all())
+    log(f"lm: {arch} f32 (TF32 off): prefill {P} + {n} decode steps against "
+        f"Model.apply, {LM_CHECK_REQUESTS} requests: max |dlogit| {err:.3e} "
+        f"(per step {', '.join(f'{e:.2e}' for e in errs)}; logits std "
+        f"{float(full.std()):.3f}; atol {LM_F32_ATOL:g})")
+    del model, full, caches
+    torch.cuda.empty_cache()
+    if not finite or err > LM_F32_ATOL:
+        raise AssertionError(f"{arch}: f32 decode differs from the full forward by {err}")
+    return err
+
+
+def phase_lm(device, seed: int, configs: dict | None = None) -> dict:
+    """LM serving at full width for each of LM_ARCHS (``configs`` maps an
+    arch to its config; the default is the published one), then the kernel
+    checks at the recorded shapes. Returns the launch counts summed over
+    the configurations, each kernel's worst error and the recorded inputs."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    configs = configs or {arch: get_config(arch) for arch in LM_ARCHS}
+    launches, seen = collections.Counter(), {}
+    for arch, cfg in configs.items():
+        out = lm_serve(arch, cfg, device, seed)
+        launches.update(out["launches"])
+        seen.update(out["seen"])
+        lm_decode_check(arch, cfg, device, seed)
+    worst = lm_kernel_checks(seen)
+    log(f"lm: launch counts over both configurations "
+        f"{json.dumps(dict(launches), sort_keys=True)}; worst kernel errors "
+        f"{json.dumps(worst, sort_keys=True)}; phase took "
+        f"{time.perf_counter() - t0:.3f} s")
+    return {"launches": dict(launches), "worst": worst, "seen": seen}
+
+
+def lm_timing(lm: dict) -> list:
+    """Kernel records of the LM kernels at the heaviest shape each was
+    launched at in the lm phase (by elements of its first operand)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import kernel_chunk
+
+    heaviest = {}
+    for (name, label, shapes), (args, kwargs) in lm["seen"].items():
+        size = args[0].numel()
+        if name not in heaviest or size > heaviest[name][0]:
+            heaviest[name] = (size, label, args, kwargs)
+    records = []
+    for name, source_name, symbol, replaces in (
+        ("flash_attention", "flash_attention", "flash_kernel",
+         "src/repro/kernels/flash_attention.py:92"),
+        ("ssd_scan", "ssd_scan", "ssd_kernel", "src/repro/kernels/ssd_scan.py:93"),
+        ("rmsnorm", "rmsnorm", "rmsnorm_kernel", "src/repro/kernels/rmsnorm.py:33"),
+    ):
+        _, label, args, kw = heaviest[name]
+        kernel_fn, plain_fn = lm_kernel(name), lm_plain(name)
+        kernel = lambda: kernel_fn(*args, **kw)  # noqa: E731
+        plain = lambda: plain_fn(*args, **kw)  # noqa: E731
+        el = args[0].element_size()
+        library, library_none, iters = None, "", 10
+        if name == "flash_attention":
+            q, k, v = args
+            bhq, S, D = q.shape
+            B = LM_REQUESTS
+            q4 = q.view(B, bhq // B, S, D)
+            k4, v4 = (t.view(B, t.shape[0] // B, S, D) for t in (k, v))
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, is_causal=kw["causal"], scale=kw["scale"],
+                enable_gqa=True)
+            nbytes = el * (2 * q.numel() + k.numel() + v.numel())
+            ops_count = 4 * bhq * D * S * (S + 1) / 2
+            rate = BF16_TENSOR_OPS_PER_S
+            shape = f"q [{bhq},{S},{D}], kv [{k.shape[0]},{S},{D}] {q.dtype} ({label})"
+        elif name == "rmsnorm":
+            x, w = args
+            D = x.shape[-1]
+            R = x.numel() // D
+            w1 = (w.float() + 1.0).to(x.dtype) if kw["plus_one"] else w.to(x.dtype)
+            library = lambda: F.rms_norm(x, (D,), weight=w1, eps=kw["eps"])  # noqa: E731
+            nbytes = 2 * el * x.numel() + 4 * D
+            ops_count = 4 * R * D  # square, sum, two multiplies a value
+            rate = SCALAR_OPS_PER_S
+            iters = 50
+            shape = f"[{R},{D}] {x.dtype} ({label})"
+        else:
+            x, dt, a_log, bm, cm = args
+            B, H, S, P = x.shape
+            N = bm.shape[-1]
+            Q = kernel_chunk(kw["chunk"], S)
+            nc = -(-S // Q)
+            tri = Q * (Q + 1) / 2
+            # per chunk and b*h: C Bt^T on the lower triangle, its product
+            # with X, the inter-chunk term and the state pass (2 flops a MAC)
+            ops_count = B * H * nc * 2 * (tri * N + tri * P + 2 * Q * N * P)
+            nbytes = (2 * el * x.numel() + 4 * (dt.numel() + a_log.numel())
+                      + bm.element_size() * (bm.numel() + cm.numel()))
+            rate = BF16_TENSOR_OPS_PER_S
+            library_none = "no torch call runs a chunked selective scan"
+            shape = (f"x [{B * H},{S},{P}], B/C [{B},{S},{N}] {x.dtype}, chunk "
+                     f"{Q} ({label})")
+        records.append(kernel_record(
+            name, symbol, f"src/repro_torch/csrc/{source_name}.cu", replaces,
+            lm["launches"].get(name, 0), lm["worst"][name], kernel, plain, iters,
+            nbytes, ops_count, shape, ops_rate=rate, library=library,
+            library_none=library_none,
+        ))
+        del kernel, plain, library
+        torch.cuda.empty_cache()
+    return records
+
+
 def run() -> int:
     import torch
 
@@ -971,7 +1420,8 @@ def run() -> int:
     phase_oracle(net, median_income, SEED, device)
     phase_hubs(net, median_income, device)
     traversal = phase_traversal(net, median_income, SEED, device)
-    records = phase_timing(net, queries, SEED, launches, worst, traversal, device)
+    lm = phase_lm(device, SEED)
+    records = phase_timing(net, queries, SEED, launches, worst, traversal, lm, device)
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

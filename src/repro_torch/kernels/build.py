@@ -14,7 +14,8 @@ cannot take and that go to the plain torch path on the card are counted
 too: union rows under ``"segmented_union_sort_rows"`` (degree-bucketed
 dispatcher) and frontier rows under ``"frontier_sort_rows"`` (k-hop
 traversal). ``core/traversal.py`` counts its label sweeps under
-``"components_sweeps"``.
+``"components_sweeps"``. The LM kernels count under ``"rmsnorm"``,
+``"flash_attention"`` and ``"ssd_scan"``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNEL_SOURCES = ("intersect", "segmented_union", "frontier")
+KERNEL_SOURCES = (
+    "intersect", "segmented_union", "frontier",
+    "rmsnorm", "flash_attention", "ssd_scan",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -108,13 +112,31 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def check_operand(t, name: str, ndim: int) -> None:
-    """Kernels take contiguous int32 tensors on a CUDA device."""
+def check_operand(t, name: str, ndim: int, dtypes=(torch.int32,)) -> None:
+    """Kernels take contiguous tensors of one of ``dtypes`` (int32 for the
+    graph kernels) on a CUDA device."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(
+            f"{name} must be {' or '.join(str(d) for d in dtypes)}, got {t.dtype}"
+        )
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def float_code(dtype: torch.dtype) -> int:
+    """The dtype code the LM kernels' C interfaces take: 0 f32, 1 bf16."""
+    return FLOAT_DTYPES.index(dtype)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte-aligned base (the LM kernels load 16
+    bytes at a time); a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

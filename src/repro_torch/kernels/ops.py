@@ -1,21 +1,28 @@
 """Public wrappers around the hand-written CUDA kernels.
 
 On a CUDA tensor each op launches its kernel (``kernels/intersect.py``,
-``kernels/segmented_union.py``, ``kernels/frontier.py``); on a CPU tensor
-it runs the plain torch version from ``kernels/ref.py``. The choice is made by the device of the
+``kernels/segmented_union.py``, ``kernels/frontier.py``, and for the LM
+stack ``kernels/rmsnorm.py``, ``kernels/flash_attention.py``,
+``kernels/ssd_scan.py``); on a CPU tensor it runs the plain torch version
+from ``kernels/ref.py``. The choice is made by the device of the
 tensors given, never by catching a failure: a CUDA tensor that the kernel
 refuses raises.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.csr import SENTINEL, take_clip
 from . import ref
+from .flash_attention import flash_attention_cuda
 from .frontier import frontier_compact_cuda
 from .intersect import intersect_count_cuda
+from .rmsnorm import rmsnorm_cuda
 from .segmented_union import segmented_union_cuda
+from .ssd_scan import ssd_scan_cuda
 
 _SENT = int(SENTINEL)
 
@@ -125,3 +132,77 @@ def pseudo_node_alters(
     if use_kernel:
         return segmented_union(flat, max_alters)
     return ref.segmented_union_ref(flat, max_alters)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, S, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Grouped-query attention, q head h reading kv head h // (Hq/Hkv)
+    -> (B, Hq, S, D) in q's dtype. The kernel picks its own tiles (the
+    JAX op's ``block_q``/``block_k`` have no counterpart)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qf = q.reshape(B * Hq, S, D)
+    kf = k.reshape(B * Hkv, S, D)
+    vf = v.reshape(B * Hkv, S, D)
+    if q.is_cuda:
+        out = flash_attention_cuda(qf, kf, vf, scale=scale, causal=causal,
+                                   kv_group=group)
+    else:
+        out = ref.attention_ref(qf, kf, vf, scale=scale, causal=causal,
+                                kv_group=group)
+    return out.reshape(B, Hq, S, D)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD scan
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, H, S, P)
+    dt: torch.Tensor,  # (B, H, S)
+    a_log: torch.Tensor,  # (B, H, S)
+    bmat: torch.Tensor,  # (B, S, N) shared single group
+    cmat: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 128,
+) -> torch.Tensor:
+    """Mamba2 SSD scan -> (B, H, S, P) in x's dtype; on the CPU
+    ``ref.ssd_scan_heads_ref``."""
+    if x.is_cuda:
+        return ssd_scan_cuda(x, dt, a_log, bmat, cmat, chunk=chunk)
+    return ref.ssd_scan_heads_ref(x, dt, a_log, bmat, cmat, chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(
+    x: torch.Tensor,  # (..., D)
+    w: torch.Tensor,  # (D,)
+    *,
+    eps: float = 1e-6,
+    plus_one: bool = False,
+) -> torch.Tensor:
+    """x·rsqrt(mean(x²)+eps)·(w [+1]) over the last axis, in x's dtype."""
+    if x.is_cuda:
+        return rmsnorm_cuda(x, w, eps=eps, plus_one=plus_one)
+    return ref.rmsnorm_ref(x, w, eps=eps, plus_one=plus_one)

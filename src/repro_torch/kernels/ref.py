@@ -94,3 +94,143 @@ def filtered_degree_ref(
     of an UNfiltered full-width query that pass ``node_filter``."""
     keep = mask & take_clip(node_filter, torch.where(mask, vals, 0))
     return keep.sum(dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# LM kernels (float): attention, SSD scan, RMSNorm
+# ---------------------------------------------------------------------------
+
+
+def attention_ref(
+    q: torch.Tensor,  # (BH, S, D)
+    k: torch.Tensor,  # (BHkv, S, D)
+    v: torch.Tensor,  # (BHkv, S, D)
+    *,
+    scale: float,
+    causal: bool = True,
+    kv_group: int = 1,
+) -> torch.Tensor:
+    """Naive softmax attention with GQA via explicit kv repeat (row
+    ``bh`` of q reads kv row ``bh // kv_group``); f32 math, masked
+    scores -1e30, output in q's dtype."""
+    if kv_group > 1:
+        k = torch.repeat_interleave(k, kv_group, dim=0)
+        v = torch.repeat_interleave(v, kv_group, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        S = q.shape[1]
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # (BH, S, P)
+    dt: torch.Tensor,  # (BH, S)
+    a_log: torch.Tensor,  # (BH, S) log-decay per step (dt * A, negative)
+    bmat: torch.Tensor,  # (BH, S, N)
+    cmat: torch.Tensor,  # (BH, S, N)
+) -> torch.Tensor:
+    """Sequential SSD recurrence: S_t = a_t S_{t-1} + (dt_t B_t) x_t^T,
+    y_t = C_t S_t, in f32. The oracle for the chunked forms."""
+    BH, S, P = x.shape
+    N = bmat.shape[-1]
+    xf, dtf, af = x.float(), dt.float(), a_log.float()
+    bf, cf = bmat.float(), cmat.float()
+    state = torch.zeros((BH, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        state = torch.exp(af[:, t])[:, None, None] * state + (
+            (dtf[:, t, None] * bf[:, t])[:, :, None] * xf[:, t, None, :]
+        )
+        ys.append(torch.einsum("bn,bnp->bp", cf[:, t], state))
+    if not ys:
+        return torch.zeros_like(x)
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_scan_chunked_ref(
+    x: torch.Tensor,  # (BH, S, P)
+    dt: torch.Tensor,  # (BH, S)
+    a_log: torch.Tensor,  # (BH, S)
+    bmat: torch.Tensor,  # (BH, S, N)
+    cmat: torch.Tensor,  # (BH, S, N)
+    chunk: int = 128,
+) -> torch.Tensor:
+    """Chunked SSD in plain torch: per chunk of Q steps, the intra-chunk
+    (L ∘ C B̃ᵀ) X, the inter-chunk C·exp(l)·S_prev and the state pass,
+    with the (N, P) state carried across chunks. S must be a multiple of
+    ``min(chunk, S)``."""
+    BH, S, P = x.shape
+    N = bmat.shape[-1]
+    chunk = min(chunk, S)
+    assert S % chunk == 0
+    nc = S // chunk
+    f32 = torch.float32
+    xc = x.reshape(BH, nc, chunk, P).to(f32)
+    dtc = dt.reshape(BH, nc, chunk, 1).to(f32)
+    ac = a_log.reshape(BH, nc, chunk, 1).to(f32)
+    bc = bmat.reshape(BH, nc, chunk, N).to(f32)
+    cc = cmat.reshape(BH, nc, chunk, N).to(f32)
+    lower = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros((BH, N, P), dtype=f32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xb, dtb, ab, bb, cb = xc[:, c], dtc[:, c], ac[:, c], bc[:, c], cc[:, c]
+        l = torch.cumsum(ab, dim=1)  # (BH, Q, 1)
+        # mask the EXPONENT, not the exp: exp(l_i - l_j) overflows for i < j
+        diff = torch.where(lower, l - l.transpose(1, 2), -torch.inf)
+        L = torch.exp(diff)
+        bt = bb * dtb
+        cb_t = torch.einsum("bqn,bkn->bqk", cb, bt)
+        y = torch.einsum("bqk,bkp->bqp", cb_t * L, xb)
+        y = y + torch.einsum("bqn,bnp->bqp", cb * torch.exp(l), state)
+        l_tot = l[:, -1:]  # (BH, 1, 1)
+        decay = torch.exp(l_tot - l)
+        state = torch.exp(l_tot[:, 0])[..., None] * state + torch.einsum(
+            "bkn,bkp->bnp", bt * decay, xb
+        )
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(BH, S, P).to(x.dtype)
+
+
+def ssd_scan_heads_ref(
+    x: torch.Tensor,  # (B, H, S, P)
+    dt: torch.Tensor,  # (B, H, S)
+    a_log: torch.Tensor,  # (B, H, S)
+    bmat: torch.Tensor,  # (B, S, N) shared by the H heads
+    cmat: torch.Tensor,  # (B, S, N)
+    chunk: int = 128,
+) -> torch.Tensor:
+    """The plain path of ``ops.ssd_scan`` in its (B, H, S, P) layout, as the
+    JAX op's: B and C repeated over the heads, then the chunked form when S
+    is a multiple of ``min(chunk, S)``, else the sequential one."""
+    B, H, S, P = x.shape
+    N = bmat.shape[-1]
+    flat = (
+        x.reshape(B * H, S, P), dt.reshape(B * H, S), a_log.reshape(B * H, S),
+        bmat[:, None].expand(B, H, S, N).reshape(B * H, S, N),
+        cmat[:, None].expand(B, H, S, N).reshape(B * H, S, N),
+    )
+    if S and S % min(chunk, S) == 0:
+        out = ssd_scan_chunked_ref(*flat, chunk=min(chunk, S))
+    else:
+        out = ssd_scan_ref(*flat)
+    return out.reshape(B, H, S, P)
+
+
+def rmsnorm_ref(
+    x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+    plus_one: bool = False,
+) -> torch.Tensor:
+    """x·rsqrt(mean(x²)+eps)·(w [+1]) with the JAX reference's rounding:
+    the mean square in f32, then ``mult`` and ``scale`` rounded to x's
+    dtype before the two multiplies (``src/repro/kernels/ref.py:224-230``).
+    The CUDA kernel rounds once, at the end; in bf16 the two differ by a
+    few ulp."""
+    ms = x.float().square().mean(dim=-1)
+    mult = torch.rsqrt(ms + eps)[..., None].to(x.dtype)
+    wf = w.float()
+    scale = (wf + 1.0 if plus_one else wf).to(x.dtype)
+    return x * mult * scale

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain torch
-versions, and the point-query and traversal api on CUDA against the same
-api on the CPU.
+versions, and the point-query and traversal api and the LM model on CUDA
+against the same calls on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -8,9 +8,11 @@ package, so it runs where only torch is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: none — int32 and float32 outputs must be bit-identical.
-Inputs come from ``np.random.default_rng`` with the seed named in each
-test.
+Tolerance of the graph kernels and api: none — int32 and float32 outputs
+must be bit-identical. The LM kernels (rmsnorm, flash attention, SSD
+scan) are float and sum in another order than their plain versions; each
+test states its tolerance and why. Inputs come from
+``np.random.default_rng`` with the seed named in each test.
 """
 
 import numpy as np
@@ -175,3 +177,177 @@ def test_traversal_api_on_cuda_matches_cpu(cuda_device):
         assert api.countcomponents(cpu, filter=fc) == \
             api.countcomponents(gpu, filter=fg)
     assert launch_counts["frontier_compact"] > before
+
+
+# ---------------------------------------------------------------------------
+# LM kernels
+# ---------------------------------------------------------------------------
+
+# bf16 has 8 significant bits: the kernels round once where the plain
+# versions round the f32 result too (rmsnorm_ref rounds three times), so
+# results may differ by a unit or two in the last place, 2^-7 relative.
+BF16_TOL = 2.0**-6
+
+
+def _randn(rng, shape, dtype, device, scale=1.0):
+    return (torch.from_numpy(rng.normal(size=shape).astype(np.float32)) * scale
+            ).to(device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1, 128), (1000, 2048), (333, 768),
+                                    (64, 1536), (4097, 128), (5, 96), (3, 7)])
+def test_rmsnorm_kernel_matches_plain(cuda_device, rows, d, dtype):
+    rng = np.random.default_rng(800 + d)  # seed 800+d
+    x = _randn(rng, (rows, d), dtype, cuda_device, 3.0)
+    w = _randn(rng, (d,), torch.float32, cuda_device, 0.1)
+    before = launch_counts["rmsnorm"]
+    got = ops.rmsnorm(x, w, eps=1e-6, plus_one=True)
+    assert launch_counts["rmsnorm"] == before + 1
+    want = ref.rmsnorm_ref(x, w, eps=1e-6, plus_one=True)
+    assert got.dtype == dtype and got.shape == x.shape
+    # f32: the mean square is summed in another order (1e-5)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("S,Hq,Hkv,causal", [(1, 2, 1, True), (17, 2, 2, True),
+                                             (128, 4, 2, True), (200, 4, 1, True),
+                                             (256, 2, 2, False)])
+def test_flash_attention_kernel_matches_plain(cuda_device, S, Hq, Hkv, causal, D,
+                                              dtype):
+    rng = np.random.default_rng(900 + S + D)  # seed 900+S+D
+    B = 2
+    q = _randn(rng, (B, Hq, S, D), dtype, cuda_device)
+    k = _randn(rng, (B, Hkv, S, D), dtype, cuda_device)
+    v = _randn(rng, (B, Hkv, S, D), dtype, cuda_device)
+    before = launch_counts["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert launch_counts["flash_attention"] == before + 1
+    want = ref.attention_ref(
+        q.reshape(B * Hq, S, D), k.reshape(B * Hkv, S, D), v.reshape(B * Hkv, S, D),
+        scale=D**-0.5, causal=causal, kv_group=Hq // Hkv,
+    ).reshape(B, Hq, S, D)
+    # f32: online softmax and another order over up to 256 keys (5e-5)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 5e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [(1, 1, 64, 16, 16, 16),
+                                             (2, 3, 100, 16, 16, 16),
+                                             (1, 2, 192, 64, 128, 64),
+                                             (2, 2, 300, 64, 128, 128),
+                                             (1, 1, 5, 8, 24, 128)])
+def test_ssd_scan_kernel_matches_plain(cuda_device, B, H, S, P, N, chunk, dtype):
+    rng = np.random.default_rng(1000 + S + N)  # seed 1000+S+N
+    x = _randn(rng, (B, H, S, P), dtype, cuda_device)
+    dt = torch.from_numpy(rng.uniform(0.1, 1.0, (B, H, S)).astype(np.float32))
+    a_log = -dt * torch.from_numpy(rng.uniform(0.5, 2.0, (B, H, S)).astype(np.float32))
+    bm = _randn(rng, (B, S, N), dtype, cuda_device, 0.2)
+    cm = _randn(rng, (B, S, N), dtype, cuda_device, 0.2)
+    dt, a_log = dt.to(cuda_device), a_log.to(cuda_device)
+    before = launch_counts["ssd_scan"]
+    got = ops.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk)
+    assert launch_counts["ssd_scan"] == before + 1
+    bf = bm[:, None].expand(B, H, S, N).reshape(B * H, S, N)
+    cf = cm[:, None].expand(B, H, S, N).reshape(B * H, S, N)
+    want = ref.ssd_scan_ref(x.reshape(B * H, S, P), dt.reshape(B * H, S),
+                            a_log.reshape(B * H, S), bf, cf).reshape(B, H, S, P)
+    # chunked against sequential sums, as tests/test_kernels.py holds the
+    # Pallas kernel: 1e-4 in f32; bf16 rounds the output (BF16_TOL)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_wrappers_refuse_bad_operands(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    q = torch.zeros((4, 16, 64), device=cuda_device)
+    kv = torch.zeros((2, 16, 64), device=cuda_device)
+    kw = dict(scale=0.125, causal=True, kv_group=2)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.half(), kv.half(), kv.half(), **kw)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.cpu(), kv.cpu(), kv.cpu(), **kw)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q[0], kv[0], kv[0], **kw)
+    with pytest.raises(ValueError):  # head dim 48
+        flash_attention_cuda(q[..., :48], kv[..., :48], kv[..., :48], **kw)
+    with pytest.raises(ValueError):  # kv rows do not match the group
+        flash_attention_cuda(q, q, q, **kw)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, kv.bfloat16(), kv, **kw)
+
+    x = torch.zeros((8, 128), device=cuda_device)
+    w = torch.zeros(128, device=cuda_device)
+    with pytest.raises(TypeError):
+        rmsnorm_cuda(x.double(), w, eps=1e-6, plus_one=True)
+    with pytest.raises(ValueError):
+        rmsnorm_cuda(x.cpu(), w, eps=1e-6, plus_one=True)
+    with pytest.raises(ValueError):
+        rmsnorm_cuda(x, w[:64], eps=1e-6, plus_one=True)
+
+    xs = torch.zeros((1, 2, 32, 16), device=cuda_device)
+    dt = torch.zeros((1, 2, 32), device=cuda_device)
+    bc = torch.zeros((1, 32, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        ssd_scan_cuda(xs, dt.double(), dt, bc, bc, chunk=16)
+    with pytest.raises(TypeError):
+        ssd_scan_cuda(xs, dt, dt, bc.bfloat16(), bc.bfloat16(), chunk=16)
+    with pytest.raises(TypeError):  # B and C must be in x's dtype
+        ssd_scan_cuda(xs.bfloat16(), dt, dt, bc, bc, chunk=16)
+    with pytest.raises(ValueError):
+        ssd_scan_cuda(xs.cpu(), dt.cpu(), dt.cpu(), bc.cpu(), bc.cpu(), chunk=16)
+    with pytest.raises(ValueError):
+        ssd_scan_cuda(xs[0], dt, dt, bc, bc, chunk=16)
+    with pytest.raises(ValueError):  # head dim not a multiple of 4
+        ssd_scan_cuda(xs[..., :6], dt, dt, bc, bc, chunk=16)
+    with pytest.raises(ValueError):
+        ssd_scan_cuda(xs, dt, dt, bc[:, :16], bc[:, :16], chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-130m"])
+def test_model_on_cuda_matches_cpu(cuda_device, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm_serve import Request, ServeEngine
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(1200).integers(  # seed 1200
+        0, cfg.vocab_size, (2, 40)))
+    before = dict(launch_counts)
+    lc, _ = cpu.apply(tokens)
+    lg, _ = gpu.apply(tokens)
+    # f32 throughout; kernels and cuBLAS sum in another order (1e-4, the
+    # JAX package's own prefill/decode tolerance)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    last, caches = gpu.prefill(tokens[:, :32], 48)
+    torch.testing.assert_close(last[:, 0].cpu(), lc[:, 31], rtol=1e-4, atol=1e-4)
+    for t in range(32, 40):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        logits, caches = gpu.decode_step(tokens[:, t:t + 1], caches, pos)
+        torch.testing.assert_close(logits[:, 0].cpu(), lc[:, t], rtol=1e-4, atol=1e-4)
+    kernel = "flash_attention" if arch.startswith("qwen") else "ssd_scan"
+    assert launch_counts[kernel] > before.get(kernel, 0)
+    assert launch_counts["rmsnorm"] > before.get("rmsnorm", 0)
+    reqs = [Request(prompt=tokens[i, :16].numpy(), max_new_tokens=6, rid=i)
+            for i in range(2)]
+    got = ServeEngine(gpu, max_seq=32).generate(reqs)
+    want = ServeEngine(cpu, max_seq=32).generate(reqs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)

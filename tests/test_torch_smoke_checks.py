@@ -1,0 +1,126 @@
+"""``chip_smoke.py``'s check of the LM kernels against their plain versions.
+
+The check holds each kernel's bf16 output, element by element, within
+2^-7 of the plain version evaluated in f32 on the same inputs (plus 2^-12
+of the reference's largest value), and at every shape it asserts that the
+same limit rejects two planted faults. Here the CUDA wrappers are stood in
+with the plain versions, evaluated in f32 and rounded once to bf16 as the
+kernels round, and with faulty variants of them: the check must pass the
+first and reject the others, whatever the scale of the outputs (the SSD
+outputs of a Mamba2 layer are of order 1e-5). Inputs come from
+``np.random.default_rng`` with the seed named in each test.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16(rng, shape, std=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)
+                            ).bfloat16()
+
+
+def _inputs(name: str, scale: float):
+    """(args, kwargs) of one launch, seed 2000."""
+    rng = np.random.default_rng(2000)  # seed 2000
+    if name == "flash_attention":
+        q, k, v = (_bf16(rng, s, scale) for s in ((4, 64, 32), (2, 64, 32), (2, 64, 32)))
+        return [q, k, v], dict(scale=32**-0.5, causal=True, kv_group=2)
+    if name == "rmsnorm":
+        w = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(np.float32))
+        return [_bf16(rng, (16, 64), scale), w], dict(eps=1e-6, plus_one=True)
+    B, H, S, P, N = 2, 3, 64, 16, 16
+    dt = torch.from_numpy(rng.uniform(0.01, 0.1, (B, H, S)).astype(np.float32))
+    a_log = -dt * torch.from_numpy(rng.uniform(1.0, 16.0, (B, H, S)).astype(np.float32))
+    return ([_bf16(rng, (B, H, S, P), scale), dt, a_log, _bf16(rng, (B, S, N), 0.2),
+             _bf16(rng, (B, S, N), 0.2)], dict(chunk=16))
+
+
+def _plain32(name, args, kwargs):
+    plain = {"flash_attention": ref.attention_ref, "rmsnorm": ref.rmsnorm_ref,
+             "ssd_scan": ref.ssd_scan_heads_ref}[name]
+    return plain(*[a.float() for a in args], **kwargs)
+
+
+def _standin(name: str, fault: str):
+    """A stand-in for ``ops.<name>_cuda``: the plain version in f32 rounded
+    once to x's dtype, then the planted ``fault``."""
+    def run(*args, **kwargs):
+        y = _plain32(name, args, kwargs)
+        if fault == "zeros":
+            y = torch.zeros_like(y)
+        elif fault == "coarse":  # 5 significant bits where bf16 has 8
+            m, e = torch.frexp(y)
+            y = torch.ldexp(torch.round(m * 32) / 32, e)
+        elif fault == "nan":
+            y = y.clone()
+            y.view(-1)[7] = float("nan")
+        elif fault == "carry":  # the state carried between chunks dropped
+            q = kwargs["chunk"]
+            x, dt, a_log, bm, cm = args
+            y = torch.cat([
+                _plain32(name, [x[:, :, t:t + q], dt[:, :, t:t + q],
+                                a_log[:, :, t:t + q], bm[:, t:t + q], cm[:, t:t + q]],
+                         kwargs)
+                for t in range(0, x.shape[2], q)], dim=2)
+        return y.to(args[0].dtype)
+    return run
+
+
+def _seen(name: str, scale: float) -> dict:
+    args, kwargs = _inputs(name, scale)
+    shapes = tuple((tuple(a.shape), str(a.dtype)) for a in args)
+    return {(name, "test", shapes): (args, kwargs)}
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-4])
+@pytest.mark.parametrize("name", ["flash_attention", "rmsnorm", "ssd_scan"])
+def test_lm_kernel_check_passes_a_kernel_that_rounds_once(smoke, monkeypatch, name, scale):
+    monkeypatch.setattr(ops, f"{name}_cuda", _standin(name, "none"))
+    worst = smoke.lm_kernel_checks(_seen(name, scale))
+    assert set(worst) == {name}
+    # the stand-in rounds to bf16 once: within half a unit of 8 bits
+    args, kwargs = _inputs(name, scale)
+    want = _plain32(name, args, kwargs)
+    assert 0.0 < worst[name] <= 2.0**-8 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-4])
+@pytest.mark.parametrize("fault", ["zeros", "coarse", "nan"])
+@pytest.mark.parametrize("name", ["flash_attention", "rmsnorm", "ssd_scan"])
+def test_lm_kernel_check_rejects_planted_faults(smoke, monkeypatch, name, fault, scale):
+    monkeypatch.setattr(ops, f"{name}_cuda", _standin(name, fault))
+    with pytest.raises(AssertionError, match="LM kernel checks failed"):
+        smoke.lm_kernel_checks(_seen(name, scale))
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-4])
+def test_lm_kernel_check_rejects_an_ssd_scan_without_its_carried_state(
+        smoke, monkeypatch, scale):
+    monkeypatch.setattr(ops, "ssd_scan_cuda", _standin("ssd_scan", "carry"))
+    with pytest.raises(AssertionError, match="LM kernel checks failed"):
+        smoke.lm_kernel_checks(_seen("ssd_scan", scale))
+
+
+def test_lm_excess_scales_with_the_reference(smoke):
+    want = torch.tensor([1e-5, -2e-5, 4e-5])
+    _, ratio = smoke.lm_excess(want * (1 + 2.0**-8), want)
+    assert ratio <= 1.0
+    _, ratio = smoke.lm_excess(want + 1e-6, want)  # 1e-6 is 2.5 % of the largest
+    assert ratio > 1.0
