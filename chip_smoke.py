@@ -48,7 +48,8 @@ fails (non-zero exit) if any phase fails:
               2,048 seeded prompt tokens and 64 new tokens, greedy and at
               temperature 0.8, with launch counts reset just before and
               read just after (flash_attention, rmsnorm and ssd_scan must
-              launch). Prints per call the wall time, tokens/s, prefill ms
+              launch; flash_attention_copies and flash_attention_fma must
+              stay 0). Prints per call the wall time, tokens/s, prefill ms
               and decode ms per step, the device-idle share and busiest
               device activities of one profiled prefill and decode step,
               and max_memory_allocated. Checks each LM kernel against its
@@ -60,12 +61,16 @@ fails (non-zero exit) if any phase fails:
               of each model, prefill + 8 decode steps against
               ``Model.apply`` (2 requests, 256-token prompts);
 10. timing  — each kernel, its plain version and its bound at the heaviest
-              shape its phase launched (device times from torch.profiler:
-              the kernel's own launches, the plain version's busy time per
-              call; the phase fails if the profiler sees no launch of the
-              kernel), and for the LM kernels the one torch call that
-              computes the same function (SDPA, ``F.rms_norm``) as a
-              yardstick the port never calls.
+              shape its phase launched (the kernel's device time from
+              torch.profiler, its own launches, or where the profiler lost
+              them all its CUDA-event time per call, marked so), and for
+              the LM kernels the one torch call that computes the same function
+              (SDPA, ``F.rms_norm``) as a yardstick the port never calls;
+              plain and library calls timed with CUDA events over
+              back-to-back calls. RMSNorm runs on a rotation of buffers
+              larger than the L2 (cold rows, as in a prefill), at the
+              hidden and the q-norm shape. A kernel or library time under
+              its bound fails the phase.
 
 Its last lines are the ``kernels`` JSON record and then
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -291,11 +296,35 @@ def device_activity(fn, iters: int) -> dict:
         f"torch.profiler recorded no device activity in {PROFILER_WINDOWS} windows")
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device busy time per call of ``fn``: the summed duration of
-    everything it puts on the card, over ``iters`` profiled calls."""
-    acts = device_activity(fn, iters)
-    return sum(us for _, us in acts.values()) / 1e3 / iters
+def rotating(call, inputs: list, keep: int):
+    """A call of ``call`` on each argument list of ``inputs`` in turn,
+    holding its last ``keep`` outputs, so that back-to-back launches read
+    and write ``len(inputs)`` and ``keep`` distinct buffers: timed on
+    buffers that together exceed the 50 MB L2, each launch finds its row
+    cold, as a prefill's norms do."""
+    state = {"i": 0, "outs": collections.deque(maxlen=keep)}
+
+    def run():
+        i = state["i"]
+        state["i"] = (i + 1) % len(inputs)
+        out = call(*inputs[i])
+        state["outs"].append(out)
+        return out
+
+    return run
+
+
+def check_readings(rec: dict) -> dict:
+    """Refuses a ``kernels`` record whose kernel ``ms`` or ``library_ms``
+    reads under its ``bound_ms``: no card does the work in less than its
+    bound, so such a reading is a fault of the timing. Returns ``rec``."""
+    bound = rec["bound_ms"]
+    for key in ("ms", "library_ms"):
+        t = rec[key]
+        if t is not None and t < bound:
+            raise AssertionError(
+                f"{rec['name']}: {key} {t} ms reads under its bound {bound} ms")
+    return rec
 
 
 def host_median_ms(fn, repeats: int = REPEATS) -> tuple[float, object]:
@@ -688,26 +717,32 @@ def kernel_record(name, symbol, source, replaces, launches, err, kernel, plain,
                   iters, nbytes, ops_count, shape, *, ops_rate=SCALAR_OPS_PER_S,
                   library=None, library_none="") -> dict:
     """``ms`` is the mean device duration of the kernel's own launches (the
-    profiler's events named ``symbol``); ``plain_ms`` the device busy time
-    per call of the plain version, ``library_ms`` that of ``library``, one
-    torch call computing the same function (None where there is none, for
-    the reason ``library_none``). The bound counts ``ops_count`` at
-    ``ops_rate``. Busy time per kernel call and the event-timed time per
-    call (host launch included) are printed beside."""
+    profiler's events named ``symbol``, so it holds when the profiler
+    drops events; where the profiler lost them all, the event-timed time
+    per call, an upper bound, and ``ms_from`` says which); ``plain_ms``
+    the time per call of the plain version and ``library_ms`` that of
+    ``library``, one torch call computing the same
+    function (None where there is none, for the reason ``library_none``),
+    both from CUDA events over back-to-back calls. The bound counts
+    ``ops_count`` at ``ops_rate``; ``check_readings`` refuses a reading
+    under it. The kernel's event-timed time per call (host launch
+    included) is printed beside."""
+    seen = 0
     for _ in range(PROFILER_WINDOWS):
         acts = device_activity(kernel, iters)
         own = [v for k, v in acts.items() if symbol in k]
         seen = sum(n for n, _ in own)
         if seen:
             break
-    else:
-        raise RuntimeError(f"the profiler saw no launch of {symbol}")
-    ms = sum(us for _, us in own) / seen / 1e3
-    busy_ms = sum(us for _, us in acts.values()) / 1e3 / iters
-    plain_ms = device_ms(plain, max(iters // 5, 2))
     call_ms = cuda_ms(kernel, iters)
-    plain_call_ms = cuda_ms(plain, max(iters // 5, 2))
-    library_ms = None if library is None else device_ms(library, iters)
+    if seen:
+        ms, ms_from = sum(us for _, us in own) / seen / 1e3, "profiler"
+    else:
+        # the profiler lost every window's launches of the kernel: the
+        # event-timed call (host launch included) bounds its time from above
+        ms, ms_from = call_ms, "cuda events, host launch included"
+    plain_ms = cuda_ms(plain, max(iters // 5, 2))
+    library_ms = None if library is None else cuda_ms(library, iters)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_count / ops_rate * 1e3
     rec = {
@@ -715,18 +750,17 @@ def kernel_record(name, symbol, source, replaces, launches, err, kernel, plain,
         "launches": int(launches), "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms, "shape": shape,
+        "library_ms": library_ms, "shape": shape, "ms_from": ms_from,
     }
     lib = (f"library {library_ms:.4f} ms" if library is not None
            else f"no library call ({library_none})")
-    log(f"timing: {name} at {shape}: kernel {ms:.4f} ms per launch "
-        f"({seen} of {iters} launches seen by the profiler), device busy "
-        f"{busy_ms:.4f} ms per call, plain {plain_ms:.4f} ms, {lib}, bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: bytes {bytes_ms:.4f}, "
-        f"operations {ops_ms:.4f}); per call with host launch {call_ms:.4f} ms, "
-        f"plain {plain_call_ms:.4f} ms; {launches} launches in its phase; "
-        f"{device_line(CLOCK_FIELDS)}")
-    return rec
+    log(f"timing: {name} at {shape}: kernel {ms:.4f} ms per launch, from "
+        f"{ms_from} ({seen} of {iters} launches seen by the profiler; "
+        f"{call_ms:.4f} ms per call by CUDA events, host launch included), plain "
+        f"{plain_ms:.4f} ms, {lib}, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}: bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); "
+        f"{launches} launches in its phase; {device_line(CLOCK_FIELDS)}")
+    return check_readings(rec)
 
 
 def skewed_membership_chunks(n_nodes: int, per_node: int, n_groups: int,
@@ -1031,7 +1065,7 @@ def lm_plain(name: str):
     from repro_torch.kernels import ref
 
     return {
-        "flash_attention": ref.attention_ref,
+        "flash_attention": ref.attention_heads_ref,
         "rmsnorm": ref.rmsnorm_ref,
         "ssd_scan": ref.ssd_scan_heads_ref,
     }[name]
@@ -1180,6 +1214,10 @@ def lm_serve(arch: str, cfg, device, seed: int) -> dict:
     for k in ("rmsnorm", "flash_attention" if cfg.family != "ssm" else "ssd_scan"):
         if launches.get(k, 0) == 0:
             raise AssertionError(f"kernel {k} never launched on the {arch} path")
+    # the bf16 path reads the layer's q, k, v on the tensor cores, uncopied
+    for k in ("flash_attention_copies", "flash_attention_fma"):
+        if launches.get(k, 0):
+            raise AssertionError(f"{k} is {launches[k]} on the {arch} path, not 0")
 
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     for label, reqs in calls.items():
@@ -1295,7 +1333,8 @@ def phase_lm(device, seed: int, configs: dict | None = None) -> dict:
 
 def lm_timing(lm: dict) -> list:
     """Kernel records of the LM kernels at the heaviest shape each was
-    launched at in the lm phase (by elements of its first operand)."""
+    launched at in the lm phase (by elements of its first operand, then
+    by its width)."""
     import torch
     import torch.nn.functional as F
 
@@ -1303,15 +1342,14 @@ def lm_timing(lm: dict) -> list:
 
     heaviest = {}
     for (name, label, shapes), (args, kwargs) in lm["seen"].items():
-        size = args[0].numel()
+        size = (args[0].numel(), args[0].shape[-1])  # ties: the wider row
         if name not in heaviest or size > heaviest[name][0]:
             heaviest[name] = (size, label, args, kwargs)
     records = []
     for name, source_name, symbol, replaces in (
-        ("flash_attention", "flash_attention", "flash_kernel",
+        ("flash_attention", "flash_attention", "flash_wgmma_kernel",
          "src/repro/kernels/flash_attention.py:92"),
         ("ssd_scan", "ssd_scan", "ssd_kernel", "src/repro/kernels/ssd_scan.py:93"),
-        ("rmsnorm", "rmsnorm", "rmsnorm_kernel", "src/repro/kernels/rmsnorm.py:33"),
     ):
         _, label, args, kw = heaviest[name]
         kernel_fn, plain_fn = lm_kernel(name), lm_plain(name)
@@ -1321,28 +1359,15 @@ def lm_timing(lm: dict) -> list:
         library, library_none, iters = None, "", 10
         if name == "flash_attention":
             q, k, v = args
-            bhq, S, D = q.shape
-            B = LM_REQUESTS
-            q4 = q.view(B, bhq // B, S, D)
-            k4, v4 = (t.view(B, t.shape[0] // B, S, D) for t in (k, v))
+            B, Hq, S, D = q.shape
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q4, k4, v4, is_causal=kw["causal"], scale=kw["scale"],
+                q, k, v, is_causal=kw["causal"], scale=kw["scale"],
                 enable_gqa=True)
             nbytes = el * (2 * q.numel() + k.numel() + v.numel())
-            ops_count = 4 * bhq * D * S * (S + 1) / 2
+            ops_count = 4 * B * Hq * D * S * (S + 1) / 2
             rate = BF16_TENSOR_OPS_PER_S
-            shape = f"q [{bhq},{S},{D}], kv [{k.shape[0]},{S},{D}] {q.dtype} ({label})"
-        elif name == "rmsnorm":
-            x, w = args
-            D = x.shape[-1]
-            R = x.numel() // D
-            w1 = (w.float() + 1.0).to(x.dtype) if kw["plus_one"] else w.to(x.dtype)
-            library = lambda: F.rms_norm(x, (D,), weight=w1, eps=kw["eps"])  # noqa: E731
-            nbytes = 2 * el * x.numel() + 4 * D
-            ops_count = 4 * R * D  # square, sum, two multiplies a value
-            rate = SCALAR_OPS_PER_S
-            iters = 50
-            shape = f"[{R},{D}] {x.dtype} ({label})"
+            shape = (f"q [{B},{Hq},{S},{D}], kv [{B},{k.shape[1]},{S},{D}] "
+                     f"{q.dtype}, strides {q.stride()} ({label})")
         else:
             x, dt, a_log, bm, cm = args
             B, H, S, P = x.shape
@@ -1367,7 +1392,47 @@ def lm_timing(lm: dict) -> list:
         ))
         del kernel, plain, library
         torch.cuda.empty_cache()
+    _, label, args, kw = heaviest["rmsnorm"]
+    records.append(rmsnorm_timing(args, kw, label, lm))
+    for (name, label, _), (args, kw) in lm["seen"].items():
+        if name == "rmsnorm" and args[0].shape[-1] == QNORM_WIDTH:
+            rmsnorm_timing(args, kw, label, lm)  # printed, not a record
+            break
     return records
+
+
+COLD_BUFFERS = 3  # input/output pairs of a cold rmsnorm timing
+QNORM_WIDTH = 128  # qwen3's q/k norm: one row per head and token
+
+
+def rmsnorm_timing(args, kw, label: str, lm: dict) -> dict:
+    """The rmsnorm record at the shape of ``args``, kernel, plain version
+    and ``F.rms_norm`` alike on COLD_BUFFERS copies of x and as many
+    outputs held (384 MiB at the hidden shape), so the 50 MB L2 cannot
+    serve the rows of one launch from the last."""
+    import torch.nn.functional as F
+
+    x, w = args
+    D = x.shape[-1]
+    R = x.numel() // D
+    xs = [x] + [x.clone() for _ in range(COLD_BUFFERS - 1)]
+    w1 = (w.float() + 1.0).to(x.dtype) if kw["plus_one"] else w.to(x.dtype)
+    kernel_fn, plain_fn = lm_kernel("rmsnorm"), lm_plain("rmsnorm")
+    kernel = rotating(lambda xi: kernel_fn(xi, w, **kw), [[xi] for xi in xs],
+                      COLD_BUFFERS)
+    plain = rotating(lambda xi: plain_fn(xi, w, **kw), [[xi] for xi in xs],
+                     COLD_BUFFERS)
+    library = rotating(lambda xi: F.rms_norm(xi, (D,), weight=w1, eps=kw["eps"]),
+                       [[xi] for xi in xs], COLD_BUFFERS)
+    el = x.element_size()
+    return kernel_record(
+        "rmsnorm", "rmsnorm_kernel", "src/repro_torch/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm.py:33", lm["launches"].get("rmsnorm", 0),
+        lm["worst"]["rmsnorm"], kernel, plain, 50, 2 * el * x.numel() + 4 * D,
+        4 * R * D,  # square, sum, two multiplies a value
+        f"[{R},{D}] {x.dtype}, cold, {COLD_BUFFERS} buffers ({label})",
+        library=library,
+    )
 
 
 def run() -> int:

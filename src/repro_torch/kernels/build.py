@@ -15,7 +15,16 @@ too: union rows under ``"segmented_union_sort_rows"`` (degree-bucketed
 dispatcher) and frontier rows under ``"frontier_sort_rows"`` (k-hop
 traversal). ``core/traversal.py`` counts its label sweeps under
 ``"components_sweeps"``. The LM kernels count under ``"rmsnorm"``,
-``"flash_attention"`` and ``"ssd_scan"``.
+``"flash_attention"`` (the bf16 tensor-core route),
+``"flash_attention_fma"`` (the CUDA-core route: f32, and bf16 at head
+dims 32 and 256) and ``"ssd_scan"``; operands the tensor-core route had to
+copy for TMA count under ``"flash_attention_copies"``.
+
+No source needs a flag of its own: ``flash_attention.cu`` fetches the
+driver's ``cuTensorMapEncodeTiled`` through the runtime
+(``cudaGetDriverEntryPoint``) and takes only the toolkit's ``cuda.h`` for
+its types, so nothing links ``-lcuda`` and the hash of source and flags
+covers every choice.
 """
 
 from __future__ import annotations

@@ -148,25 +148,19 @@ def flash_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Grouped-query attention, q head h reading kv head h // (Hq/Hkv)
-    -> (B, Hq, S, D) in q's dtype. The kernel picks its own tiles (the
-    JAX op's ``block_q``/``block_k`` have no counterpart)."""
-    B, Hq, S, D = q.shape
-    Hkv = k.shape[1]
+    -> (B, Hq, S, D) in q's dtype. Any strides: the layer passes
+    transposed views of [B, S, H, D], which the tensor-core kernel reads as
+    they lie, and on the card the result may be a view of [B, S, Hq, D].
+    The kernel picks its own tiles (the JAX op's ``block_q``/``block_k``
+    have no counterpart)."""
+    Hq, Hkv = q.shape[1], k.shape[1]
     if Hq % Hkv:
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
-    group = Hq // Hkv
     if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    qf = q.reshape(B * Hq, S, D)
-    kf = k.reshape(B * Hkv, S, D)
-    vf = v.reshape(B * Hkv, S, D)
+        scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
-        out = flash_attention_cuda(qf, kf, vf, scale=scale, causal=causal,
-                                   kv_group=group)
-    else:
-        out = ref.attention_ref(qf, kf, vf, scale=scale, causal=causal,
-                                kv_group=group)
-    return out.reshape(B, Hq, S, D)
+        return flash_attention_cuda(q, k, v, scale=scale, causal=causal)
+    return ref.attention_heads_ref(q, k, v, scale=scale, causal=causal)
 
 
 # ---------------------------------------------------------------------------

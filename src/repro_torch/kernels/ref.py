@@ -125,6 +125,24 @@ def attention_ref(
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
+def attention_heads_ref(
+    q: torch.Tensor,  # (B, Hq, S, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    *,
+    scale: float,
+    causal: bool = True,
+) -> torch.Tensor:
+    """``attention_ref`` in the op's (B, H, S, D) layout, any strides:
+    q head h reads kv head h // (Hq / Hkv)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    out = attention_ref(q.reshape(B * Hq, S, D), k.reshape(B * Hkv, S, D),
+                        v.reshape(B * Hkv, S, D), scale=scale, causal=causal,
+                        kv_group=Hq // Hkv)
+    return out.reshape(B, Hq, S, D)
+
+
 def ssd_scan_ref(
     x: torch.Tensor,  # (BH, S, P)
     dt: torch.Tensor,  # (BH, S)

@@ -1,7 +1,10 @@
 """Wrapper for the CUDA RMSNorm kernel (``csrc/rmsnorm.cu``).
 
 ``x * rsqrt(mean(x²) + eps) * (w [+ 1])`` over the last axis of a bf16 or
-f32 tensor, with f32 weights and f32 math, rounded once to x's dtype.
+f32 tensor, with f32 weights and f32 math, rounded once to x's dtype. Rows
+of the widths the models use are read from device memory once and
+normalized from registers; other widths and unaligned rows take the
+kernel's two-pass any-width path.
 Replaces the Pallas kernel ``src/repro/kernels/rmsnorm.py::rmsnorm_kernel``
 (the JAX wrapper pads rows to a multiple of 8; this kernel takes any row
 count). The plain torch version is ``kernels/ref.py::rmsnorm_ref``.
@@ -14,8 +17,8 @@ import ctypes
 import torch
 
 from .build import (
-    FLOAT_DTYPES, aligned16, check_launch, check_operand, float_code,
-    launch_counts, library,
+    FLOAT_DTYPES, check_launch, check_operand, float_code, launch_counts,
+    library,
 )
 
 _ARGTYPES = [
@@ -41,7 +44,9 @@ def rmsnorm_cuda(
     if x.dim() < 1 or x.shape[-1] < 1:
         raise ValueError(f"x must have a non-empty last axis, got {tuple(x.shape)}")
     d = x.shape[-1]
-    x2 = aligned16(x.reshape(-1, d))
+    # a row whose base is not 16-byte aligned takes the kernel's any-width
+    # path as it lies, with no copy
+    x2 = x.reshape(-1, d).contiguous()
     check_operand(x2, "x", 2, FLOAT_DTYPES)
     wf = w.to(device=x.device, dtype=torch.float32).contiguous()
     check_operand(wf, "w", 1, (torch.float32,))

@@ -23,6 +23,7 @@ from repro_torch.core import api
 from repro_torch.core.csr import SENTINEL
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.build import launch_counts
+from repro_torch.kernels.flash_attention import uses_wgmma
 from repro_torch.kernels.frontier import MAX_CAND
 from repro_torch.kernels.segmented_union import MAX_FLAT
 
@@ -225,9 +226,10 @@ def test_flash_attention_kernel_matches_plain(cuda_device, S, Hq, Hkv, causal, D
     q = _randn(rng, (B, Hq, S, D), dtype, cuda_device)
     k = _randn(rng, (B, Hkv, S, D), dtype, cuda_device)
     v = _randn(rng, (B, Hkv, S, D), dtype, cuda_device)
-    before = launch_counts["flash_attention"]
+    route = "flash_attention" if uses_wgmma(dtype, D) else "flash_attention_fma"
+    before = launch_counts[route]
     got = ops.flash_attention(q, k, v, causal=causal)
-    assert launch_counts["flash_attention"] == before + 1
+    assert launch_counts[route] == before + 1
     want = ref.attention_ref(
         q.reshape(B * Hq, S, D), k.reshape(B * Hkv, S, D), v.reshape(B * Hkv, S, D),
         scale=D**-0.5, causal=causal, kv_group=Hq // Hkv,
@@ -235,6 +237,109 @@ def test_flash_attention_kernel_matches_plain(cuda_device, S, Hq, Hkv, causal, D
     # f32: online softmax and another order over up to 256 keys (5e-5)
     tol = BF16_TOL if dtype == torch.bfloat16 else 5e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _within_bf16_limit(got, want):
+    """chip_smoke.py's limit for a bf16 kernel against its plain version in
+    f32: each element within 2^-7 of its reference value plus 2^-12 of the
+    reference's largest (the kernel rounds P and the output to bf16)."""
+    limit = 2.0**-7 * want.abs() + 2.0**-12 * want.abs().max()
+    assert bool(torch.isfinite(got).all())
+    excess = float(((got - want).abs() / limit.clamp_min(1e-30)).max())
+    assert excess <= 1.0, f"worst ratio to the limit {excess:.3f}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 2049])
+def test_flash_wgmma_matches_plain_in_f32(cuda_device, S, causal, group, D):
+    rng = np.random.default_rng(1300 + S + group + D)  # seed 1300+S+group+D
+    B, Hkv = 2, 2
+    Hq = Hkv * group
+    q = _randn(rng, (B, Hq, S, D), torch.bfloat16, cuda_device)
+    k = _randn(rng, (B, Hkv, S, D), torch.bfloat16, cuda_device)
+    v = _randn(rng, (B, Hkv, S, D), torch.bfloat16, cuda_device)
+    before = dict(launch_counts)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert launch_counts["flash_attention"] == before.get("flash_attention", 0) + 1
+    assert launch_counts["flash_attention_fma"] == before.get("flash_attention_fma", 0)
+    want = ref.attention_heads_ref(q.float(), k.float(), v.float(), scale=D**-0.5,
+                                   causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Hq, S, D)
+    _within_bf16_limit(got.float(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_reads_the_layer_layout_without_copies(cuda_device, D):
+    rng = np.random.default_rng(1400 + D)  # seed 1400+D
+    B, S, Hq, Hkv = 2, 300, 8, 2
+    # the layer's [B, S, H, D] tensors, handed over as (B, H, S, D) views
+    q = _randn(rng, (B, S, Hq, D), torch.bfloat16, cuda_device).transpose(1, 2)
+    k = _randn(rng, (B, S, Hkv, D), torch.bfloat16, cuda_device).transpose(1, 2)
+    v = _randn(rng, (B, S, Hkv, D), torch.bfloat16, cuda_device).transpose(1, 2)
+    before = launch_counts["flash_attention_copies"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert launch_counts["flash_attention_copies"] == before
+    # o is written in the layer's layout: back to [B, S, Hq, D] with no copy
+    assert got.transpose(1, 2).is_contiguous()
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True)
+    assert torch.equal(got, want)  # the same kernel on the same values
+    assert launch_counts["flash_attention_copies"] == before
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_copies_an_operand_tma_cannot_read(cuda_device):
+    rng = np.random.default_rng(1410)  # seed 1410
+    # a head-dim stride of 2: TMA needs unit stride along D
+    wide = _randn(rng, (1, 2, 100, 256), torch.bfloat16, cuda_device)
+    q = wide[..., ::2]
+    k = _randn(rng, (1, 2, 100, 128), torch.bfloat16, cuda_device)
+    before = launch_counts["flash_attention_copies"]
+    got = ops.flash_attention(q, k, k, causal=True)
+    assert launch_counts["flash_attention_copies"] == before + 1
+    assert torch.equal(got, ops.flash_attention(q.contiguous(), k, k, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 32), (torch.bfloat16, 256)])
+def test_flash_other_routes_stay_on_the_fma_kernel(cuda_device, dtype, D):
+    rng = np.random.default_rng(1420 + D)  # seed 1420+D
+    q = _randn(rng, (2, 4, 70, D), dtype, cuda_device)
+    k = _randn(rng, (2, 2, 70, D), dtype, cuda_device)
+    before = dict(launch_counts)
+    got = ops.flash_attention(q, k, k, causal=True)
+    assert launch_counts["flash_attention_fma"] == before.get("flash_attention_fma", 0) + 1
+    assert launch_counts["flash_attention"] == before.get("flash_attention", 0)
+    want = ref.attention_heads_ref(q, k, k, scale=D**-0.5, causal=True)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 5e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 768, 1536, 2048, 4096, 1001])
+def test_rmsnorm_kernel_widths_and_unaligned_base(cuda_device, d, dtype, offset):
+    rng = np.random.default_rng(1500 + d)  # seed 1500+d
+    rows = 517
+    # offset 1: the rows start one element past a 16-byte boundary
+    flat = _randn(rng, (rows * d + offset,), dtype, cuda_device, 2.0)
+    x = flat[offset:].view(rows, d)
+    w = _randn(rng, (d,), torch.float32, cuda_device, 0.1)
+    before = launch_counts["rmsnorm"]
+    got = ops.rmsnorm(x, w, eps=1e-6, plus_one=True)
+    assert launch_counts["rmsnorm"] == before + 1
+    want = ref.rmsnorm_ref(x.float(), w, eps=1e-6, plus_one=True)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.bfloat16:
+        _within_bf16_limit(got.float(), want)
+    else:  # the mean square is summed in another order
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -271,9 +376,9 @@ def test_lm_kernel_wrappers_refuse_bad_operands(cuda_device):
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-    q = torch.zeros((4, 16, 64), device=cuda_device)
-    kv = torch.zeros((2, 16, 64), device=cuda_device)
-    kw = dict(scale=0.125, causal=True, kv_group=2)
+    q = torch.zeros((1, 4, 16, 64), device=cuda_device)
+    kv = torch.zeros((1, 2, 16, 64), device=cuda_device)
+    kw = dict(scale=0.125, causal=True)
     with pytest.raises(TypeError):
         flash_attention_cuda(q.half(), kv.half(), kv.half(), **kw)
     with pytest.raises(ValueError):
@@ -282,8 +387,10 @@ def test_lm_kernel_wrappers_refuse_bad_operands(cuda_device):
         flash_attention_cuda(q[0], kv[0], kv[0], **kw)
     with pytest.raises(ValueError):  # head dim 48
         flash_attention_cuda(q[..., :48], kv[..., :48], kv[..., :48], **kw)
-    with pytest.raises(ValueError):  # kv rows do not match the group
-        flash_attention_cuda(q, q, q, **kw)
+    with pytest.raises(ValueError):  # kv heads do not divide the q heads
+        flash_attention_cuda(q, q[:, :3], q[:, :3], **kw)
+    with pytest.raises(ValueError):  # k and v differ in shape
+        flash_attention_cuda(q, kv, q, **kw)
     with pytest.raises(TypeError):
         flash_attention_cuda(q, kv.bfloat16(), kv, **kw)
 
@@ -342,7 +449,8 @@ def test_model_on_cuda_matches_cpu(cuda_device, arch):
         pos = torch.full((2,), t, dtype=torch.int32)
         logits, caches = gpu.decode_step(tokens[:, t:t + 1], caches, pos)
         torch.testing.assert_close(logits[:, 0].cpu(), lc[:, t], rtol=1e-4, atol=1e-4)
-    kernel = "flash_attention" if arch.startswith("qwen") else "ssd_scan"
+    # f32 attention runs the CUDA-core route
+    kernel = "flash_attention_fma" if arch.startswith("qwen") else "ssd_scan"
     assert launch_counts[kernel] > before.get(kernel, 0)
     assert launch_counts["rmsnorm"] > before.get("rmsnorm", 0)
     reqs = [Request(prompt=tokens[i, :16].numpy(), max_new_tokens=6, rid=i)

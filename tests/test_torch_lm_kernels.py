@@ -88,6 +88,32 @@ def test_flash_attention_bf16_parity():
     _close(got, want, BF16_TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_takes_the_layers_transposed_views(causal):
+    # the attention layer hands over (B, H, S, D) views of [B, S, H, D]
+    # tensors; the result equals the call on contiguous copies and the JAX op
+    q, k, v = _qkv(np.random.default_rng(303), 2, 4, 2, 40, 32)  # seed 303
+    views = [torch.from_numpy(np.ascontiguousarray(t.transpose(0, 2, 1, 3))
+                              ).transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = tops.flash_attention(*views, causal=causal)
+    want = tops.flash_attention(*(t.contiguous() for t in views), causal=causal)
+    assert torch.equal(got, want)
+    _close(got, jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     causal=causal, use_pallas=False), F32_TOL)
+
+
+def test_attention_heads_ref_matches_attention_ref():
+    q, k, v = _qkv(np.random.default_rng(304), 2, 4, 1, 24, 16)  # seed 304
+    got = tref.attention_heads_ref(*(torch.from_numpy(t) for t in (q, k, v)),
+                                   scale=0.25, causal=True)
+    want = tref.attention_ref(torch.from_numpy(q.reshape(8, 24, 16)),
+                              torch.from_numpy(k.reshape(2, 24, 16)),
+                              torch.from_numpy(v.reshape(2, 24, 16)),
+                              scale=0.25, causal=True, kv_group=4)
+    assert torch.equal(got, want.reshape(2, 4, 24, 16))
+
+
 def test_attention_ref_parity():
     rng = np.random.default_rng(31)  # seed 31
     q, k, v = (t.reshape(-1, 40, 32) for t in _qkv(rng, 2, 4, 2, 40, 32))
@@ -228,9 +254,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-    q = torch.zeros((4, 16, 64))
+    q = torch.zeros((1, 4, 16, 64))
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_cuda(q, q[:2], q[:2], scale=0.125, causal=True, kv_group=2)
+        flash_attention_cuda(q, q[:, :2], q[:, :2], scale=0.125, causal=True)
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm_cuda(q, torch.zeros(64), eps=1e-6, plus_one=True)
     with pytest.raises(ValueError, match="CUDA"):

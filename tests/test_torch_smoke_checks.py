@@ -40,8 +40,9 @@ def _inputs(name: str, scale: float):
     """(args, kwargs) of one launch, seed 2000."""
     rng = np.random.default_rng(2000)  # seed 2000
     if name == "flash_attention":
-        q, k, v = (_bf16(rng, s, scale) for s in ((4, 64, 32), (2, 64, 32), (2, 64, 32)))
-        return [q, k, v], dict(scale=32**-0.5, causal=True, kv_group=2)
+        q, k, v = (_bf16(rng, s, scale)
+                   for s in ((1, 4, 64, 32), (1, 2, 64, 32), (1, 2, 64, 32)))
+        return [q, k, v], dict(scale=32**-0.5, causal=True)
     if name == "rmsnorm":
         w = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(np.float32))
         return [_bf16(rng, (16, 64), scale), w], dict(eps=1e-6, plus_one=True)
@@ -53,7 +54,7 @@ def _inputs(name: str, scale: float):
 
 
 def _plain32(name, args, kwargs):
-    plain = {"flash_attention": ref.attention_ref, "rmsnorm": ref.rmsnorm_ref,
+    plain = {"flash_attention": ref.attention_heads_ref, "rmsnorm": ref.rmsnorm_ref,
              "ssd_scan": ref.ssd_scan_heads_ref}[name]
     return plain(*[a.float() for a in args], **kwargs)
 
@@ -124,3 +125,21 @@ def test_lm_excess_scales_with_the_reference(smoke):
     assert ratio <= 1.0
     _, ratio = smoke.lm_excess(want + 1e-6, want)  # 1e-6 is 2.5 % of the largest
     assert ratio > 1.0
+
+
+def _record(ms, library_ms, bound_ms=0.139):
+    return {"name": "flash_attention", "ms": ms, "library_ms": library_ms,
+            "bound_ms": bound_ms}
+
+
+@pytest.mark.parametrize("ms,library_ms", [(0.1, 0.3), (0.3, 0.1), (0.1, None)])
+def test_check_readings_refuses_a_time_under_the_bound(smoke, ms, library_ms):
+    # 0.139 ms: qwen3's causal prefill attention at the H100's bf16 peak
+    with pytest.raises(AssertionError, match="under its bound"):
+        smoke.check_readings(_record(ms, library_ms))
+
+
+@pytest.mark.parametrize("ms,library_ms", [(0.139, 0.139), (0.3, 0.5), (4.5, None)])
+def test_check_readings_accepts_a_time_at_or_above_the_bound(smoke, ms, library_ms):
+    rec = _record(ms, library_ms)
+    assert smoke.check_readings(rec) is rec
