@@ -48,8 +48,10 @@ fails (non-zero exit) if any phase fails:
               2,048 seeded prompt tokens and 64 new tokens, greedy and at
               temperature 0.8, with launch counts reset just before and
               read just after (flash_attention, rmsnorm and ssd_scan must
-              launch; flash_attention_copies and flash_attention_fma must
-              stay 0). Prints per call the wall time, tokens/s, prefill ms
+              launch; flash_attention_copies, flash_attention_fma and
+              ssd_scan_fma must stay 0: bf16 attention and the SSD scan at
+              mamba2's width take the tensor-core routes; both SSD counts
+              are printed). Prints per call the wall time, tokens/s, prefill ms
               and decode ms per step, the device-idle share and busiest
               device activities of one profiled prefill and decode step,
               and max_memory_allocated. Checks each LM kernel against its
@@ -61,9 +63,10 @@ fails (non-zero exit) if any phase fails:
               of each model, prefill + 8 decode steps against
               ``Model.apply`` (2 requests, 256-token prompts);
 10. timing  — each kernel, its plain version and its bound at the heaviest
-              shape its phase launched (the kernel's device time from
-              torch.profiler, its own launches, or where the profiler lost
-              them all its CUDA-event time per call, marked so), and for
+              shape its phase launched (the device time of one call from
+              torch.profiler, summed over the kernels the call launches, or
+              where the profiler lost them all its CUDA-event time per call,
+              marked so), and for
               the LM kernels the one torch call that computes the same function
               (SDPA, ``F.rms_norm``) as a yardstick the port never calls;
               plain and library calls timed with CUDA events over
@@ -658,7 +661,7 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     valid = int((a != 2**31 - 1).sum())
     ops_count = valid * max(math.log2(width), 1.0)
     records.append(kernel_record(
-        "intersect_count", "intersect_count_kernel",
+        "intersect_count", ("intersect_count_kernel",),
         "src/repro_torch/csrc/intersect.cu",
         "src/repro/kernels/intersect.py:64", launches["intersect_count"],
         max(err, worst["intersect_count"]), kernel, plain, 50, nbytes,
@@ -678,7 +681,7 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     nbytes = 4 * rows * width + 4 * rows * width
     ops_count = rows * width * max(math.log2(width), 1.0)
     records.append(kernel_record(
-        "segmented_union", "segmented_union_kernel",
+        "segmented_union", ("segmented_union_kernel",),
         "src/repro_torch/csrc/segmented_union.cu",
         "src/repro/kernels/segmented_union.py:94", launches["segmented_union"],
         max(err, worst["segmented_union"]), kernel, plain, 5, nbytes,
@@ -699,7 +702,7 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     # a sort of each candidate row and a search of the visited row per slot
     ops_count = rows * kc * (max(math.log2(kc), 1.0) + max(math.log2(kv), 1.0))
     records.append(kernel_record(
-        "frontier_compact", "frontier_kernel",
+        "frontier_compact", ("frontier_kernel",),
         "src/repro_torch/csrc/frontier.cu", "src/repro/kernels/frontier.py:105",
         traversal["launches"]["frontier_compact"],
         max(err, worst["frontier_compact"]), kernel, plain, 20, nbytes,
@@ -713,32 +716,57 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     return records
 
 
-def kernel_record(name, symbol, source, replaces, launches, err, kernel, plain,
+def call_device_ms(acts: dict, symbols, calls: int):
+    """The device time of one call from a profiled window of ``calls``
+    calls -> (ms or None, {symbol: events seen}). Each of ``symbols`` names
+    a kernel one call launches once (matched as a substring of the device
+    activity's name); ms sums, over the symbols, the mean duration of the
+    symbol's delivered events. With every event delivered that is the
+    window's summed device time of those kernels divided by the number of
+    calls; where the profiler dropped some events it still counts each
+    kernel once a call. None when a symbol has no event at all. A symbol
+    seen more often than there were calls breaks the contract and raises.
+    """
+    seen, ms = {}, 0.0
+    for sym in symbols:
+        own = [v for k, v in acts.items() if sym in k]
+        n = sum(c for c, _ in own)
+        seen[sym] = n
+        if n > calls:
+            raise AssertionError(
+                f"{sym}: {n} device events in a window of {calls} calls; a "
+                f"listed kernel must launch once a call")
+        if n:
+            ms += sum(us for _, us in own) / n / 1e3
+    return (ms if all(seen.values()) else None), seen
+
+
+def kernel_record(name, symbols, source, replaces, launches, err, kernel, plain,
                   iters, nbytes, ops_count, shape, *, ops_rate=SCALAR_OPS_PER_S,
                   library=None, library_none="") -> dict:
-    """``ms`` is the mean device duration of the kernel's own launches (the
-    profiler's events named ``symbol``, so it holds when the profiler
-    drops events; where the profiler lost them all, the event-timed time
-    per call, an upper bound, and ``ms_from`` says which); ``plain_ms``
-    the time per call of the plain version and ``library_ms`` that of
-    ``library``, one torch call computing the same
-    function (None where there is none, for the reason ``library_none``),
-    both from CUDA events over back-to-back calls. The bound counts
-    ``ops_count`` at ``ops_rate``; ``check_readings`` refuses a reading
-    under it. The kernel's event-timed time per call (host launch
-    included) is printed beside."""
-    seen = 0
+    """``ms`` is the device time of one call of ``kernel``, summed over
+    ``symbols``, the kernels one call launches (``call_device_ms`` over the
+    profiler's events, so it holds when the profiler drops events; where
+    the profiler lost every event of a symbol in all windows, the
+    event-timed time per call, an upper bound, and ``ms_from`` says which);
+    ``plain_ms`` the time per call of the plain version and ``library_ms``
+    that of ``library``, one torch call computing the same function (None
+    where there is none, for the reason ``library_none``), both from CUDA
+    events over back-to-back calls. The bound counts ``ops_count`` at
+    ``ops_rate``; ``check_readings`` refuses a reading under it. The
+    kernel's event-timed time per call (host launch included) and the
+    window's other device activity are printed beside."""
+    ms, seen = None, {}
     for _ in range(PROFILER_WINDOWS):
         acts = device_activity(kernel, iters)
-        own = [v for k, v in acts.items() if symbol in k]
-        seen = sum(n for n, _ in own)
-        if seen:
+        ms, seen = call_device_ms(acts, symbols, iters)
+        if ms is not None:
             break
+    other = {k: v for k, v in acts.items() if not any(sym in k for sym in symbols)}
     call_ms = cuda_ms(kernel, iters)
-    if seen:
-        ms, ms_from = sum(us for _, us in own) / seen / 1e3, "profiler"
-    else:
-        # the profiler lost every window's launches of the kernel: the
+    ms_from = "profiler"
+    if ms is None:
+        # the profiler lost every window's launches of a kernel: the
         # event-timed call (host launch included) bounds its time from above
         ms, ms_from = call_ms, "cuda events, host launch included"
     plain_ms = cuda_ms(plain, max(iters // 5, 2))
@@ -754,10 +782,12 @@ def kernel_record(name, symbol, source, replaces, launches, err, kernel, plain,
     }
     lib = (f"library {library_ms:.4f} ms" if library is not None
            else f"no library call ({library_none})")
-    log(f"timing: {name} at {shape}: kernel {ms:.4f} ms per launch, from "
-        f"{ms_from} ({seen} of {iters} launches seen by the profiler; "
-        f"{call_ms:.4f} ms per call by CUDA events, host launch included), plain "
-        f"{plain_ms:.4f} ms, {lib}, bound {rec['bound_ms']:.4f} ms "
+    log(f"timing: {name} at {shape}: kernel {ms:.4f} ms per call over "
+        f"{', '.join(symbols)}, from {ms_from} (events seen of {iters} calls: "
+        f"{json.dumps(seen)}; {call_ms:.4f} ms per call by CUDA events, host "
+        f"launch included; other device activity in the window: "
+        f"{json.dumps({k: [n, round(us, 1)] for k, (n, us) in other.items()})}), "
+        f"plain {plain_ms:.4f} ms, {lib}, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}: bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); "
         f"{launches} launches in its phase; {device_line(CLOCK_FIELDS)}")
     return check_readings(rec)
@@ -1214,8 +1244,13 @@ def lm_serve(arch: str, cfg, device, seed: int) -> dict:
     for k in ("rmsnorm", "flash_attention" if cfg.family != "ssm" else "ssd_scan"):
         if launches.get(k, 0) == 0:
             raise AssertionError(f"kernel {k} never launched on the {arch} path")
-    # the bf16 path reads the layer's q, k, v on the tensor cores, uncopied
-    for k in ("flash_attention_copies", "flash_attention_fma"):
+    # the bf16 path reads the layer's q, k, v on the tensor cores, uncopied,
+    # and runs its SSD scan on the tensor cores
+    if cfg.family == "ssm":
+        log(f"lm: {arch}: SSD routes: ssd_scan (tensor cores) "
+            f"{launches.get('ssd_scan', 0)}, ssd_scan_fma (CUDA cores) "
+            f"{launches.get('ssd_scan_fma', 0)}")
+    for k in ("flash_attention_copies", "flash_attention_fma", "ssd_scan_fma"):
         if launches.get(k, 0):
             raise AssertionError(f"{k} is {launches[k]} on the {arch} path, not 0")
 
@@ -1334,11 +1369,14 @@ def phase_lm(device, seed: int, configs: dict | None = None) -> dict:
 def lm_timing(lm: dict) -> list:
     """Kernel records of the LM kernels at the heaviest shape each was
     launched at in the lm phase (by elements of its first operand, then
-    by its width)."""
+    by its width). The ssd record times the route that shape takes: the
+    bf16 tensor-core route launches ``ssd_tc_kernel`` alone (x, dt, a_log,
+    B and C read as the layer hands them over), the CUDA-core route copies
+    its operands and launches ``ssd_fma_kernel``."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd_scan import kernel_chunk
+    from repro_torch.kernels.ssd_scan import kernel_chunk, uses_tensor_cores
 
     heaviest = {}
     for (name, label, shapes), (args, kwargs) in lm["seen"].items():
@@ -1346,10 +1384,9 @@ def lm_timing(lm: dict) -> list:
         if name not in heaviest or size > heaviest[name][0]:
             heaviest[name] = (size, label, args, kwargs)
     records = []
-    for name, source_name, symbol, replaces in (
-        ("flash_attention", "flash_attention", "flash_wgmma_kernel",
-         "src/repro/kernels/flash_attention.py:92"),
-        ("ssd_scan", "ssd_scan", "ssd_kernel", "src/repro/kernels/ssd_scan.py:93"),
+    for name, source_name, replaces in (
+        ("flash_attention", "flash_attention", "src/repro/kernels/flash_attention.py:92"),
+        ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:93"),
     ):
         _, label, args, kw = heaviest[name]
         kernel_fn, plain_fn = lm_kernel(name), lm_plain(name)
@@ -1357,6 +1394,7 @@ def lm_timing(lm: dict) -> list:
         plain = lambda: plain_fn(*args, **kw)  # noqa: E731
         el = args[0].element_size()
         library, library_none, iters = None, "", 10
+        symbols, counter = ("flash_wgmma_kernel",), name
         if name == "flash_attention":
             q, k, v = args
             B, Hq, S, D = q.shape
@@ -1373,6 +1411,10 @@ def lm_timing(lm: dict) -> list:
             B, H, S, P = x.shape
             N = bm.shape[-1]
             Q = kernel_chunk(kw["chunk"], S)
+            if uses_tensor_cores(x.dtype, P, N, Q):
+                symbols = ("ssd_tc_kernel",)
+            else:
+                symbols, counter = ("ssd_fma_kernel",), "ssd_scan_fma"
             nc = -(-S // Q)
             tri = Q * (Q + 1) / 2
             # per chunk and b*h: C Bt^T on the lower triangle, its product
@@ -1385,8 +1427,8 @@ def lm_timing(lm: dict) -> list:
             shape = (f"x [{B * H},{S},{P}], B/C [{B},{S},{N}] {x.dtype}, chunk "
                      f"{Q} ({label})")
         records.append(kernel_record(
-            name, symbol, f"src/repro_torch/csrc/{source_name}.cu", replaces,
-            lm["launches"].get(name, 0), lm["worst"][name], kernel, plain, iters,
+            name, symbols, f"src/repro_torch/csrc/{source_name}.cu", replaces,
+            lm["launches"].get(counter, 0), lm["worst"][name], kernel, plain, iters,
             nbytes, ops_count, shape, ops_rate=rate, library=library,
             library_none=library_none,
         ))
@@ -1426,7 +1468,7 @@ def rmsnorm_timing(args, kw, label: str, lm: dict) -> dict:
                        [[xi] for xi in xs], COLD_BUFFERS)
     el = x.element_size()
     return kernel_record(
-        "rmsnorm", "rmsnorm_kernel", "src/repro_torch/csrc/rmsnorm.cu",
+        "rmsnorm", ("rmsnorm_kernel",), "src/repro_torch/csrc/rmsnorm.cu",
         "src/repro/kernels/rmsnorm.py:33", lm["launches"].get("rmsnorm", 0),
         lm["worst"]["rmsnorm"], kernel, plain, 50, 2 * el * x.numel() + 4 * D,
         4 * R * D,  # square, sum, two multiplies a value

@@ -60,10 +60,11 @@
 // row max and sum with shuffles over the 8 threads of the row, and
 // accumulates D/8 output columns of each row in registers.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -381,51 +382,11 @@ struct WgSmem {
   static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;  // + align
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One TMA box of a 4-D (D, S, H, B) map into shared memory at `dst`;
-// completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int s0, int h,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(s0), "r"(h), "r"(b),
-      "r"(bar)
-      : "memory");
-}
+using tma::mbar_arrive;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::smem_u32;
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`:
 // lbo / sbo in bytes (the stride between 64-column boxes along the MN axis
@@ -623,7 +584,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int kvh = h / group;
       mbar_expect_tx(q_full, SM::kQBytes);
       for (int c = 0; c < kBoxes; ++c) {
-        tma_load(q_s + c * SM::kBoxBytes, &tq, q_full, c * kBoxCols, q0, h, b);
+        tma::load_4d(q_s + c * SM::kBoxBytes, &tq, q_full, c * kBoxCols, q0, h, b);
       }
       for (int it = 0; it < n_kv; ++it) {
         const int st = it % kStages;
@@ -632,12 +593,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_wait(empty(st), ph ^ 1);
         mbar_expect_tx(k_full(st), SM::kTileBytes);
         for (int c = 0; c < kBoxes; ++c) {
-          tma_load(k_tile(st) + c * SM::kBoxBytes, &tk, k_full(st), c * kBoxCols,
+          tma::load_4d(k_tile(st) + c * SM::kBoxBytes, &tk, k_full(st), c * kBoxCols,
                    k0, kvh, b);
         }
         mbar_expect_tx(v_full(st), SM::kTileBytes);
         for (int c = 0; c < kBoxes; ++c) {
-          tma_load(v_tile(st) + c * SM::kBoxBytes, &tv, v_full(st), c * kBoxCols,
+          tma::load_4d(v_tile(st) + c * SM::kBoxBytes, &tv, v_full(st), c * kBoxCols,
                    k0, kvh, b);
         }
       }
@@ -782,38 +743,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: fetched through the runtime,
-// so the library needs no -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
-
 // A (D, S, H, B) bf16 map of the tensor at `ptr` with element strides
 // (b, h, s) and unit stride along D, boxes of 64 x 128 x 1 x 1.
 bool encode(CUtensorMap* map, const void* ptr, int batch, int heads, int s_len,
             int d, const int64_t* strides) {
-  const EncodeTiled fn = encoder();
+  const tma::EncodeTiled fn = tma::encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(s_len),

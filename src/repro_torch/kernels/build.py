@@ -17,14 +17,16 @@ traversal). ``core/traversal.py`` counts its label sweeps under
 ``"components_sweeps"``. The LM kernels count under ``"rmsnorm"``,
 ``"flash_attention"`` (the bf16 tensor-core route),
 ``"flash_attention_fma"`` (the CUDA-core route: f32, and bf16 at head
-dims 32 and 256) and ``"ssd_scan"``; operands the tensor-core route had to
-copy for TMA count under ``"flash_attention_copies"``.
+dims 32 and 256), ``"ssd_scan"`` (the bf16 tensor-core route) and
+``"ssd_scan_fma"`` (the CUDA-core route: f32, and the shapes the first
+cannot take); operands flash's tensor-core route had to copy for TMA count
+under ``"flash_attention_copies"``.
 
-No source needs a flag of its own: ``flash_attention.cu`` fetches the
-driver's ``cuTensorMapEncodeTiled`` through the runtime
-(``cudaGetDriverEntryPoint``) and takes only the toolkit's ``cuda.h`` for
-its types, so nothing links ``-lcuda`` and the hash of source and flags
-covers every choice.
+No source needs a flag of its own: ``flash_attention.cu`` and
+``ssd_scan.cu`` share ``csrc/tma.cuh``, which fetches libcuda's
+``cuTensorMapEncodeTiled`` through the runtime (``cudaGetDriverEntryPoint``)
+and takes only the toolkit's ``cuda.h`` for its types, so nothing links
+``-lcuda`` and the hash of source, headers and flags covers every choice.
 """
 
 from __future__ import annotations

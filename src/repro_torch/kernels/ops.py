@@ -178,7 +178,9 @@ def ssd_scan(
     chunk: int = 128,
 ) -> torch.Tensor:
     """Mamba2 SSD scan -> (B, H, S, P) in x's dtype; on the CPU
-    ``ref.ssd_scan_heads_ref``."""
+    ``ref.ssd_scan_heads_ref``. On the card the route is
+    ``ssd_scan.uses_tensor_cores``'s: bf16 at mamba2's widths on the tensor
+    cores, f32 and other shapes on the CUDA cores."""
     if x.is_cuda:
         return ssd_scan_cuda(x, dt, a_log, bmat, cmat, chunk=chunk)
     return ref.ssd_scan_heads_ref(x, dt, a_log, bmat, cmat, chunk=chunk)

@@ -1,13 +1,28 @@
-"""Wrapper for the CUDA Mamba2 SSD-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrapper for the CUDA Mamba2 SSD-scan kernels (``csrc/ssd_scan.cu``).
 
-The chunked SSD recurrence of one b·h per block, the (N, P) state carried
-across chunks in shared memory, B and C read per batch row by index (no
+The chunked SSD recurrence, each block walking the chunks in order with
+the (N, P) state carried on chip, B and C read per batch row by index (no
 per-head copy). Replaces the Pallas kernel
 ``src/repro/kernels/ssd_scan.py::ssd_scan_kernel``, which needs
-S % chunk == 0; this kernel treats the steps past S as x = dt = a_log = 0
-(B = C = 0), which leaves every real position exact because the
+S % chunk == 0; both routes here treat the steps past S as x = dt = a_log
+= 0 (B = C = 0), which leaves every real position exact because the
 recurrence is causal. The plain torch versions are
-``kernels/ref.py::ssd_scan_chunked_ref`` and ``ssd_scan_ref``.
+``kernels/ref.py::ssd_scan_heads_ref`` (the op's layout),
+``ssd_scan_chunked_ref`` and ``ssd_scan_ref``.
+
+The route is picked by :func:`uses_tensor_cores`, from the dtype and the
+shapes:
+
+- bf16 with P a multiple of ``TC_HEAD_TILE`` and N one of ``TC_STATES``
+  (mamba2: P 64, N 128, chunk 128): ``ssd_tc_kernel``,
+  all four products on the tensor cores. It reads x, dt, a_log, B and C at
+  their own strides (the layer hands it views of its activations): x, B
+  and C by TMA, dt and a_log by ``cp.async``; an x, B or C whose strides
+  or base TMA cannot take (:func:`tma_ready`) is copied first.
+  Launches count under ``launch_counts["ssd_scan"]``.
+- f32, and the shapes the first cannot take: ``ssd_fma_kernel``, f32 FMAs
+  on the CUDA cores on contiguous [B·H, S, P] copies, exact to f32
+  rounding. Launches count under ``launch_counts["ssd_scan_fma"]``.
 """
 
 from __future__ import annotations
@@ -23,12 +38,21 @@ from .build import (
 
 MAX_CHUNK = 128  # the Q x Q f32 score tile must fit beside the state
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
+TC_HEAD_TILE = 32  # head-dim columns per block of the tensor-core route
+TC_STATES = (16, 32, 64, 128)  # state sizes the tensor-core route is built for
 
-_ARGTYPES = [
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_FMA_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
+]
+_TC_ARGTYPES = [
+    ctypes.c_void_p, _I64P, ctypes.c_void_p, _I64P, ctypes.c_void_p, _I64P,
+    ctypes.c_void_p, _I64P, ctypes.c_void_p, _I64P, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 ]
 
 
@@ -40,15 +64,44 @@ def kernel_chunk(chunk: int, seq: int) -> int:
     return min(-(-q // 16) * 16, MAX_CHUNK)
 
 
+def uses_tensor_cores(dtype: torch.dtype, p: int, n: int, q: int) -> bool:
+    """Whether an SSD call of x's ``dtype``, head dim ``p``, state ``n`` and
+    kernel chunk ``q`` (:func:`kernel_chunk`) takes the tensor-core route:
+    bf16, ``p`` a multiple of ``TC_HEAD_TILE``, ``n`` one of ``TC_STATES``
+    and ``q`` a multiple of 16 from 16 to ``MAX_CHUNK``."""
+    return (dtype == torch.bfloat16 and p > 0 and p % TC_HEAD_TILE == 0
+            and n in TC_STATES and 16 <= q <= MAX_CHUNK and q % 16 == 0)
+
+
 def smem_bytes(q: int, n: int, p: int) -> int:
-    """Dynamic shared memory of one block, as ``csrc/ssd_scan.cu``'s
-    ``smem_floats`` counts it."""
+    """Dynamic shared memory of one block of the FMA route, as
+    ``csrc/ssd_scan.cu``'s ``smem_floats`` counts it."""
     return 4 * (2 * q * p + n * p + q * q + 2 * q * 16 + 4 * q)
 
 
-def _launcher():
-    fn = library("ssd_scan").ssd_scan_launch
-    fn.argtypes = _ARGTYPES
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the tensor-core route's TMA can read ``t`` (x, B or C) as
+    it lies: unit stride along the last axis, a 16-byte-aligned base and
+    every other stride a positive multiple of 16 bytes (a stride of an axis
+    of size 1 is never used)."""
+    es = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and (st * es) % 16 == 0)
+        for n, st in zip(t.shape[:-1], t.stride()[:-1])))
+
+
+def _strides(t: torch.Tensor, axes: int):
+    """The element strides of ``t``'s first ``axes`` axes for the C
+    interface; an axis of size 1 gets a stride TMA accepts (it is never
+    stepped)."""
+    return (ctypes.c_int64 * axes)(*(
+        st if n > 1 else t.shape[-1]
+        for n, st in zip(t.shape[:axes], t.stride()[:axes])))
+
+
+def _launcher(symbol: str, argtypes):
+    fn = getattr(library("ssd_scan"), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,11 +111,63 @@ def ssd_scan_cuda(
     bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int,
 ) -> torch.Tensor:
     """SSD scan of CUDA x [B, H, S, P] (bf16/f32) with dt, a_log [B, H, S]
-    (f32) and B, C [B, S, N] in x's dtype -> [B, H, S, P] in x's dtype."""
+    (f32) and B, C [B, S, N] in x's dtype, at any strides -> contiguous
+    [B, H, S, P] in x's dtype."""
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dim() != 4:
         raise ValueError(f"x must be 4-D (B, H, S, P), got {tuple(x.shape)}")
+    if x.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    b, h, s_len, p = x.shape
+    for name, t, dtype in (("dt", dt, torch.float32), ("a_log", a_log, torch.float32),
+                           ("bmat", bmat, x.dtype), ("cmat", cmat, x.dtype)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} must lie on x's device {x.device}, got {t.device}")
+    if tuple(dt.shape) != (b, h, s_len) or tuple(a_log.shape) != (b, h, s_len):
+        raise ValueError(
+            f"dt {tuple(dt.shape)} / a_log {tuple(a_log.shape)} must be "
+            f"({b}, {h}, {s_len}) for x {tuple(x.shape)}"
+        )
+    n = bmat.shape[-1] if bmat.dim() == 3 else -1
+    if tuple(bmat.shape) != (b, s_len, n) or tuple(cmat.shape) != (b, s_len, n):
+        raise ValueError(
+            f"bmat {tuple(bmat.shape)} / cmat {tuple(cmat.shape)} must be "
+            f"({b}, {s_len}, N) for x {tuple(x.shape)}"
+        )
+    if p % 4:
+        raise ValueError(f"head dim P={p} must be a multiple of 4")
+    q = kernel_chunk(chunk, s_len)
+    if uses_tensor_cores(x.dtype, p, n, q):
+        return _ssd_tc(x, dt, a_log, bmat, cmat, q)
+    return _ssd_fma(x, dt, a_log, bmat, cmat, q)
+
+
+def _ssd_tc(x, dt, a_log, bmat, cmat, q):
+    b, h, s_len, p = x.shape
+    n = bmat.shape[-1]
+    out = torch.empty((b, h, s_len, p), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    x, bmat, cmat = (t if tma_ready(t) else aligned16(t) for t in (x, bmat, cmat))
+    launch = _launcher("ssd_scan_tc_launch", _TC_ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            x.data_ptr(), _strides(x, 3), dt.data_ptr(), _strides(dt, 3),
+            a_log.data_ptr(), _strides(a_log, 3), bmat.data_ptr(),
+            _strides(bmat, 2), cmat.data_ptr(), _strides(cmat, 2), out.data_ptr(),
+            b, h, s_len, q, n, p,
+            stream,
+        )
+    check_launch(err, "ssd_scan")
+    launch_counts["ssd_scan"] += 1
+    return out
+
+
+def _ssd_fma(x, dt, a_log, bmat, cmat, q):
     b, h, s_len, p = x.shape
     xf = aligned16(x.reshape(b * h, s_len, p))
     dtf = dt.reshape(b * h, s_len).contiguous()
@@ -74,16 +179,6 @@ def ssd_scan_cuda(
     check_operand(bm, "bmat", 3, (xf.dtype,))
     check_operand(cm, "cmat", 3, (xf.dtype,))
     n = bm.shape[-1]
-    if tuple(bm.shape) != (b, s_len, n) or tuple(cm.shape) != (b, s_len, n):
-        raise ValueError(
-            f"bmat {tuple(bm.shape)} / cmat {tuple(cm.shape)} must be "
-            f"({b}, {s_len}, N) for x {tuple(x.shape)}"
-        )
-    if any(t.device != x.device for t in (dtf, af, bm, cm)):
-        raise ValueError("all operands must lie on x's device")
-    if p % 4:
-        raise ValueError(f"head dim P={p} must be a multiple of 4")
-    q = kernel_chunk(chunk, s_len)
     if smem_bytes(q, n, p) > SMEM_LIMIT:
         raise ValueError(
             f"chunk {q}, state {n}, head dim {p} need {smem_bytes(q, n, p)} "
@@ -91,7 +186,7 @@ def ssd_scan_cuda(
         )
     out = torch.empty_like(xf)
     if xf.numel():
-        launch = _launcher()
+        launch = _launcher("ssd_scan_fma_launch", _FMA_ARGTYPES)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = launch(
@@ -99,6 +194,6 @@ def ssd_scan_cuda(
                 cm.data_ptr(), out.data_ptr(), b * h, h, s_len, q, n, p,
                 float_code(xf.dtype), stream,
             )
-        check_launch(err, "ssd_scan")
-        launch_counts["ssd_scan"] += 1
+        check_launch(err, "ssd_scan_fma")
+        launch_counts["ssd_scan_fma"] += 1
     return out.reshape(b, h, s_len, p)

@@ -26,6 +26,7 @@ from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.flash_attention import uses_wgmma
 from repro_torch.kernels.frontier import MAX_CAND
 from repro_torch.kernels.segmented_union import MAX_FLAT
+from repro_torch.kernels.ssd_scan import kernel_chunk, tma_ready, uses_tensor_cores
 
 S = int(SENTINEL)
 
@@ -342,6 +343,35 @@ def test_rmsnorm_kernel_widths_and_unaligned_base(cuda_device, d, dtype, offset)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _ssd_inputs(rng, B, H, S, P, N, dtype, device):
+    """x ~ N(0, 1), dt ~ U(0.1, 1), a_log = -dt U(0.5, 2), B and C ~ N(0,
+    0.2^2), on ``device``."""
+    x = _randn(rng, (B, H, S, P), dtype, device)
+    dt = torch.from_numpy(rng.uniform(0.1, 1.0, (B, H, S)).astype(np.float32))
+    a_log = -dt * torch.from_numpy(rng.uniform(0.5, 2.0, (B, H, S)).astype(np.float32))
+    bm = _randn(rng, (B, S, N), dtype, device, 0.2)
+    cm = _randn(rng, (B, S, N), dtype, device, 0.2)
+    return x, dt.to(device), a_log.to(device), bm, cm
+
+
+def _ssd_want(x, dt, a_log, bm, cm):
+    """The sequential recurrence (``ref.ssd_scan_ref``) in f32 on the same
+    values, in the op's (B, H, S, P) layout."""
+    B, H, S, P = x.shape
+    N = bm.shape[-1]
+    bf = bm[:, None].expand(B, H, S, N).reshape(B * H, S, N)
+    cf = cm[:, None].expand(B, H, S, N).reshape(B * H, S, N)
+    return ref.ssd_scan_ref(x.reshape(B * H, S, P).float(), dt.reshape(B * H, S),
+                            a_log.reshape(B * H, S), bf.float(), cf.float()
+                            ).reshape(B, H, S, P)
+
+
+def _ssd_route(x, bm, chunk):
+    q = kernel_chunk(chunk, x.shape[2])
+    return ("ssd_scan" if uses_tensor_cores(x.dtype, x.shape[-1], bm.shape[-1], q)
+            else "ssd_scan_fma")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,S,P,N,chunk", [(1, 1, 64, 16, 16, 16),
@@ -351,23 +381,107 @@ def test_rmsnorm_kernel_widths_and_unaligned_base(cuda_device, d, dtype, offset)
                                              (1, 1, 5, 8, 24, 128)])
 def test_ssd_scan_kernel_matches_plain(cuda_device, B, H, S, P, N, chunk, dtype):
     rng = np.random.default_rng(1000 + S + N)  # seed 1000+S+N
-    x = _randn(rng, (B, H, S, P), dtype, cuda_device)
-    dt = torch.from_numpy(rng.uniform(0.1, 1.0, (B, H, S)).astype(np.float32))
-    a_log = -dt * torch.from_numpy(rng.uniform(0.5, 2.0, (B, H, S)).astype(np.float32))
-    bm = _randn(rng, (B, S, N), dtype, cuda_device, 0.2)
-    cm = _randn(rng, (B, S, N), dtype, cuda_device, 0.2)
-    dt, a_log = dt.to(cuda_device), a_log.to(cuda_device)
+    x, dt, a_log, bm, cm = _ssd_inputs(rng, B, H, S, P, N, dtype, cuda_device)
+    route = _ssd_route(x, bm, chunk)
+    assert route == ("ssd_scan" if dtype == torch.bfloat16 and P == 64 else "ssd_scan_fma")
+    before = dict(launch_counts)
+    got = ops.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk)
+    assert launch_counts[route] == before.get(route, 0) + 1
+    other = "ssd_scan_fma" if route == "ssd_scan" else "ssd_scan"
+    assert launch_counts[other] == before.get(other, 0)
+    want = _ssd_want(x, dt, a_log, bm, cm)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.bfloat16:
+        _within_bf16_limit(got.float(), want)
+    else:  # chunked against sequential sums, as tests/test_kernels.py holds
+        # the Pallas kernel: 1e-4
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 24])
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 300, 2048, 2049])
+def test_ssd_tc_matches_plain_in_f32_at_mamba2_width(cuda_device, S, H):
+    rng = np.random.default_rng(1600 + S + H)  # seed 1600+S+H
+    x, dt, a_log, bm, cm = _ssd_inputs(rng, 2, H, S, 64, 128, torch.bfloat16,
+                                       cuda_device)
+    before = dict(launch_counts)
+    got = ops.ssd_scan(x, dt, a_log, bm, cm, chunk=128)
+    assert launch_counts["ssd_scan"] == before.get("ssd_scan", 0) + 1
+    assert launch_counts["ssd_scan_fma"] == before.get("ssd_scan_fma", 0)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _within_bf16_limit(got.float(), _ssd_want(x, dt, a_log, bm, cm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("P,chunk", [(32, 16), (96, 64), (64, 100)])
+def test_ssd_tc_other_states_head_dims_and_chunks(cuda_device, P, chunk, N):
+    rng = np.random.default_rng(1650 + P + N + chunk)  # seed 1650+P+N+chunk
+    x, dt, a_log, bm, cm = _ssd_inputs(rng, 2, 3, 150, P, N, torch.bfloat16,
+                                       cuda_device)
     before = launch_counts["ssd_scan"]
     got = ops.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk)
     assert launch_counts["ssd_scan"] == before + 1
-    bf = bm[:, None].expand(B, H, S, N).reshape(B * H, S, N)
-    cf = cm[:, None].expand(B, H, S, N).reshape(B * H, S, N)
-    want = ref.ssd_scan_ref(x.reshape(B * H, S, P), dt.reshape(B * H, S),
-                            a_log.reshape(B * H, S), bf, cf).reshape(B, H, S, P)
-    # chunked against sequential sums, as tests/test_kernels.py holds the
-    # Pallas kernel: 1e-4 in f32; bf16 rounds the output (BF16_TOL)
-    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _within_bf16_limit(got.float(), _ssd_want(x, dt, a_log, bm, cm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [129, 2048])
+def test_ssd_tc_reads_the_layer_layout(cuda_device, S):
+    """The Mamba layer hands over views of its [B, S, *] activations: x as
+    a transposed (B, H, S, P) view, dt and a_log as (B, H, S) views with a
+    step stride of H, B and C as column slices. The tensor-core route reads
+    them as they lie and gives what it gives on contiguous copies."""
+    rng = np.random.default_rng(1700 + S)  # seed 1700+S
+    B, H, P, N = 2, 24, 64, 128
+    di = H * P
+    conv = _randn(rng, (B, S, di + 2 * N), torch.bfloat16, cuda_device)
+    x = conv[..., :di].reshape(B, S, H, P).transpose(1, 2)
+    bm, cm = conv[..., di:di + N], conv[..., di + N:]
+    dt_l = torch.from_numpy(rng.uniform(0.1, 1.0, (B, S, H)).astype(np.float32)
+                            ).to(cuda_device)
+    a_l = -dt_l * 0.5
+    dt, a_log = dt_l.transpose(1, 2), a_l.transpose(1, 2)
+    assert not x.is_contiguous() and not dt.is_contiguous()
+    assert tma_ready(x) and tma_ready(bm) and tma_ready(cm)
+    got = ops.ssd_scan(x, dt, a_log, bm, cm, chunk=128)
+    want = ops.ssd_scan(*(t.contiguous() for t in (x, dt, a_log, bm, cm)), chunk=128)
+    assert torch.equal(got, want)  # the same kernel on the same values
+    _within_bf16_limit(got.float(), _ssd_want(x, dt, a_log, bm, cm))
+
+
+@pytest.mark.cuda
+def test_ssd_tc_copies_an_operand_tma_cannot_read(cuda_device):
+    rng = np.random.default_rng(1710)  # seed 1710
+    x, dt, a_log, bm, cm = _ssd_inputs(rng, 1, 2, 70, 64, 128, torch.bfloat16,
+                                       cuda_device)
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    x_odd = flat[1:].view(x.shape)  # base 2 bytes past a 16-byte boundary
+    x_odd.copy_(x)
+    assert not tma_ready(x_odd)
+    before = launch_counts["ssd_scan"]
+    got = ops.ssd_scan(x_odd, dt, a_log, bm, cm, chunk=128)
+    assert launch_counts["ssd_scan"] == before + 1
+    assert torch.equal(got, ops.ssd_scan(x, dt, a_log, bm, cm, chunk=128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,P,N", [(torch.float32, 64, 128), (torch.bfloat16, 48, 128),
+                                       (torch.bfloat16, 64, 48), (torch.bfloat16, 64, 256),
+                                       (torch.bfloat16, 16, 16)])
+def test_ssd_other_shapes_stay_on_the_fma_kernel(cuda_device, dtype, P, N):
+    rng = np.random.default_rng(1720 + P + N)  # seed 1720+P+N
+    x, dt, a_log, bm, cm = _ssd_inputs(rng, 1, 2, 150, P, N, dtype, cuda_device)
+    before = dict(launch_counts)
+    got = ops.ssd_scan(x, dt, a_log, bm, cm, chunk=64)
+    assert launch_counts["ssd_scan_fma"] == before.get("ssd_scan_fma", 0) + 1
+    assert launch_counts["ssd_scan"] == before.get("ssd_scan", 0)
+    want = _ssd_want(x, dt, a_log, bm, cm)
+    if dtype == torch.bfloat16:
+        _within_bf16_limit(got.float(), want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -449,8 +563,8 @@ def test_model_on_cuda_matches_cpu(cuda_device, arch):
         pos = torch.full((2,), t, dtype=torch.int32)
         logits, caches = gpu.decode_step(tokens[:, t:t + 1], caches, pos)
         torch.testing.assert_close(logits[:, 0].cpu(), lc[:, t], rtol=1e-4, atol=1e-4)
-    # f32 attention runs the CUDA-core route
-    kernel = "flash_attention_fma" if arch.startswith("qwen") else "ssd_scan"
+    # f32 attention and the f32 SSD scan run the CUDA-core routes
+    kernel = "flash_attention_fma" if arch.startswith("qwen") else "ssd_scan_fma"
     assert launch_counts[kernel] > before.get(kernel, 0)
     assert launch_counts["rmsnorm"] > before.get("rmsnorm", 0)
     reqs = [Request(prompt=tokens[i, :16].numpy(), max_new_tokens=6, rid=i)

@@ -29,7 +29,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import kernel_chunk
+from repro_torch.kernels.ssd_scan import kernel_chunk, tma_ready, uses_tensor_cores
 
 F32_TOL = 2e-5
 BF16_TOL = 2.0**-6
@@ -209,6 +209,76 @@ def test_ssd_zero_tail_is_exact(S):
     got = tref.ssd_scan_chunked_ref(*(padded(t, 1) for t in flat), chunk=q)
     want = tref.ssd_scan_ref(*flat)
     torch.testing.assert_close(got[:, :S], want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("dtype,p,n,q,want", [
+    (torch.bfloat16, 64, 128, 128, True),  # mamba2-130m's prefill
+    (torch.bfloat16, 32, 16, 16, True),
+    (torch.bfloat16, 96, 64, 112, True),
+    (torch.bfloat16, 64, 32, 48, True),
+    (torch.float32, 64, 128, 128, False),  # f32 stays exact on the CUDA cores
+    (torch.bfloat16, 48, 128, 128, False),  # P not a multiple of 32
+    (torch.bfloat16, 16, 16, 16, False),  # the reduced configs' head dim
+    (torch.bfloat16, 64, 48, 128, False),  # N not one of 16, 32, 64, 128
+    (torch.bfloat16, 64, 256, 128, False),
+    (torch.bfloat16, 64, 128, 8, False),  # a chunk under 16
+    (torch.bfloat16, 64, 128, 120, False),  # a chunk not a multiple of 16
+    (torch.bfloat16, 64, 128, 144, False),  # a chunk over 128
+])
+def test_ssd_route_choice(dtype, p, n, q, want):
+    assert uses_tensor_cores(dtype, p, n, q) is want
+
+
+@pytest.mark.parametrize("seq", [1, 16, 127, 128, 129, 2048, 2049])
+def test_mamba2_prefill_takes_the_tensor_core_route(seq):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-130m")
+    # the layer asks for chunk min(ssm_chunk, S)
+    q = kernel_chunk(min(cfg.ssm_chunk, seq), seq)
+    assert uses_tensor_cores(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state, q)
+
+
+def test_mamba_layer_hands_the_tensor_core_route_views_tma_reads(monkeypatch):
+    """At mamba2-130m's width the Mamba layer passes x, B and C as views of
+    its activations (no copy), and TMA can read each as it lies; dt and
+    a_log, read by 4-byte copies, may be strided."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import Mamba
+
+    cfg = get_config("mamba2-130m")
+    layer = Mamba(cfg, device="cpu")
+    layer.init(torch.Generator().manual_seed(0))
+    seen = []
+    plain = tops.ssd_scan
+
+    def capture(*args, **kwargs):
+        seen.append((args, kwargs))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(tops, "ssd_scan", capture)
+    x = torch.from_numpy(np.random.default_rng(90).normal(  # seed 90
+        size=(2, 130, cfg.d_model)).astype(np.float32)).bfloat16()
+    out, _ = layer(x)
+    assert out.shape == x.shape and bool(torch.isfinite(out.float()).all())
+    (xh, dt, a_log, bm, cm), kw = seen[0]
+    assert xh.dtype == bm.dtype == cm.dtype == torch.bfloat16
+    assert not xh.is_contiguous() and not bm.is_contiguous()
+    assert all(tma_ready(t) for t in (xh, bm, cm))
+    q = kernel_chunk(kw["chunk"], xh.shape[2])
+    assert uses_tensor_cores(xh.dtype, xh.shape[-1], bm.shape[-1], q)
+
+
+def test_tma_ready_refuses_what_tma_cannot_read():
+    base = torch.zeros(4 * 40 * 64 + 8, dtype=torch.bfloat16)
+    x = base[:4 * 40 * 64].view(4, 40, 64)
+    assert tma_ready(x)
+    assert not tma_ready(base[1:4 * 40 * 64 + 1].view(4, 40, 64))  # base off 16 B
+    assert not tma_ready(x[..., ::2])  # not unit stride along the last axis
+    rows120 = torch.zeros(4, 40, 60, dtype=torch.bfloat16)[..., :56]
+    assert rows120.data_ptr() % 16 == 0 and not tma_ready(rows120)  # 120-byte rows
+    assert tma_ready(x[:, :1])  # the stride of an axis of size 1 is never used
+    assert not tma_ready(x[:1].expand(4, 40, 64))  # a zero stride
 
 
 # ---------------------------------------------------------------------------

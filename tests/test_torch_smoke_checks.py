@@ -143,3 +143,64 @@ def test_check_readings_refuses_a_time_under_the_bound(smoke, ms, library_ms):
 def test_check_readings_accepts_a_time_at_or_above_the_bound(smoke, ms, library_ms):
     rec = _record(ms, library_ms)
     assert smoke.check_readings(rec) is rec
+
+
+def _stub_timing(smoke, monkeypatch, acts: dict, event_ms: float = 9.0):
+    """Stands the profiler window in with ``acts`` ({name: [events, us]}),
+    CUDA-event timing with ``event_ms`` a call and nvidia-smi with a line."""
+    windows = []
+
+    def device_activity(fn, iters):
+        windows.append(iters)
+        return {k: list(v) for k, v in acts.items()}
+
+    monkeypatch.setattr(smoke, "device_activity", device_activity)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: event_ms)
+    monkeypatch.setattr(smoke, "device_line", lambda fields="": "stub card, 700.00 W")
+    return windows
+
+
+def _ssd_record(smoke, symbols, iters=10):
+    # bound: 1 MB at the card's rate, far under every time here
+    return smoke.kernel_record(
+        "ssd_scan", symbols, "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:93", 16, 0.0, lambda: None, lambda: None,
+        iters, 1e6, 0.0, "stub shape", library_none="none")
+
+
+def test_kernel_record_sums_the_kernels_of_one_call(smoke, monkeypatch):
+    # 10 calls, each launching two kernels; a third activity is not listed
+    acts = {"void (anonymous namespace)::tc::ssd_tc_kernel<8>(CUtensorMap)": [10, 2000.0],
+            "void at::native::elementwise_kernel<copy>(...)": [10, 500.0],
+            "Memset (Device)": [3, 30.0]}
+    windows = _stub_timing(smoke, monkeypatch, acts)
+    rec = _ssd_record(smoke, ("ssd_tc_kernel", "elementwise_kernel"))
+    assert rec["ms"] == pytest.approx((2000.0 + 500.0) / 10 / 1e3)
+    assert rec["ms_from"] == "profiler" and windows == [10]
+
+
+def test_kernel_record_counts_each_kernel_once_a_call_when_events_drop(
+        smoke, monkeypatch):
+    # the profiler delivered 7 and 4 of 10 events: each kernel's mean
+    # duration, once a call, not the window's sum over 10 calls
+    acts = {"ssd_tc_kernel": [7, 1400.0], "copy_kernel": [4, 200.0]}
+    _stub_timing(smoke, monkeypatch, acts)
+    rec = _ssd_record(smoke, ("ssd_tc_kernel", "copy_kernel"))
+    assert rec["ms"] == pytest.approx(0.200 + 0.050)
+
+
+def test_kernel_record_falls_back_to_event_time_when_a_kernel_is_lost(
+        smoke, monkeypatch):
+    acts = {"ssd_tc_kernel": [10, 2000.0]}  # copy_kernel lost in every window
+    windows = _stub_timing(smoke, monkeypatch, acts, event_ms=0.75)
+    rec = _ssd_record(smoke, ("ssd_tc_kernel", "copy_kernel"))
+    assert rec["ms"] == 0.75
+    assert rec["ms_from"] == "cuda events, host launch included"
+    assert len(windows) == smoke.PROFILER_WINDOWS
+
+
+def test_call_device_ms_refuses_a_kernel_launched_more_than_once_a_call(smoke):
+    with pytest.raises(AssertionError, match="once a call"):
+        smoke.call_device_ms({"ssd_tc_kernel": [20, 10.0]}, ("ssd_tc_kernel",), 10)
+    ms, seen = smoke.call_device_ms({"ssd_tc_kernel": [10, 10.0]}, ("ssd_tc_kernel",), 10)
+    assert ms == pytest.approx(1e-3) and seen == {"ssd_tc_kernel": 10}
