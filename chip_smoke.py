@@ -12,7 +12,9 @@ fails (non-zero exit) if any phase fails:
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — compiles the CUDA kernels (``src/repro_torch/csrc``);
 3. kernels  — each CUDA kernel against its plain torch version on seeded
-              inputs at the recipe's widths (exact match required);
+              inputs at the recipe's widths (exact match required), the
+              union's count-only output and its wide route (rows past the
+              in-block capacity) among them;
 4. network  — builds the register-style network with the port's own
               builders: Households / Workplaces / Schools two-mode layers
               (1, 4, 6 memberships per node over n/2.5, n/20, n/400
@@ -20,22 +22,26 @@ fails (non-zero exit) if any phase fails:
               ``income`` attribute, at 10M nodes by default;
 5. main     — getedge / checkedge / getnodealters / getdegree, unfiltered
               and filtered, with launch counts reset just before and read
-              just after (both kernels must launch; no union row may take
-              the sort path);
+              just after (intersect_count, segmented_union and the
+              count-only segmented_union_count of the filtered degree must
+              launch; no union row may take torch's sort), recording the
+              rows of the heaviest count-only launch;
 6. oracle   — 256 seeded queries of each kind: kernel path bit-identical
               to the port's padded plain path, plus a small network
               against the materialized projection;
 7. hubs     — a Workplaces layer whose group sizes are heavy-tailed, as
-              employer sizes are: counts how many union rows exceed the
-              segmented-union kernel's capacity and take the sort path,
-              and checks a subsample against the padded plain path;
+              employer sizes are: union rows past the in-block kernel's
+              capacity must take its wide route (segmented_union_wide,
+              union_merge, union_compact launch) and none torch's sort;
+              a subsample is checked against the padded plain path;
 8. traversal — on the same network, with launch counts reset just before
               and read just after: a k-hop over all 4 layers (512
               sources, k=2, frontier cap 256, 128 alters per node), a
               one-mode k-hop over ``Random`` (1,024 sources, k=3), ego
               networks (512 egos, k=2) and component counts (unfiltered
-              and ``income > median``); the frontier kernel must launch
-              and no frontier row may take the plain path. 64 sources of
+              and ``income > median``); the frontier kernel and the
+              union's wide route must launch, no frontier row may take the
+              plain path and no union row torch's sort. 64 sources of
               each k-hop and ego batch must be bit-identical to the plain
               path on the card, and a small network's components and
               k-hops must equal scipy's on its materialized projection.
@@ -63,12 +69,14 @@ fails (non-zero exit) if any phase fails:
               of each model, prefill + 8 decode steps against
               ``Model.apply`` (2 requests, 256-token prompts);
 10. timing  — each kernel, its plain version and its bound at the heaviest
-              shape its phase launched (the device time of one call from
-              torch.profiler, summed over the kernels the call launches, or
-              where the profiler lost them all its CUDA-event time per call,
-              marked so), and for
-              the LM kernels the one torch call that computes the same function
-              (SDPA, ``F.rms_norm``) as a yardstick the port never calls;
+              shape its phase launched (the union also on the main path's
+              recorded rows, written out and counted only, and its wide
+              route on the traversal's recorded heaviest merge): the device
+              time of one call from torch.profiler, summed over the kernels
+              the call launches, or where the profiler lost them all its
+              CUDA-event time per call, marked so; for the LM kernels the
+              one torch call that computes the same function (SDPA,
+              ``F.rms_norm``) as a yardstick the port never calls;
               plain and library calls timed with CUDA events over
               back-to-back calls. RMSNorm runs on a rotation of buffers
               larger than the L2 (cold rows, as in a prefill), at the
@@ -400,7 +408,9 @@ def phase_kernels(device, seed: int) -> dict:
     from repro_torch.kernels.segmented_union import MAX_FLAT
 
     rng = np.random.default_rng(seed + 1)
-    worst = {"intersect_count": 0, "segmented_union": 0, "frontier_compact": 0}
+    worst = {"intersect_count": 0, "segmented_union": 0,
+             "segmented_union_count": 0, "segmented_union_wide": 0,
+             "frontier_compact": 0}
     max_memb = max(p for _, p, _ in LAYER_RECIPE)
     for width in (8, 32, 128, max_memb):
         a = sorted_rows(rng, POINT_PAIRS, width, 4 * width, device)
@@ -419,8 +429,23 @@ def phase_kernels(device, seed: int) -> dict:
         wv, wm = ref.segmented_union_ref(flat, max_out)
         err = max(max_abs_err(gv, wv), max_abs_err(gm.int(), wm.int()))
         worst["segmented_union"] = max(worst["segmented_union"], err)
+        cerr = max_abs_err(ops.segmented_union_count(flat),
+                           ref.segmented_union_count_ref(flat))
+        worst["segmented_union_count"] = max(worst["segmented_union_count"], cerr)
         log(f"kernels: segmented_union width {width} rows {rows} max_out "
-            f"{max_out}: max_abs_err {err}")
+            f"{max_out}: max_abs_err {err}, count-only {cerr}")
+    # the wide route: a traversal merge row (4 layers x a 16,384 cap) and a
+    # hub row (4 memberships x a 50,466-member group), ids up to 10^7
+    for width, rows, max_out in ((4 * 16384, 256, 16384), (4 * 50466, 64, MAX_ALTERS)):
+        flat = flat_rows(rng, rows, width, device, universe=N_NODES)
+        gv, gm = ops.segmented_union(flat, max_out)
+        wv, wm = ref.segmented_union_ref(flat, max_out)
+        err = max(max_abs_err(gv, wv), max_abs_err(gm.int(), wm.int()),
+                  max_abs_err(ops.segmented_union_count(flat),
+                              ref.segmented_union_count_ref(flat)))
+        worst["segmented_union_wide"] = max(worst["segmented_union_wide"], err)
+        log(f"kernels: segmented_union (wide route) width {width} rows {rows} "
+            f"max_out {max_out} and count-only: max_abs_err {err}")
     # candidate widths of the traversal's chunks; visited widths of hop 1
     # (the source column), a 256-cap hop 2 and a 4096-cap hop 3
     for width in (32, 1024, 8192, MAX_CAND):
@@ -637,12 +662,13 @@ def main_path_shapes(net, queries: dict) -> dict:
 
 
 def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
-                 traversal: dict, lm: dict, device) -> list:
+                 counted, traversal: dict, lm: dict, device) -> list:
     """Kernel, plain version and bound at the heaviest shape each kernel's
-    phase launched: the main path's for intersect and union, the
-    traversal phase's (its recorded inputs) for the frontier kernel, the
-    lm phase's (its recorded inputs) for the LM kernels. What each time
-    means is set out in ``kernel_record``.
+    phase launched: the main path's for intersect and union (and its
+    recorded rows for the count-only union, ``counted``), the traversal
+    phase's (its recorded inputs) for the frontier kernel and the union's
+    wide route, the lm phase's (its recorded inputs) for the LM kernels.
+    What each time means is set out in ``kernel_record``.
     """
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.segmented_union import MAX_FLAT
@@ -689,7 +715,72 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
         library_none="torch.unique has no per-row form",
     ))
 
-    _, cand, visited, max_out, call = traversal["heaviest"]
+    # the main path's own rows: the heaviest count-only launch of its
+    # filtered getdegree, recorded; the rows written out (printed beside
+    # the synthetic record above), then the count alone (a record)
+    _, (flat,), _ = counted
+    rows, width = flat.shape
+    ops_count = rows * width * max(math.log2(width), 1.0)
+    gv, gm = ops.segmented_union(flat, width)
+    wv, wm = ref.segmented_union_ref(flat, width)
+    err = max(max_abs_err(gv, wv), max_abs_err(gm.int(), wm.int()))
+    if err:
+        raise AssertionError("segmented_union disagrees on the main path's rows")
+    kernel_record(
+        "segmented_union", ("segmented_union_kernel",),
+        "src/repro_torch/csrc/segmented_union.cu",
+        "src/repro/kernels/segmented_union.py:94", launches["segmented_union"],
+        err, lambda: ops.segmented_union(flat, width),
+        lambda: ref.segmented_union_ref(flat, width), 5, 8 * rows * width,
+        ops_count, f"[{rows},{width}]->[{rows},{width}] (the main path's "
+        "recorded rows)", library_none="torch.unique has no per-row form",
+    )
+    err = max_abs_err(ops.segmented_union_count(flat),
+                      ref.segmented_union_count_ref(flat))
+    records.append(kernel_record(
+        "segmented_union_count", ("segmented_union_kernel",),
+        "src/repro_torch/csrc/segmented_union.cu",
+        "src/repro/kernels/segmented_union.py:94",
+        launches["segmented_union_count"],
+        max(err, worst["segmented_union_count"]),
+        lambda: ops.segmented_union_count(flat),
+        lambda: ref.segmented_union_count_ref(flat), 5,
+        4 * rows * width + 4 * rows, ops_count,
+        f"[{rows},{width}]->[{rows}] (the main path's recorded filtered-degree "
+        f"rows, count only)", library_none="torch.unique has no per-row form",
+    ))
+
+    # the wide route at the traversal's heaviest merge, on its recorded rows
+    _, (flat, max_out), call = traversal["wide"]
+    rows, width = flat.shape
+    tiles, _, chunk = ops.union_wide_plan(rows, width, max_out)
+    chunks = -(-rows // chunk)
+    levels = max(tiles - 1, 0).bit_length()
+    if max_out is None:
+        kernel = lambda: ops.union_wide(flat, None)  # noqa: E731
+        plain = lambda: ref.segmented_union_count_ref(flat)  # noqa: E731
+        err = max_abs_err(kernel(), plain())
+    else:
+        kernel = lambda: ops.union_wide(flat, max_out)  # noqa: E731
+        plain = lambda: ref.segmented_union_ref(flat, max_out)[0]  # noqa: E731
+        err = max_abs_err(kernel(), plain())
+    symbols = (("segmented_union_kernel", chunks),
+               ("union_merge_kernel", chunks * levels),
+               ("union_compact_kernel", chunks))
+    records.append(kernel_record(
+        "segmented_union_wide", tuple(sym for sym in symbols if sym[1]),
+        "src/repro_torch/csrc/segmented_union.cu",
+        "src/repro/kernels/segmented_union.py:94",
+        traversal["launches"]["segmented_union_wide"],
+        max(err, worst["segmented_union_wide"]), kernel, plain, 3,
+        4 * rows * width + 4 * rows * (max_out or 1),
+        rows * width * max(math.log2(width), 1.0),
+        f"[{rows},{width}]->[{rows},{max_out}] ({tiles} tiles, {levels} merge "
+        f"levels, {chunks} row chunks; {call})",
+        library_none="torch.unique has no per-row form",
+    ))
+
+    _, (cand, visited, max_out), call = traversal["heaviest"]
     rows, kc = cand.shape
     kv = visited.shape[1]
     gv, gm = ops.frontier_compact(cand, visited, max_out, visited_sorted=True)
@@ -716,28 +807,36 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     return records
 
 
+def symbol_counts(symbols) -> list:
+    """``symbols`` as (name, launches a call) pairs: a bare name launches
+    once a call."""
+    return [(sym, 1) if isinstance(sym, str) else tuple(sym) for sym in symbols]
+
+
 def call_device_ms(acts: dict, symbols, calls: int):
     """The device time of one call from a profiled window of ``calls``
     calls -> (ms or None, {symbol: events seen}). Each of ``symbols`` names
     a kernel one call launches once (matched as a substring of the device
-    activity's name); ms sums, over the symbols, the mean duration of the
+    activity's name), or is a (name, n) pair for a kernel launched n times
+    a call; ms sums, over the symbols, n times the mean duration of the
     symbol's delivered events. With every event delivered that is the
     window's summed device time of those kernels divided by the number of
     calls; where the profiler dropped some events it still counts each
-    kernel once a call. None when a symbol has no event at all. A symbol
-    seen more often than there were calls breaks the contract and raises.
+    kernel n times a call. None when a symbol has no event at all. A symbol
+    seen more often than n times the calls breaks the contract and raises.
     """
     seen, ms = {}, 0.0
-    for sym in symbols:
+    for sym, per_call in symbol_counts(symbols):
         own = [v for k, v in acts.items() if sym in k]
         n = sum(c for c, _ in own)
         seen[sym] = n
-        if n > calls:
+        if n > calls * per_call:
+            times = "once" if per_call == 1 else f"{per_call} times"
             raise AssertionError(
                 f"{sym}: {n} device events in a window of {calls} calls; a "
-                f"listed kernel must launch once a call")
+                f"listed kernel must launch {times} a call")
         if n:
-            ms += sum(us for _, us in own) / n / 1e3
+            ms += per_call * sum(us for _, us in own) / n / 1e3
     return (ms if all(seen.values()) else None), seen
 
 
@@ -745,8 +844,9 @@ def kernel_record(name, symbols, source, replaces, launches, err, kernel, plain,
                   iters, nbytes, ops_count, shape, *, ops_rate=SCALAR_OPS_PER_S,
                   library=None, library_none="") -> dict:
     """``ms`` is the device time of one call of ``kernel``, summed over
-    ``symbols``, the kernels one call launches (``call_device_ms`` over the
-    profiler's events, so it holds when the profiler drops events; where
+    ``symbols``, the kernels one call launches, each once or (name, n) n
+    times (``call_device_ms`` over the profiler's events, so it holds when
+    the profiler drops events; where
     the profiler lost every event of a symbol in all windows, the
     event-timed time per call, an upper bound, and ``ms_from`` says which);
     ``plain_ms`` the time per call of the plain version and ``library_ms``
@@ -762,7 +862,8 @@ def kernel_record(name, symbols, source, replaces, launches, err, kernel, plain,
         ms, seen = call_device_ms(acts, symbols, iters)
         if ms is not None:
             break
-    other = {k: v for k, v in acts.items() if not any(sym in k for sym in symbols)}
+    names = [sym for sym, _ in symbol_counts(symbols)]
+    other = {k: v for k, v in acts.items() if not any(sym in k for sym in names)}
     call_ms = cuda_ms(kernel, iters)
     ms_from = "profiler"
     if ms is None:
@@ -783,7 +884,7 @@ def kernel_record(name, symbols, source, replaces, launches, err, kernel, plain,
     lib = (f"library {library_ms:.4f} ms" if library is not None
            else f"no library call ({library_none})")
     log(f"timing: {name} at {shape}: kernel {ms:.4f} ms per call over "
-        f"{', '.join(symbols)}, from {ms_from} (events seen of {iters} calls: "
+        f"{', '.join(names)}, from {ms_from} (events seen of {iters} calls: "
         f"{json.dumps(seen)}; {call_ms:.4f} ms per call by CUDA events, host "
         f"launch included; other device activity in the window: "
         f"{json.dumps({k: [n, round(us, 1)] for k, (n, us) in other.items()})}), "
@@ -817,14 +918,16 @@ def skewed_membership_chunks(n_nodes: int, per_node: int, n_groups: int,
 
 
 def phase_hubs(net, median_income: int, device) -> None:
-    """Union rows past the kernel's capacity on heavy-tailed group sizes.
+    """Union rows past the in-block kernel's capacity on heavy-tailed group
+    sizes.
 
     Builds a Workplaces layer (4 memberships per node over n/20 groups)
     whose group sizes follow ``skewed_membership_chunks`` on the main
     network's nodes, drives getnodealters and filtered getdegree through
     the api with the launch counts set to 0 just before and read just
-    after, prints how many union rows took the sort path, and checks a
-    subsample bit for bit against the padded plain path.
+    after, fails unless the union's wide route launched and no union row
+    took torch's sort, and checks a subsample bit for bit against the
+    padded plain path.
     """
     import torch
 
@@ -851,17 +954,18 @@ def phase_hubs(net, median_income: int, device) -> None:
     build.launch_counts.clear()
     alters = lambda: api.getnodealters(hub, u, max_alters=MAX_ALTERS)  # noqa: E731
     degree = lambda: api.getdegree(hub, u, filter=sel)  # noqa: E731
-    alt_ms, (vals, _) = host_median_ms(alters)
-    deg_ms, deg = host_median_ms(degree)
-    sync()
+    with wide_launches() as wide:
+        alt_ms, (vals, _) = host_median_ms(alters)
+        deg_ms, deg = host_median_ms(degree)
+        sync()
     counts = dict(build.launch_counts)
     calls = REPEATS + 1  # warm-up + repeats, each over HUB_QUERIES rows
-    sort_rows = counts.get("segmented_union_sort_rows", 0)
-    share = sort_rows / (2 * calls * HUB_QUERIES)
-    log(f"hubs: launch counts {json.dumps(counts, sort_keys=True)}; "
-        f"{sort_rows} of {2 * calls * HUB_QUERIES} two-mode union rows "
-        f"({share * 100:.1f} %) exceeded the kernel's capacity and took "
-        f"the sort path")
+    log(f"hubs: launch counts {json.dumps(counts, sort_keys=True)} over "
+        f"{calls} calls of each kind; wide union shapes (rows, width, "
+        f"max_out): " + ", ".join(
+            f"{k}x{v}" for k, v in sorted(wide.shapes.items(), key=str)))
+    assert_launched("hubs", counts, WIDE_STEPS)
+    assert_no_sort_rows("hubs", counts)
     log(f"hubs: getnodealters x{HUB_QUERIES}: median {alt_ms:.3f} ms, "
         + busy_share(alters, alt_ms))
     log(f"hubs: filtered getdegree x{HUB_QUERIES}: median {deg_ms:.3f} ms, "
@@ -878,47 +982,91 @@ def phase_hubs(net, median_income: int, device) -> None:
     log(f"hubs: {q} queries of each kind bit-identical to the padded plain path")
 
 
-class FrontierLaunches:
-    """Within the block, records the shape of every frontier-kernel launch
-    and keeps a copy of the inputs of the heaviest one (by the bytes the
-    kernel must move), so the timing phase runs the kernel on the data the
-    traversal gave it. Wraps ``ops.frontier_compact_cuda``; it counts
-    nothing in ``launch_counts``."""
+class Launches:
+    """Within the block, wraps ``ops.<attr>``: counts the shape of every
+    call (``shape(*args)``) and keeps a copy of the arguments of the
+    heaviest one (by the bytes the function must move, ``nbytes(*args)``),
+    so the timing phase runs the function on the data the path gave it.
+    It counts nothing in ``launch_counts``."""
 
-    def __init__(self):
+    def __init__(self, attr: str, nbytes, shape):
+        self.attr, self._nbytes, self._shape = attr, nbytes, shape
         self.shapes = collections.Counter()
-        self.heaviest = None  # (bytes, cand, visited, max_out, call)
+        self.heaviest = None  # (bytes, args, call)
         self.call = ""
 
     def __enter__(self):
+        import torch
+
         from repro_torch.kernels import ops
 
-        inner = self._inner = ops.frontier_compact_cuda
+        inner = self._inner = getattr(ops, self.attr)
 
-        def record(cand, visited, max_out):
-            rows, kc = cand.shape
-            kv = visited.shape[1]
-            self.shapes[(rows, kc, kv, max_out)] += 1
-            nbytes = 4 * rows * (kc + kv + max_out)
+        def record(*args, **kw):
+            self.shapes[self._shape(*args)] += 1
+            nbytes = self._nbytes(*args)
             if self.heaviest is None or nbytes > self.heaviest[0]:
-                self.heaviest = (nbytes, cand.clone(), visited.clone(), max_out,
-                                 self.call)
-            return inner(cand, visited, max_out)
+                kept = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args)
+                self.heaviest = (nbytes, kept, self.call)
+            return inner(*args, **kw)
 
-        ops.frontier_compact_cuda = record
+        setattr(ops, self.attr, record)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
 
-        ops.frontier_compact_cuda = self._inner
+        setattr(ops, self.attr, self._inner)
+
+
+def frontier_launches() -> Launches:
+    """Every frontier-kernel launch: (rows, cand, visited, max_out)."""
+    return Launches(
+        "frontier_compact_cuda",
+        lambda cand, visited, max_out: 4 * cand.shape[0] * (
+            cand.shape[1] + visited.shape[1] + max_out),
+        lambda cand, visited, max_out: (*cand.shape, visited.shape[1], max_out))
+
+
+def wide_launches() -> Launches:
+    """Every call of the union's wide route: (rows, width, max_out), max_out
+    None for a count."""
+    return Launches(
+        "union_wide",
+        lambda flat, max_out, **kw: 4 * flat.shape[0] * (
+            flat.shape[1] + (max_out or 1)),
+        lambda flat, max_out, **kw: (*flat.shape, max_out))
+
+
+def count_launches() -> Launches:
+    """Every in-block count-only union launch: (rows, width)."""
+    return Launches(
+        "segmented_union_count_cuda",
+        lambda flat: 4 * flat.shape[0] * (flat.shape[1] + 1),
+        lambda flat: tuple(flat.shape))
+
+
+WIDE_STEPS = ("segmented_union_wide", "union_merge", "union_compact")
+
+
+def assert_no_sort_rows(phase: str, launches: dict) -> None:
+    """No union row may leave the kernels for torch's sort on the card."""
+    if launches.get("segmented_union_sort_rows", 0):
+        raise AssertionError(f"union rows took the sort path in the {phase} phase")
+
+
+def assert_launched(phase: str, launches: dict, keys) -> None:
+    for k in keys:
+        if launches.get(k, 0) == 0:
+            raise AssertionError(f"kernel {k} never launched in the {phase} phase")
 
 
 def phase_traversal(net, median_income: int, seed: int, device) -> dict:
     """Batched traversal through the entry points, timed per call, with the
     launch counts set to 0 just before and read just after; then the
-    subsample and small-network checks. Returns the counts and the
-    heaviest frontier launch."""
+    subsample and small-network checks. Returns the counts, the heaviest
+    frontier launch and the heaviest call of the union's wide route."""
     import torch
 
     from repro_torch.core import api
@@ -952,9 +1100,9 @@ def phase_traversal(net, median_income: int, seed: int, device) -> dict:
     outputs, latencies = {}, {}
     torch.cuda.reset_peak_memory_stats()
     build.launch_counts.clear()
-    with FrontierLaunches() as rec:
+    with frontier_launches() as rec, wide_launches() as wide:
         for name, call in calls.items():
-            rec.call = name
+            rec.call = wide.call = name
             before = collections.Counter(build.launch_counts)
             t0 = time.perf_counter()
             ms, out = host_median_ms(call, TRAVERSAL_REPEATS)
@@ -978,11 +1126,13 @@ def phase_traversal(net, median_income: int, seed: int, device) -> dict:
         f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
     log("traversal: frontier launch shapes (rows, cand, visited, max_out): "
         + ", ".join(f"{k}x{v}" for k, v in sorted(rec.shapes.items())))
+    log("traversal: wide union shapes (rows, width, max_out): "
+        + ", ".join(f"{k}x{v}" for k, v in sorted(wide.shapes.items(), key=str)))
     log(f"traversal: latencies ms {json.dumps(latencies, sort_keys=True)}")
-    if launches.get("frontier_compact", 0) == 0:
-        raise AssertionError("kernel frontier_compact never launched on the traversal path")
+    assert_launched("traversal", launches, ("frontier_compact",) + WIDE_STEPS)
     if launches.get("frontier_sort_rows", 0):
         raise AssertionError("frontier rows took the plain path on the traversal path")
+    assert_no_sort_rows("traversal", launches)
 
     # per-source results do not depend on the batch: a subsample of each
     # call against the plain compaction and merge on the card
@@ -1009,7 +1159,8 @@ def phase_traversal(net, median_income: int, seed: int, device) -> dict:
     log(f"traversal: {q} sources of each k-hop and ego batch bit-identical to "
         f"the plain path; {SMALL_NODES}-node network: components and k-hops "
         f"equal scipy's on the materialized projection")
-    return {"launches": launches, "heaviest": rec.heaviest}
+    return {"launches": launches, "heaviest": rec.heaviest,
+            "wide": wide.heaviest}
 
 
 def small_traversal_check(device, seed: int, bad: list) -> None:
@@ -1513,22 +1664,24 @@ def run() -> int:
         f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
 
     build.launch_counts.clear()
-    latencies, queries = main_path(net, median_income, SEED, device)
-    sync()
+    with count_launches() as counted:
+        latencies, queries = main_path(net, median_income, SEED, device)
+        sync()
     launches = dict(build.launch_counts)
-    log(f"main: launch counts {json.dumps(launches, sort_keys=True)}")
-    for k in ("intersect_count", "segmented_union"):
-        if launches.get(k, 0) == 0:
-            raise AssertionError(f"kernel {k} never launched on the main path")
-    if launches.get("segmented_union_sort_rows", 0):
-        raise AssertionError("union rows took the sort path on the main path")
+    log(f"main: launch counts {json.dumps(launches, sort_keys=True)}; "
+        "count-only union shapes (rows, width): " + ", ".join(
+            f"{k}x{v}" for k, v in sorted(counted.shapes.items())))
+    assert_launched("main", launches, ("intersect_count", "segmented_union",
+                                       "segmented_union_count"))
+    assert_no_sort_rows("main", launches)
     log(f"main: latencies ms {json.dumps(latencies, sort_keys=True)}")
 
     phase_oracle(net, median_income, SEED, device)
     phase_hubs(net, median_income, device)
     traversal = phase_traversal(net, median_income, SEED, device)
     lm = phase_lm(device, SEED)
-    records = phase_timing(net, queries, SEED, launches, worst, traversal, lm, device)
+    records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
+                           traversal, lm, device)
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

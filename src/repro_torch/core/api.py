@@ -48,14 +48,19 @@ def addlayer(
     net: Network, name: str, mode: int = 1, directed: bool = False,
     valued: bool = False, n_hyperedges: int = 1,
 ) -> Network:
+    """An empty layer. ``valued=True`` gives a one-mode layer an (empty)
+    values array, so it is valued; the JAX package drops ``valued`` and
+    builds an unvalued layer (a departure on purpose, ROADMAP Queue 3)."""
     if mode == 2:
         return net.with_layer(
             name, two_mode_empty(net.n_nodes, n_hyperedges, device=net.device)
         )
+    values = np.zeros(0, dtype=np.float32) if valued else None
     return net.with_layer(
         name,
         one_mode_from_edges(
-            net.n_nodes, [], [], directed=directed, device=net.device
+            net.n_nodes, [], [], values=values, directed=directed,
+            device=net.device,
         ),
     )
 

@@ -24,16 +24,17 @@ Thresholds re-derived for the H100:
   narrow buckets off its TPU kernel because that kernel pads rows to a
   full 128-lane tile; the CUDA kernel (one warp per row pair, binary
   search) takes rows of any width, so the threshold does not apply.
-* Union rows up to ``UNION_KERNEL_MAX_FLAT`` entries (the CUDA kernel's
-  shared-memory capacity, 32,768) go to the segmented-union kernel; the
-  JAX package's ``UNION_PALLAS_MAX_FLAT = 2048`` was sized for its
-  all-pairs VMEM tiles. Wider rows take the ``padded_unique`` sort path,
-  mirroring the JAX rule beyond its limit, and each such row is counted
-  in ``launch_counts["segmented_union_sort_rows"]``. That is a capacity
-  gap of the kernel, not a port of wide rows: one group larger than the
-  last ladder width sets the second-hop width of its whole bucket to
-  the layer max, so a single large group can send every row of a
-  bucket to the sort path.
+* Union rows up to ``UNION_KERNEL_MAX_FLAT`` entries (the in-block
+  kernel's capacity, 32,768: 1,024 threads x 32 keys held in registers)
+  go to the segmented-union kernel in one piece; the JAX package's
+  ``UNION_PALLAS_MAX_FLAT = 2048`` was sized for its all-pairs VMEM
+  tiles. Wider rows take the kernels' wide route (``ops.union_wide``:
+  tiles of ``UNION_KERNEL_MAX_FLAT``, pairwise merges in device memory,
+  one compaction pass), so no union row leaves the kernels for torch's
+  sort on the card; ``padded_unique`` is only the plain version and the
+  ``use_kernel=False`` oracle. The filtered degree asks the kernels for
+  counts only (``ops.segmented_union_count``), not for rows it would
+  count.
 """
 
 from __future__ import annotations
@@ -49,7 +50,6 @@ from .overlay import (
 )
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.segmented_union import MAX_FLAT
 
 __all__ = [
@@ -67,7 +67,8 @@ __all__ = [
 
 # Bucket pad widths tried in order; the layer-global max closes the list.
 DEFAULT_BUCKET_WIDTHS = (8, 32, 128)
-# Widest union row the segmented-union kernel takes (its capacity).
+# Widest union row the in-block kernel takes (its capacity), and the tile
+# width of the wide route beyond it.
 UNION_KERNEL_MAX_FLAT = MAX_FLAT
 
 _SENT = int(SENTINEL)
@@ -226,15 +227,11 @@ def _edge_value_bucket(layer, u, v, width: int) -> torch.Tensor:
 def _node_alters_bucket(layer, ids: np.ndarray, nf, wm: int, wn: int,
                         max_alters: int):
     """Union of co-members for one bucket of query ids (rows padded to a
-    power of two); flat rows wider than the kernel's capacity take the
-    sort path and are counted."""
+    power of two)."""
     u = _pad_rows(ids, _pow2_rows(ids.size), layer.memb.device)
-    use_kernel = wm * wn <= UNION_KERNEL_MAX_FLAT
-    if not use_kernel:
-        launch_counts["segmented_union_sort_rows"] += int(ids.size)
     return kops.pseudo_node_alters(
         layer, u, max_alters, width_m=wm, width_n=wn, node_filter=nf,
-        use_kernel=use_kernel,
+        tile=UNION_KERNEL_MAX_FLAT,
     )
 
 
@@ -336,8 +333,8 @@ def bucketed_filtered_degree(
 
     One-mode: neighbors passing the filter (gather at the bucket width +
     mask-sum). Two-mode: *distinct* co-members passing the filter — each
-    bucket runs the filtered alters at its exact flat width (wm × wn), so
-    the count is uncapped and exact.
+    bucket counts the filtered co-members of its exact flat width (wm × wn)
+    with the count-only union, so the count is uncapped and exact.
     """
     two_mode = hasattr(layer, "memb")
     base = layer.memb if two_mode else layer.out
@@ -360,8 +357,11 @@ def bucketed_filtered_degree(
     deg = eff_host_degrees(layer.memb, layer.memb_ov, un)
     for idx, wm in plan_buckets(deg, layer.max_memberships, widths):
         wn = _second_hop_width(layer, un, idx, widths)
-        va, _ = _node_alters_bucket(layer, un[idx], nf, wm, wn, wm * wn)
-        _scatter(out, idx, (va != _SENT).sum(dim=-1).to(torch.int32))
+        rows = _pad_rows(un[idx], _pow2_rows(idx.size), device)
+        flat = kops.pseudo_alters_flat(layer, rows, width_m=wm, width_n=wn,
+                                       node_filter=nf)
+        _scatter(out, idx,
+                 kops.segmented_union_count(flat, tile=UNION_KERNEL_MAX_FLAT))
     return out.reshape(shape)
 
 
@@ -395,17 +395,12 @@ def union_rows(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sorted-unique rows capped at ``max_out`` (multilayer alters merge).
 
-    Rows up to ``UNION_KERNEL_MAX_FLAT`` wide go to the segmented-union
-    kernel, wider ones to the ``padded_unique`` sort path (counted).
-    ``use_kernel=False`` takes the sort path for every row (the plain
-    reference of the traversal).
+    Rows up to ``UNION_KERNEL_MAX_FLAT`` wide go to the in-block
+    segmented-union kernel, wider ones to its wide route.
+    ``use_kernel=False`` takes the plain sort path for every row (the
+    plain reference of the traversal).
     """
     flat = torch.where(valid, vals, _SENT)
     if not use_kernel:
         return kref.segmented_union_ref(flat, max_out)
-    if flat.shape[-1] <= UNION_KERNEL_MAX_FLAT:
-        return kops.segmented_union(flat, max_out)
-    launch_counts["segmented_union_sort_rows"] += int(
-        np.prod(flat.shape[:-1], dtype=np.int64)
-    )
-    return kref.segmented_union_ref(flat, max_out)
+    return kops.segmented_union(flat, max_out, tile=UNION_KERNEL_MAX_FLAT)

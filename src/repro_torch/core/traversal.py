@@ -49,10 +49,11 @@ __all__ = [
 DEFAULT_MAX_FRONTIER = 4096
 # Flat-width budget for one hop-expansion gather: frontiers are processed
 # in slot chunks so each (B, slots * cap) candidate row fits the frontier
-# kernel. The JAX package uses 65,536; here it is the kernel's capacity.
+# kernel. The JAX package uses 65,536; here it is the kernel's capacity,
+# 32,768 (the in-block sort's 1,024 threads x 32 keys).
 MAX_CAND_FLAT = MAX_CAND
-# Widest candidate row the frontier kernel takes; wider rows (a single
-# node's cap above it) take the counted plain path.
+# Widest candidate row the frontier kernel takes (32,768); wider rows (a
+# single node's cap above it) take the counted plain path.
 FRONTIER_KERNEL_MAX = MAX_CAND
 
 _SENT = int(SENTINEL)

@@ -9,11 +9,16 @@ source or header rebuilds. Libraries load with
 once, and waits for them.
 
 ``launch_counts`` holds one plain integer per kernel: each wrapper adds
-one where it launches its kernel, and nowhere else. Rows that a kernel
-cannot take and that go to the plain torch path on the card are counted
-too: union rows under ``"segmented_union_sort_rows"`` (degree-bucketed
-dispatcher) and frontier rows under ``"frontier_sort_rows"`` (k-hop
-traversal). ``core/traversal.py`` counts its label sweeps under
+one where it launches its kernel, and nowhere else. The union kernels
+count under ``"segmented_union"`` (in-block rows),
+``"segmented_union_count"`` (in-block count-only rows) and, for rows
+wider than its capacity, ``"segmented_union_wide"`` (tile sorts),
+``"union_merge"`` (merge levels) and ``"union_compact"`` (final passes).
+Frontier rows that the kernel cannot take and that go to the plain torch
+path on the card are counted too, under ``"frontier_sort_rows"`` (k-hop
+traversal). Union rows never take torch's sort on the card:
+``chip_smoke.py`` holds ``"segmented_union_sort_rows"`` at 0.
+``core/traversal.py`` counts its label sweeps under
 ``"components_sweeps"``. The LM kernels count under ``"rmsnorm"``,
 ``"flash_attention"`` (the bf16 tensor-core route),
 ``"flash_attention_fma"`` (the CUDA-core route: f32, and bf16 at head

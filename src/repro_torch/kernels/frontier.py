@@ -8,10 +8,10 @@ wrapper's scatter (``src/repro/kernels/ops.py:159-164``). The plain torch
 versions are ``kernels/ref.py::frontier_ref`` (all-pairs oracle) and
 ``frontier_search_ref`` (binary search, the CPU path).
 
-``MAX_CAND`` is the widest candidate row the kernel takes: the
-segmented-union kernel's shared-memory capacity, 32,768. This wrapper
-refuses wider rows; the traversal sends them to the plain path
-(``core/traversal.py``).
+``MAX_CAND`` is the widest candidate row the kernel takes: the in-block
+sort's capacity shared with the segmented-union kernel, 32,768 (1,024
+threads x 32 keys in registers). This wrapper refuses wider rows; the
+traversal sends them to the plain path (``core/traversal.py``).
 """
 
 from __future__ import annotations

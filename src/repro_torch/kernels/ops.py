@@ -21,7 +21,14 @@ from .flash_attention import flash_attention_cuda
 from .frontier import frontier_compact_cuda
 from .intersect import intersect_count_cuda
 from .rmsnorm import rmsnorm_cuda
-from .segmented_union import segmented_union_cuda
+from .segmented_union import (
+    MAX_FLAT,
+    segmented_union_count_cuda,
+    segmented_union_cuda,
+    union_compact_cuda,
+    union_merge_cuda,
+    union_tiles_cuda,
+)
 from .ssd_scan import ssd_scan_cuda
 
 _SENT = int(SENTINEL)
@@ -54,17 +61,87 @@ def pseudo_edge_value(layer, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def segmented_union(
-    flat: torch.Tensor, max_out: int
+    flat: torch.Tensor, max_out: int, *, tile: int = MAX_FLAT
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dedup + sort + compact SENTINEL-padded rows -> (int32[..., max_out], mask)."""
-    if not flat.is_cuda:
+    """Dedup + sort + compact SENTINEL-padded rows -> (int32[..., max_out], mask).
+
+    Rows up to ``tile`` wide go through one in-block kernel on the card
+    (the plain sort on the CPU); wider rows take the wide route
+    (``union_wide``)."""
+    batch, k = flat.shape[:-1], flat.shape[-1]
+    if k <= tile and not flat.is_cuda:
         return ref.segmented_union_ref(flat, max_out)
-    batch_shape = flat.shape[:-1]
-    out = segmented_union_cuda(
-        flat.reshape(-1, flat.shape[-1]).contiguous(), max_out
-    )
-    out = out.reshape(batch_shape + (max_out,))
+    rows = flat.reshape(math.prod(batch), k).contiguous()
+    if k > tile:
+        out = union_wide(rows, max_out, tile=tile)
+    else:
+        out = segmented_union_cuda(rows, max_out)
+    out = out.reshape(batch + (max_out,))
     return out, out != _SENT
+
+
+def segmented_union_count(
+    flat: torch.Tensor, *, tile: int = MAX_FLAT
+) -> torch.Tensor:
+    """Number of distinct non-SENTINEL values per row -> int32[...]: the
+    filtered degree's count, with no row written out."""
+    batch, k = flat.shape[:-1], flat.shape[-1]
+    if k <= tile and not flat.is_cuda:
+        return ref.segmented_union_count_ref(flat)
+    rows = flat.reshape(math.prod(batch), k).contiguous()
+    if k > tile:
+        out = union_wide(rows, None, tile=tile)
+    else:
+        out = segmented_union_count_cuda(rows)
+    return out.reshape(batch)
+
+
+def union_wide_plan(
+    rows: int, k: int, max_out: int | None, tile: int = MAX_FLAT
+) -> tuple[int, int, int]:
+    """``union_wide``'s plan for int32[rows, k]: (tiles a row, entries kept
+    a tile, rows a chunk). Each chunk's two [rows, tiles * kept] run
+    buffers together stay within the input's own size."""
+    tiles = max(-(-k // tile), 1)
+    m = tile if max_out is None else min(max_out, tile)
+    return tiles, m, max(1, (rows * k) // (2 * tiles * m))
+
+
+def union_wide(
+    flat: torch.Tensor, max_out: int | None, *, tile: int = MAX_FLAT
+) -> torch.Tensor:
+    """Rows of int32[B, K] wider than ``tile`` -> int32[B, max_out] sorted
+    uniques (``max_out=None``: their number, int32[B]).
+
+    Each row is cut into T = ceil(K / tile) tiles; each tile keeps its
+    sorted uniques capped at m = min(max_out, tile) (the smallest max_out
+    uniques of a row are among the smallest max_out of each tile), the T
+    runs merge pairwise, ceil(log2(T)) levels, and one pass keeps the
+    distinct values. Each step is a kernel on the card and its plain
+    version on the CPU. Rows go in chunks (``union_wide_plan``).
+    """
+    B, K = flat.shape
+    tiles, m, chunk = union_wide_plan(B, K, max_out, tile)
+    n = tiles * m
+    on_card = flat.is_cuda
+    parts = []
+    for r0 in range(0, B, chunk):
+        part = flat[r0:r0 + chunk]
+        if on_card:
+            runs = union_tiles_cuda(part, tile, m)
+        else:
+            runs = ref.union_tiles_ref(part, tile, m)
+        run = m
+        while run < n:
+            runs = (union_merge_cuda(runs, run) if on_card
+                    else ref.union_merge_ref(runs, run))
+            run *= 2
+        parts.append(union_compact_cuda(runs, max_out) if on_card
+                     else ref.compact_sorted_ref(runs, max_out))
+    if not parts:
+        shape = (0,) if max_out is None else (0, max_out)
+        return torch.empty(shape, dtype=torch.int32, device=flat.device)
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +187,7 @@ def pseudo_node_alters(
     width_n: int | None = None,
     node_filter: torch.Tensor | None = None,
     use_kernel: bool = True,
+    tile: int = MAX_FLAT,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """LayerTwoMode.node_alters: two-hop gather then segmented union.
 
@@ -118,9 +196,26 @@ def pseudo_node_alters(
     ``node_filter`` (device bool[n_nodes]) drops gathered co-members that
     fail a predicate before the union, so the cap applies post-filter.
     ``use_kernel=False`` dedups with the plain sort path (the padded
-    oracle, and the dispatcher's rule for rows wider than the kernel's
-    capacity).
+    oracle); ``tile`` is ``segmented_union``'s.
     """
+    flat = pseudo_alters_flat(layer, u, width_m=width_m, width_n=width_n,
+                              node_filter=node_filter)
+    if use_kernel:
+        return segmented_union(flat, max_alters, tile=tile)
+    return ref.segmented_union_ref(flat, max_alters)
+
+
+def pseudo_alters_flat(
+    layer,
+    u: torch.Tensor,
+    *,
+    width_m: int | None = None,
+    width_n: int | None = None,
+    node_filter: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The two-hop gather of ``pseudo_node_alters`` before its union:
+    int32[..., wm * wn] co-members of u, SENTINEL where a slot is padding,
+    fails ``node_filter`` or is u itself."""
     he, he_mask = layer.memberships(u, width_m)
     wn = layer.max_hyperedge_size if width_n is None else max(width_n, 1)
     mem, mem_mask = layer.member_rows(torch.where(he_mask, he, 0), wn)
@@ -128,10 +223,7 @@ def pseudo_node_alters(
     if node_filter is not None:
         mem_mask = mem_mask & take_clip(node_filter, mem)
     flat = torch.where(mem_mask, mem, _SENT).reshape(u.shape + (-1,))
-    flat = torch.where(flat == u[..., None], _SENT, flat)  # drop ego
-    if use_kernel:
-        return segmented_union(flat, max_alters)
-    return ref.segmented_union_ref(flat, max_alters)
+    return torch.where(flat == u[..., None], _SENT, flat)  # drop ego
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,52 @@ def segmented_union_ref(
     return uniq[..., :max_out], mask[..., :max_out]
 
 
+def segmented_union_count_ref(flat: torch.Tensor) -> torch.Tensor:
+    """Distinct non-SENTINEL values per row: int32[..., K] -> int32[...]."""
+    return compact_sorted_ref(torch.sort(flat, dim=-1).values, None)
+
+
+# The wide route's three steps (``ops.segmented_union`` on rows wider than
+# its tile): tile uniques, pairwise merges of sorted runs, one compaction.
+
+
+def union_tiles_ref(flat: torch.Tensor, tile: int, m: int) -> torch.Tensor:
+    """Each row of int32[B, K] cut into T = ceil(K / tile) tiles, each tile's
+    sorted uniques capped at ``m`` -> int32[B, T * m] (T sorted runs)."""
+    B, K = flat.shape
+    tiles = max(-(-K // tile), 1)
+    padded = torch.nn.functional.pad(flat, (0, tiles * tile - K), value=_SENT)
+    runs, _ = segmented_union_ref(padded.reshape(B * tiles, tile), m)
+    return runs.reshape(B, tiles * m)
+
+
+def union_merge_ref(x: torch.Tensor, run: int) -> torch.Tensor:
+    """Rows of sorted runs of ``run`` entries -> rows of sorted runs of
+    ``2 * run`` (a sort of each window of two runs is their merge)."""
+    B, n = x.shape
+    w = 2 * run
+    full = -(-n // w) * w
+    padded = torch.nn.functional.pad(x, (0, full - n), value=_SENT)
+    merged = torch.sort(padded.reshape(B, full // w, w), dim=-1).values
+    return merged.reshape(B, full)[:, :n]
+
+
+def compact_sorted_ref(x: torch.Tensor, max_out: int | None) -> torch.Tensor:
+    """Sorted rows (SENTINEL last) -> their distinct non-SENTINEL values,
+    int32[..., max_out] SENTINEL-padded, or with ``max_out=None`` their
+    number, int32[...]."""
+    keep = x != _SENT
+    keep[..., 1:] &= x[..., 1:] != x[..., :-1]
+    if max_out is None:
+        return keep.sum(dim=-1).to(torch.int32)
+    rank = torch.cumsum(keep, dim=-1) - 1
+    slot = torch.where(keep & (rank < max_out), rank, max_out)
+    out = torch.full(x.shape[:-1] + (max_out + 1,), _SENT, dtype=x.dtype,
+                     device=x.device)
+    out.scatter_(-1, slot, torch.where(slot < max_out, x, _SENT))
+    return out[..., :max_out]
+
+
 def frontier_ref(
     cand: torch.Tensor, visited: torch.Tensor, max_out: int
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -70,22 +70,74 @@ def test_intersect_kernel_matches_plain(cuda_device, K):
                                rtol=0, atol=0)
 
 
+def _union_rows(rng, B, K, dups):
+    """Unsorted rows with SENTINEL holes, row 0 all-SENTINEL: ``dups`` ids in
+    [0, K // 2), many repeats; else signed ids in [-2^30, 2^30), almost
+    none."""
+    if dups:
+        flat = rng.integers(0, max(K // 2, 2), (B, K))
+    else:
+        flat = rng.integers(-(2**30), 2**30, (B, K))
+    flat = flat.astype(np.int32)
+    flat[rng.random((B, K)) < 0.3] = S
+    flat[0] = S
+    return torch.from_numpy(flat)
+
+
+_WIDE_STEPS = ("segmented_union_wide", "union_merge", "union_compact")
+
+
+def _launched(keys, before):
+    return all(launch_counts[k] > before.get(k, 0) for k in keys)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 8, 300, 4096, MAX_FLAT])
-def test_segmented_union_kernel_matches_plain(cuda_device, K):
-    rng = np.random.default_rng(500 + K)  # seed 500+K
-    flat = _flat_rows(rng, 40, K, universe=max(K // 2, 2))
-    for max_out in (1, 64, K + 7):
+@pytest.mark.parametrize("dups", [True, False])
+@pytest.mark.parametrize("K", [1, 8, 31, 33, 224, 225, 993, 4096, 15872, 15873,
+                               MAX_FLAT - 1, MAX_FLAT, MAX_FLAT + 1, 40000, 200003])
+def test_segmented_union_kernel_matches_plain(cuda_device, K, dups):
+    rng = np.random.default_rng(500 + K + dups)  # seed 500+K+dups
+    flat = _union_rows(rng, 40 if K < 100000 else 12, K, dups)
+    uniq = int(ref.segmented_union_count_ref(flat).max())
+    wide = K > MAX_FLAT
+    rows_keys = _WIDE_STEPS if wide else ("segmented_union",)
+    count_keys = _WIDE_STEPS if wide else ("segmented_union_count",)
+    for max_out in (1, max(uniq, 1), K + 7):
+        before = dict(launch_counts)
         gv, gm = ops.segmented_union(flat.to(cuda_device), max_out)
+        assert _launched(rows_keys, before)
         wv, wm = ref.segmented_union_ref(flat, max_out)
         torch.testing.assert_close(gv.cpu(), wv, rtol=0, atol=0)
         assert torch.equal(gm.cpu(), wm)
+    before = dict(launch_counts)
+    got = ops.segmented_union_count(flat.to(cuda_device))
+    assert _launched(count_keys, before)
+    assert torch.equal(got.cpu(), ref.segmented_union_count_ref(flat))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Kc", [32, 300, 4096, MAX_CAND])
-@pytest.mark.parametrize("Kv", [1, 257, 8193])
+@pytest.mark.parametrize("K,tile", [(65, 64), (5001, 64), (5001, 1000),
+                                    (60000, 64), (60000, 1000), (60000, 5000)])
+def test_wide_route_with_narrow_tiles_matches_plain(cuda_device, K, tile):
+    # many tiles a row: deep merge levels, runs shorter and longer than a
+    # merge block's 2,048 outputs, a lone last run at odd tile counts
+    rng = np.random.default_rng(800 + K + tile)  # seed 800+K+tile
+    flat = _union_rows(rng, 9, K, K < 10000)
+    for max_out in (1, 100, K + 7):
+        before = dict(launch_counts)
+        gv, _ = ops.segmented_union(flat.to(cuda_device), max_out, tile=tile)
+        assert _launched(_WIDE_STEPS, before)
+        torch.testing.assert_close(gv.cpu(), ref.segmented_union_ref(flat, max_out)[0],
+                                   rtol=0, atol=0)
+    got = ops.segmented_union_count(flat.to(cuda_device), tile=tile)
+    assert torch.equal(got.cpu(), ref.segmented_union_count_ref(flat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kc", [1, 32, 33, 300, 4096, MAX_CAND - 1, MAX_CAND])
+@pytest.mark.parametrize("Kv", [1, 257, 8193, 40000])
 def test_frontier_kernel_matches_plain(cuda_device, Kc, Kv):
+    # Kv 40,000 is wider than any rung's visited tile in shared memory
     rng = np.random.default_rng(700 + Kc + Kv)  # seed 700+Kc+Kv
     universe = max(Kc // 2, 2)
     cand = _flat_rows(rng, 24, Kc, universe)

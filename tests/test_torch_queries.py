@@ -176,12 +176,14 @@ def test_union_rows_kernel_and_sort_path(monkeypatch):
     got = tdisp.union_rows(torch.from_numpy(vals), torch.from_numpy(valid), 20)
     assert_same(got[0], want[0])
     assert_same(got[1], want[1])
-    # rows wider than the kernel's capacity take the counted sort path
+    # rows wider than the in-block capacity take the wide route (tiles of
+    # that capacity, merged), never the sort path
     monkeypatch.setattr(tdisp, "UNION_KERNEL_MAX_FLAT", 64)
     before = launch_counts["segmented_union_sort_rows"]
     got = tdisp.union_rows(torch.from_numpy(vals), torch.from_numpy(valid), 20)
-    assert launch_counts["segmented_union_sort_rows"] - before == 6
+    assert launch_counts["segmented_union_sort_rows"] == before
     assert_same(got[0], want[0])
+    assert_same(got[1], want[1])
 
 
 # ---------------------------------------------------------------------------

@@ -204,3 +204,18 @@ def test_call_device_ms_refuses_a_kernel_launched_more_than_once_a_call(smoke):
         smoke.call_device_ms({"ssd_tc_kernel": [20, 10.0]}, ("ssd_tc_kernel",), 10)
     ms, seen = smoke.call_device_ms({"ssd_tc_kernel": [10, 10.0]}, ("ssd_tc_kernel",), 10)
     assert ms == pytest.approx(1e-3) and seen == {"ssd_tc_kernel": 10}
+
+
+def test_call_device_ms_counts_a_kernel_launched_n_times_a_call(smoke):
+    # the union's wide route: one tile sort, two merge levels, one compaction
+    acts = {"segmented_union_kernel<1024, 32>": [10, 500.0],
+            "union_merge_kernel": [20, 400.0], "union_compact_kernel": [10, 100.0]}
+    symbols = (("segmented_union_kernel", 1), ("union_merge_kernel", 2),
+               "union_compact_kernel")
+    ms, seen = smoke.call_device_ms(acts, symbols, 10)
+    assert ms == pytest.approx((50.0 + 2 * 20.0 + 10.0) / 1e3)
+    assert seen == {"segmented_union_kernel": 10, "union_merge_kernel": 20,
+                    "union_compact_kernel": 10}
+    with pytest.raises(AssertionError, match="2 times a call"):
+        smoke.call_device_ms({"union_merge_kernel": [21, 10.0]},
+                             (("union_merge_kernel", 2),), 10)
