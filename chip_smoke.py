@@ -14,7 +14,10 @@ fails (non-zero exit) if any phase fails:
 3. kernels  — each CUDA kernel against its plain torch version on seeded
               inputs at the recipe's widths (exact match required), the
               union's count-only output and its wide route (rows past the
-              in-block capacity) among them;
+              in-block capacity) among them, and the CSR-route intersect
+              kernel on a 3,000-node layer under a hand-made delta
+              overlay (dirty rows, a delta with more and longer rows than
+              the base, int32 and int64 indptr, with and without a filter);
 4. network  — builds the register-style network with the port's own
               builders: Households / Workplaces / Schools two-mode layers
               (1, 4, 6 memberships per node over n/2.5, n/20, n/400
@@ -22,19 +25,28 @@ fails (non-zero exit) if any phase fails:
               ``income`` attribute, at 10M nodes by default;
 5. main     — getedge / checkedge / getnodealters / getdegree, unfiltered
               and filtered, with launch counts reset just before and read
-              just after (intersect_count, segmented_union and the
-              count-only segmented_union_count of the filtered degree must
-              launch; no union row may take torch's sort), recording the
-              rows of the heaviest count-only launch;
-6. oracle   — 256 seeded queries of each kind: kernel path bit-identical
-              to the port's padded plain path, plus a small network
-              against the materialized projection;
-7. hubs     — a Workplaces layer whose group sizes are heavy-tailed, as
+              just after (intersect_rows must launch exactly once per
+              layer and edge call and the padded intersect_count never;
+              segmented_union and the count-only segmented_union_count of
+              the filtered degree must launch; no union row may take
+              torch's sort), recording the rows of the heaviest count-only
+              launch;
+6. panel    — a Panel layer on the same nodes, register panel memberships
+              (1 + geometric, mean 20, cap 512, over n/20 groups: ~200M at
+              10M nodes), with its own launch counts: getedge and
+              checkedge x8192 and one checkedge x1,048,576 dyad sample,
+              each with its wall time, device busy and idle share, busiest
+              device activities and launches a call (intersect_rows once a
+              call, intersect_count never);
+7. oracle   — 256 seeded queries of each kind (the Panel's pairs too):
+              kernel path bit-identical to the port's padded plain path,
+              plus a small network against the materialized projection;
+8. hubs     — a Workplaces layer whose group sizes are heavy-tailed, as
               employer sizes are: union rows past the in-block kernel's
               capacity must take its wide route (segmented_union_wide,
               union_merge, union_compact launch) and none torch's sort;
               a subsample is checked against the padded plain path;
-8. traversal — on the same network, with launch counts reset just before
+9. traversal — on the same network, with launch counts reset just before
               and read just after: a k-hop over all 4 layers (512
               sources, k=2, frontier cap 256, 128 alters per node), a
               one-mode k-hop over ``Random`` (1,024 sources, k=3), ego
@@ -47,7 +59,7 @@ fails (non-zero exit) if any phase fails:
               k-hops must equal scipy's on its materialized projection.
               Each call prints its wall time, device-idle share and the
               device activities that took most of its busy time;
-9. lm       — LM serving at full width, bf16, through
+10. lm      — LM serving at full width, bf16, through
               ``ServeEngine.generate``: qwen3-1.7b (28 layers, d_model
               2048) and mamba2-130m (24 layers, d_model 768), each with
               weights drawn from a seeded generator, serving 8 requests of
@@ -68,8 +80,12 @@ fails (non-zero exit) if any phase fails:
               against the argmax of ``Model.apply``, and, in an f32 copy
               of each model, prefill + 8 decode steps against
               ``Model.apply`` (2 requests, 256-token prompts);
-10. timing  — each kernel, its plain version and its bound at the heaviest
-              shape its phase launched (the union also on the main path's
+11. timing  — each kernel, its plain version and its bound at the heaviest
+              shape its phase launched (the CSR-route intersect kernel on
+              the Panel's dyads and on the main path's heaviest call, cold,
+              by CUDA events with the L2 flushed before each launch; the
+              padded intersect entry at the main path's [8192, 6]; the
+              union also on the main path's
               recorded rows, written out and counted only, and its wide
               route on the traversal's recorded heaviest merge): the device
               time of one call from torch.profiler, summed over the kernels
@@ -129,6 +145,22 @@ HUB_TAIL = 1.05
 HUB_MAX_SHARE = 0.005
 HUB_QUERIES = 1024
 HUB_ORACLE_QUERIES = 64
+
+# Panel phase: register panel memberships, one per employer and year over a
+# few decades of workplace-by-year spells: per node 1 + a geometric count,
+# mean 20 (numpy's geometric on {1, 2, ...}), capped at 512, over n/20
+# groups drawn uniformly -- the intersect kernel's design regime, "mean ~20
+# memberships/node" (src/repro/kernels/intersect.py:6-11). Random pairs then
+# fall ~11 % into the 8-wide bucket of max(deg u, deg v), ~54 % into the 32,
+# ~35 % into the 128 and ~0.3 % above. A run that must be cut lowers
+# PANEL_NODES (the nodes given memberships) only; the law per node stays.
+PANEL_MEAN = 20.0
+PANEL_CAP = 512
+PANEL_NODES_PER_GROUP = 20.0
+PANEL_NODES = N_NODES
+DYAD_PAIRS = 1 << 20  # one dyad sample, as threadleR's sampling analyses draw
+PAIR_CHUNK = 1 << 16  # pairs drawn at a time by panel_pairs
+L2_FLUSH_BYTES = 256 << 20  # written between cold launches (the L2 is 50 MB)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor peak (float32 table entry)
@@ -408,7 +440,7 @@ def phase_kernels(device, seed: int) -> dict:
     from repro_torch.kernels.segmented_union import MAX_FLAT
 
     rng = np.random.default_rng(seed + 1)
-    worst = {"intersect_count": 0, "segmented_union": 0,
+    worst = {"intersect_count": 0, "intersect_rows": 0, "segmented_union": 0,
              "segmented_union_count": 0, "segmented_union_wide": 0,
              "frontier_compact": 0}
     max_memb = max(p for _, p, _ in LAYER_RECIPE)
@@ -419,6 +451,7 @@ def phase_kernels(device, seed: int) -> dict:
         worst["intersect_count"] = max(worst["intersect_count"], err)
         log(f"kernels: intersect_count width {width} rows {POINT_PAIRS}: "
             f"max_abs_err {err}")
+    worst["intersect_rows"] = overlay_rows_check(device, seed)
     for width, rows, max_out in ((1 * 32, 2048, MAX_ALTERS),
                                  (4 * 256, 2048, MAX_ALTERS),
                                  (6 * 2048, 1024, MAX_ALTERS),
@@ -466,6 +499,88 @@ def phase_kernels(device, seed: int) -> dict:
     return worst
 
 
+def overlay_layer(device, seed: int, indptr64: bool):
+    """A SMALL_NODES-node two-mode layer (0-8 memberships a node over 500
+    groups: uint16 ids, int32 indptr, or int64 with ``indptr64``) under a
+    hand-made delta overlay: 300 dirty rows and 20 rows past the base, each
+    holding 0-150 ids (wider than any base row), stored as int32 ids over
+    int64 indptr."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.csr import csr_from_arrays
+    from repro_torch.core.layers import two_mode_from_memberships
+    from repro_torch.core.overlay import DeltaOverlay, eff_max_degree
+
+    rng = np.random.default_rng(seed + 13)
+    n, h, extra = SMALL_NODES, 500, 20
+    nodes = np.repeat(np.arange(n), rng.integers(0, 9, n))
+    layer = two_mode_from_memberships(n, h, nodes, rng.integers(0, h, nodes.size),
+                                      device=device)
+    memb = layer.memb
+    if indptr64:
+        memb = csr_from_arrays(memb.indptr_host.astype(np.int64),
+                               memb.indices.cpu().numpy(), None, n, h, device)
+    dirty = np.zeros(n + extra, bool)
+    dirty[rng.choice(n, 300, replace=False)] = True
+    dirty[n:] = True
+    lengths = np.where(dirty, rng.choice([0, 2, 9, 40, 150], n + extra), 0)
+    indptr = np.zeros(n + extra + 1, np.int64)
+    indptr[1:] = np.cumsum(lengths)
+    ids = np.concatenate([np.sort(rng.choice(h, k, replace=False)) for k in lengths])
+    ov = DeltaOverlay(
+        delta=csr_from_arrays(indptr, ids.astype(np.int32), None, n + extra, h,
+                              device),
+        dirty=torch.from_numpy(dirty).to(device),
+        base_shadowed=int(np.diff(memb.indptr_host)[dirty[:n]].sum()),
+        dirty_host=dirty,
+    )
+    return dataclasses.replace(layer, memb=memb, memb_ov=ov,
+                               max_memberships=max(eff_max_degree(memb, ov), 1))
+
+
+def overlay_rows_check(device, seed: int) -> int:
+    """The CSR-route intersect kernel against its plain version (the
+    degree-bucketed route) on ``overlay_layer`` with int32 and int64 base
+    indptr, over ids -3 .. n + 25, with and without a node filter shorter
+    than the id range; then the api on it against the padded plain path.
+    Returns the largest difference (0 required)."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.dispatch import DEFAULT_BUCKET_WIDTHS
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(seed + 14)
+    worst = 0
+    for indptr64 in (False, True):
+        layer = overlay_layer(device, seed, indptr64)
+        ids = rng.integers(-3, SMALL_NODES + 26, (2, 4096)).astype(np.int32)
+        u, v = (torch.from_numpy(x).to(device) for x in ids)
+        nf = torch.from_numpy(rng.random(SMALL_NODES - 7) < 0.7).to(device)
+        for f in (None, nf):
+            got = ops.intersect_rows(layer.memb, layer.memb_ov, u, v, f,
+                                     widths=DEFAULT_BUCKET_WIDTHS)
+            want = ref.intersect_rows_ref(layer.memb, layer.memb_ov, u, v, f,
+                                          DEFAULT_BUCKET_WIDTHS)
+            worst = max(worst, max_abs_err(got, want))
+        net = api.createnetwork(api.createnodeset(SMALL_NODES, device=device)
+                                ).with_layer("ov", layer)
+        a, b = rng.integers(0, SMALL_NODES, (2, 1024))
+        want = layer.edge_value_padded(torch.from_numpy(a).to(device),
+                                       torch.from_numpy(b).to(device)).cpu()
+        worst = max(worst, int((api.getedge(net, "ov", a, b) != want).sum()))
+        log(f"kernels: intersect_rows on a {SMALL_NODES}-node layer under a "
+            f"hand-made overlay ({int(layer.memb_ov.dirty_host.sum())} dirty rows, "
+            f"delta {layer.memb_ov.delta.n_rows} rows of int32 ids over int64 "
+            f"indptr; base {layer.memb.indices.dtype} ids over "
+            f"{layer.memb.indptr.dtype} indptr), 4096 pairs, unfiltered and "
+            f"filtered, and the api on 1024 pairs against the padded plain path: "
+            f"max_abs_err {worst}")
+    return worst
+
+
 def pair_ids(layer, n: int, count: int, rng, device):
     """Seeded (u, v) pairs; in the first half v is a co-member of u in one
     of u's groups, so those pairs share at least one group."""
@@ -488,6 +603,84 @@ def pair_ids(layer, n: int, count: int, rng, device):
     return u, v
 
 
+def edge_pairs(net, rng, device) -> dict:
+    """The main path's POINT_PAIRS pairs (``pair_ids``) of each layer of
+    LAYER_RECIPE, drawn in its order from ``rng``."""
+    return {name: pair_ids(net.layer(name), net.n_nodes, POINT_PAIRS, rng, device)
+            for name, _, _ in LAYER_RECIPE}
+
+
+def panel_membership_chunks(n_nodes: int, n_groups: int, seed: int):
+    """Yield (node_ids, group_ids) chunks of the Panel recipe: node i draws
+    min(Geometric(1 / PANEL_MEAN), PANEL_CAP) groups, uniformly."""
+    rng = np.random.default_rng(seed)
+    rows_per_chunk = max(int(CHUNK / PANEL_MEAN), 1)
+    for start in range(0, n_nodes, rows_per_chunk):
+        stop = min(start + rows_per_chunk, n_nodes)
+        per = np.minimum(rng.geometric(1.0 / PANEL_MEAN, stop - start), PANEL_CAP)
+        nodes = np.repeat(np.arange(start, stop, dtype=np.int64), per)
+        yield nodes, rng.integers(0, n_groups, nodes.size, dtype=np.int64)
+
+
+def build_panel(n_nodes: int, seed: int, device):
+    """The Panel layer over ``n_nodes`` nodes, of which the first
+    PANEL_NODES hold memberships (all of them uncut), n/20 groups."""
+    from repro_torch.core.layers import two_mode_from_membership_chunks
+
+    members = min(PANEL_NODES, n_nodes)
+    n_groups = max(int(members / PANEL_NODES_PER_GROUP), 1)
+    t0 = time.perf_counter()
+    layer = two_mode_from_membership_chunks(
+        n_nodes, n_groups, panel_membership_chunks(members, n_groups, seed + 300),
+        device=device,
+    )
+    cut = ("no cut" if members >= n_nodes else
+           f"cut: {members} of {n_nodes} nodes hold memberships, law per node kept")
+    log(f"panel: Panel: {layer.n_memberships} memberships over {n_groups} groups, "
+        f"mean {layer.n_memberships / members:.2f} / max {layer.max_memberships} "
+        f"per node ({cut}), largest group {layer.max_hyperedge_size}, ids "
+        f"{layer.memb.indices.dtype}, indptr {layer.memb.indptr.dtype}, "
+        f"{layer.memb.nbytes + layer.members.nbytes} device bytes, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return layer
+
+
+def panel_pairs(layer, n: int, seed: int, device) -> tuple:
+    """The Panel calls' ids: POINT_PAIRS pairs, then DYAD_PAIRS dyads drawn
+    PAIR_CHUNK at a time (``pair_ids``: half of each draw co-members)."""
+    rng = np.random.default_rng(seed + 12)
+    point = pair_ids(layer, n, POINT_PAIRS, rng, device)
+    parts = [pair_ids(layer, n, min(PAIR_CHUNK, DYAD_PAIRS - i), rng, device)
+             for i in range(0, DYAD_PAIRS, PAIR_CHUNK)]
+    return point, tuple(np.concatenate(side) for side in zip(*parts))
+
+
+class Counted:
+    """``fn`` with a count of its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self):
+        self.calls += 1
+        return self.fn()
+
+
+def edge_launches(label: str, before: dict, calls: int) -> str:
+    """Fails unless, since ``before``, the CSR-route intersect kernel
+    launched once for each of ``calls`` edge calls on one two-mode layer
+    and the padded-row entry never."""
+    from repro_torch.kernels import build
+
+    rows = build.launch_counts["intersect_rows"] - before.get("intersect_rows", 0)
+    padded = build.launch_counts["intersect_count"] - before.get("intersect_count", 0)
+    if rows != calls or padded:
+        raise AssertionError(
+            f"{label}: intersect_rows launched {rows} times in {calls} calls and "
+            f"intersect_count {padded} times (want {calls} and 0)")
+    return f"intersect_rows x{rows / calls:g} a call"
+
+
 def busy_share(fn, wall_ms: float, top: int = 0) -> str:
     """Device busy time of one profiled call and the idle share of the
     median call; ``top`` > 0 adds the device activities that took most of
@@ -508,27 +701,30 @@ def main_path(net, median_income: int, seed: int, device) -> tuple[dict, dict]:
     median latencies and the ids each call was given."""
     from repro_torch.core import api
 
+    from repro_torch.kernels import build
+
     rng = np.random.default_rng(seed + 2)
     n = net.n_nodes
     sel = api.selectnodes(net, "income", ">", median_income)
     log(f"main: filter income > {median_income} keeps {sel.count} nodes")
     results, queries = {}, {}
-    for name, _, _ in LAYER_RECIPE:
-        u, v = pair_ids(net.layer(name), n, POINT_PAIRS, rng, device)
+    for name, (u, v) in edge_pairs(net, rng, device).items():
         queries[f"getedge/{name}"] = (u, v)
-        ms, vals = host_median_ms(lambda: api.getedge(net, name, u, v))
+        before = collections.Counter(build.launch_counts)
+        getedge = Counted(lambda: api.getedge(net, name, u, v))
+        checkedge = Counted(lambda: api.checkedge(net, name, u, v).cpu())
+        ms, vals = host_median_ms(getedge)
         results[f"getedge/{name}"] = ms
-        ms2, hits = host_median_ms(
-            lambda: api.checkedge(net, name, u, v).cpu())
+        ms2, hits = host_median_ms(checkedge)
         results[f"checkedge/{name}"] = ms2
-        if not (vals.shape == (POINT_PAIRS,) and bool((vals >= 0).all())
-                and bool(((vals > 0) == hits).all())
-                and int((vals[: POINT_PAIRS // 2] > 0).sum()) > POINT_PAIRS // 4):
-            raise AssertionError(f"getedge/checkedge on {name} out of range")
+        busy = busy_share(checkedge, ms2, top=4)
+        launched = edge_launches(f"main {name}", before,
+                                 getedge.calls + checkedge.calls)
+        check_edge_values(f"main {name}", vals, hits, POINT_PAIRS)
         log(f"main: getedge {name} x{POINT_PAIRS}: median {ms:.3f} ms, "
             f"{int((vals > 0).sum())} pairs share a group (max "
-            f"{float(vals.max()):.0f}); checkedge median {ms2:.3f} ms, "
-            + busy_share(lambda: api.checkedge(net, name, u, v).cpu(), ms2))
+            f"{float(vals.max()):.0f}); checkedge median {ms2:.3f} ms, {busy}; "
+            f"{launched}")
     u = rng.integers(0, n, ALTERS_NODES)
     queries["getnodealters"] = u
     for label, filt in (("unfiltered", None), ("filtered", sel)):
@@ -554,8 +750,62 @@ def main_path(net, median_income: int, seed: int, device) -> tuple[dict, dict]:
     return results, queries
 
 
-def phase_oracle(net, median_income: int, seed: int, device) -> None:
-    """Kernel path vs the port's padded plain path, bit for bit."""
+def check_edge_values(label: str, vals, hits, count: int) -> None:
+    """getedge values of ``count`` pairs (half co-members first) and the
+    checkedge answers on the same pairs: in range and consistent."""
+    if not (vals.shape == (count,) and bool((vals >= 0).all())
+            and bool(((vals > 0) == hits).all())
+            and int((vals[: count // 2] > 0).sum()) > count // 4):
+        raise AssertionError(f"getedge/checkedge on {label} out of range")
+
+
+def phase_panel(net, seed: int, device) -> dict:
+    """GetEdgeValue / CheckEdge on the Panel layer (PANEL_* recipe, on the
+    main network's nodes) through the api, with the launch counts set to 0
+    just before and read just after: getedge and checkedge x POINT_PAIRS
+    and one checkedge x DYAD_PAIRS dyad sample, each printed with its
+    median wall time, device busy time and idle share, busiest device
+    activities and launches a call. The CSR-route kernel must launch once
+    a call, the padded-row entry never. Returns the layer, its network, the
+    dyads, the counts and the dyad call's busy line."""
+    from repro_torch.core import api
+    from repro_torch.kernels import build
+
+    layer = build_panel(net.n_nodes, seed, device)
+    panel = api.createnetwork(net.nodeset).with_layer("Panel", layer)
+    (u, v), (du, dv) = panel_pairs(layer, net.n_nodes, seed, device)
+    calls = {
+        f"getedge x{POINT_PAIRS}": Counted(lambda: api.getedge(panel, "Panel", u, v)),
+        f"checkedge x{POINT_PAIRS}":
+            Counted(lambda: api.checkedge(panel, "Panel", u, v).cpu()),
+        f"checkedge x{DYAD_PAIRS} (dyad sample)":
+            Counted(lambda: api.checkedge(panel, "Panel", du, dv).cpu()),
+    }
+    build.launch_counts.clear()
+    outs, busy = {}, ""
+    for name, call in calls.items():
+        before = collections.Counter(build.launch_counts)
+        ms, outs[name] = host_median_ms(call)
+        busy = busy_share(call, ms, top=4)
+        log(f"panel: {name}: median {ms:.3f} ms, {busy}; "
+            + edge_launches(f"panel {name}", before, call.calls))
+    sync()
+    launches = dict(build.launch_counts)
+    log(f"panel: launch counts {json.dumps(launches, sort_keys=True)}")
+    vals, hits, dyads = outs.values()
+    check_edge_values("Panel", vals, hits, POINT_PAIRS)
+    if dyads.shape != (DYAD_PAIRS,) or int(dyads.sum()) < DYAD_PAIRS // 4:
+        raise AssertionError("checkedge on the Panel dyads out of range")
+    log(f"panel: getedge x{POINT_PAIRS}: {int((vals > 0).sum())} pairs share a "
+        f"group (max {float(vals.max()):.0f}); dyads: {int(dyads.sum())} of "
+        f"{DYAD_PAIRS} share one")
+    return {"layer": layer, "net": panel, "dyads": (du, dv), "launches": launches,
+            "dyad_busy": busy}
+
+
+def phase_oracle(net, panel_net, median_income: int, seed: int, device) -> None:
+    """Kernel path vs the port's padded plain path, bit for bit (the Panel
+    layer's pairs among them)."""
     import torch
 
     from repro_torch.core import api
@@ -567,16 +817,17 @@ def phase_oracle(net, median_income: int, seed: int, device) -> None:
     nf = sel.device_mask(device)
     q = ORACLE_QUERIES
     bad = []
-    for name, _, _ in LAYER_RECIPE:
-        layer = net.layer(name)
+    for name, net_of in [(name, net) for name, _, _ in LAYER_RECIPE] + [
+            ("Panel", panel_net)]:
+        layer = net_of.layer(name)
         u, v = pair_ids(layer, n, q, rng, device)
         ut = torch.from_numpy(u.astype(np.int32)).to(device)
         vt = torch.from_numpy(v.astype(np.int32)).to(device)
         want = layer.edge_value_padded(ut, vt).cpu()
-        got = api.getedge(net, name, u, v)
+        got = api.getedge(net_of, name, u, v)
         if not torch.equal(got, want):
             bad.append(f"getedge/{name}")
-        if not torch.equal(api.checkedge(net, name, u, v).cpu(), want > 0):
+        if not torch.equal(api.checkedge(net_of, name, u, v).cpu(), want > 0):
             bad.append(f"checkedge/{name}")
     u = rng.integers(0, n, q)
     ut = torch.from_numpy(u.astype(np.int32)).to(device)
@@ -603,8 +854,8 @@ def phase_oracle(net, median_income: int, seed: int, device) -> None:
     if bad:
         raise AssertionError(f"kernel path differs from the plain path: {bad}")
     log(f"oracle: {q} queries per kind (getedge/checkedge on "
-        f"{len(LAYER_RECIPE)} layers, getnodealters and getdegree unfiltered "
-        f"and filtered): bit-identical to the padded plain path")
+        f"{len(LAYER_RECIPE)} layers and Panel, getnodealters and getdegree "
+        f"unfiltered and filtered): bit-identical to the padded plain path")
 
 
 def small_projection_check(device, seed: int, bad: list) -> None:
@@ -662,13 +913,15 @@ def main_path_shapes(net, queries: dict) -> dict:
 
 
 def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
-                 counted, traversal: dict, lm: dict, device) -> list:
+                 counted, panel: dict, traversal: dict, lm: dict, device) -> list:
     """Kernel, plain version and bound at the heaviest shape each kernel's
-    phase launched: the main path's for intersect and union (and its
-    recorded rows for the count-only union, ``counted``), the traversal
-    phase's (its recorded inputs) for the frontier kernel and the union's
-    wide route, the lm phase's (its recorded inputs) for the LM kernels.
-    What each time means is set out in ``kernel_record``.
+    phase launched: the main path's for the padded intersect entry and the
+    union (and its recorded rows for the count-only union, ``counted``), the
+    Panel phase's dyads for the CSR-route intersect kernel
+    (``rows_timing``), the traversal phase's (its recorded inputs) for the
+    frontier kernel and the union's wide route, the lm phase's (its
+    recorded inputs) for the LM kernels. What each time means is set out in
+    ``kernel_record``.
     """
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.segmented_union import MAX_FLAT
@@ -689,11 +942,13 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     records.append(kernel_record(
         "intersect_count", ("intersect_count_kernel",),
         "src/repro_torch/csrc/intersect.cu",
-        "src/repro/kernels/intersect.py:64", launches["intersect_count"],
+        "src/repro/kernels/intersect.py:64", launches.get("intersect_count", 0),
         max(err, worst["intersect_count"]), kernel, plain, 50, nbytes,
         ops_count, f"[{rows},{width}]x[{rows},{width}]",
         library_none="no torch call counts a per-row intersection",
     ))
+
+    records.append(rows_timing(net, queries, panel, worst, device))
 
     rows, width, layer_name = shapes["union"]
     if width > MAX_FLAT:
@@ -805,6 +1060,161 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
             raise AssertionError(f"{r['name']} disagrees at the main-path shape")
     records += lm_timing(lm)
     return records
+
+
+def cold_ms(fn, iters: int) -> float:
+    """Mean device time of one call of ``fn`` with the L2 flushed before
+    each (L2_FLUSH_BYTES written, then CUDA events around the call alone),
+    after a warm-up: the time a caller pays when the rows it reads are not
+    in the L2."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    sync()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        sync()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def rows_bytes(layer, u, v) -> int:
+    """The bytes the CSR-route intersect kernel must move for pairs (u, v)
+    on an overlay-free layer without a filter: each int32 id, four indptr
+    entries a pair, each entry of both rows of a pair whose rows are both
+    non-empty, the int32 output."""
+    from repro_torch.core.overlay import eff_row_lengths
+
+    if layer.memb_ov is not None:
+        raise ValueError("rows_bytes counts overlay-free layers")
+    la = eff_row_lengths(layer.memb, None, u)
+    lb = eff_row_lengths(layer.memb, None, v)
+    entries = int(((la + lb) * ((la > 0) & (lb > 0))).sum())
+    pairs = u.numel()
+    return (12 * pairs + 4 * layer.memb.indptr.element_size() * pairs
+            + layer.memb.indices.element_size() * entries)
+
+
+def rows_sector_bytes(layer, u, v) -> int:
+    """``rows_bytes``' reads counted as device memory serves random reads,
+    in whole 32-byte sectors: each pair's indptr entries (1 or 2 sectors a
+    row) and every sector a row of a pair with both rows non-empty spans;
+    ids and output as they are."""
+    import torch
+
+    from repro_torch.core.csr import take_clip
+
+    memb = layer.memb
+    isz, psz = memb.indices.element_size(), memb.indptr.element_size()
+
+    def sectors(r):
+        r = r.long().clamp(0, memb.n_rows)
+        r1 = (r + 1).clamp(max=memb.n_rows)
+        lo = take_clip(memb.indptr, r).long() * isz
+        hi = take_clip(memb.indptr, r1).long() * isz
+        rows = torch.where(hi > lo, (hi - 1) // 32 - lo // 32 + 1, 0)
+        return rows, 1 + (r * psz // 32 != r1 * psz // 32).long()
+
+    ra, pa = sectors(u)
+    rb, pb = sectors(v)
+    both = (ra > 0) & (rb > 0)
+    return 12 * u.numel() + 32 * int(((ra + rb) * both + pa + pb).sum())
+
+
+def random_gather_ms(layer, count: int, device) -> float:
+    """Cold time of one torch gather of ``count`` ids of ``layer``'s
+    membership CSR at seeded random positions: what the card takes to
+    serve that many random reads (uint16 ids read through int16)."""
+    import torch
+
+    ids = layer.memb.indices
+    ids = ids.view(torch.int16) if ids.dtype == torch.uint16 else ids
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    pos = torch.randint(0, ids.numel(), (count,), generator=gen, device=device)
+    return cold_ms(lambda: ids[pos], 20)
+
+
+def rows_calls(layer, u, v) -> tuple:
+    """(kernel, plain): GetEdgeValue's counts for pairs (u, v) of ``layer``
+    by the CSR-route intersect kernel and by its plain version."""
+    from repro_torch.core.dispatch import DEFAULT_BUCKET_WIDTHS
+    from repro_torch.kernels import ops, ref
+
+    return (lambda: ops.intersect_rows(layer.memb, layer.memb_ov, u, v,
+                                       widths=DEFAULT_BUCKET_WIDTHS),
+            lambda: ref.intersect_rows_ref(layer.memb, layer.memb_ov, u, v, None,
+                                           DEFAULT_BUCKET_WIDTHS))
+
+
+def rows_timing(net, queries: dict, panel: dict, worst: dict, device) -> dict:
+    """The CSR-route intersect kernel on recorded ids: the Panel's dyad
+    sample (the record) and the main path's heaviest call by bytes
+    (printed), each held against its plain version (the degree-bucketed
+    route) bit for bit, as are the main path's other layers' ids. Kernel
+    time cold (``cold_ms``); plain time by CUDA events; the bound from
+    ``rows_bytes``; beside them the device busy time of the whole api call
+    that the Panel phase profiled."""
+    import torch
+
+    def tensors(u, v):
+        return tuple(torch.from_numpy(np.asarray(x, np.int32)).to(device)
+                     for x in (u, v))
+
+    cases = [(f"{name} x{POINT_PAIRS}", net.layer(name),
+              tensors(*queries[f"getedge/{name}"])) for name, _, _ in LAYER_RECIPE]
+    cases.append((f"Panel x{DYAD_PAIRS} (dyad sample)", panel["layer"],
+                   tensors(*panel["dyads"])))
+    err, main_case, panel_case, lines = worst["intersect_rows"], None, None, []
+    tensors_of = {label: uv for label, _, uv in cases}
+    for label, layer, (u, v) in cases:
+        kernel, plain = rows_calls(layer, u, v)
+        e = max_abs_err(kernel(), plain())
+        err = max(err, e)
+        case = (label, layer, kernel, plain, rows_bytes(layer, u, v))
+        if layer is panel["layer"]:
+            panel_case = case
+        elif main_case is None or case[-1] > main_case[-1]:
+            main_case = case
+        lines.append(f"{label}: max_abs_err {e}")
+    log("timing: intersect_rows against its plain version: " + "; ".join(lines))
+    if err:
+        raise AssertionError("intersect_rows disagrees with its plain version")
+    rec = None
+    for label, layer, kernel, plain, nbytes in (main_case, panel_case):
+        ms = cold_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 3)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = {
+            "name": "intersect_rows", "route": "cuda",
+            "source": "src/repro_torch/csrc/intersect.cu",
+            "replaces": "src/repro/kernels/intersect.py:64",
+            "launches": int(panel["launches"].get("intersect_rows", 0)),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "shape": (f"{label}, {layer.memb.indices.dtype} ids over "
+                      f"{layer.memb.indptr.dtype} indptr"),
+            "ms_from": "cuda events, cold: L2 flushed before each launch",
+        }
+        sector_bytes = rows_sector_bytes(layer, *tensors_of[label])
+        gather_ms = random_gather_ms(layer, sector_bytes // 32, device)
+        log(f"timing: intersect_rows at {rec['shape']}: kernel {ms:.4f} ms cold, "
+            f"{ms / bound:.2f}x its bound {bound:.4f} ms ({nbytes} bytes; the same "
+            f"reads in whole 32-byte sectors {sector_bytes} bytes, "
+            f"{sector_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; torch's gather of as "
+            f"many ids of the layer at random positions, cold: {gather_ms:.4f} ms); "
+            f"plain {plain_ms:.4f} ms; no library call (no torch call counts a "
+            f"per-row intersection); {device_line(CLOCK_FIELDS)}")
+        check_readings(rec)
+    log(f"timing: the record's whole api call (Panel phase, checkedge "
+        f"x{DYAD_PAIRS}): {panel['dyad_busy']}")
+    return rec  # the Panel dyads', the last
 
 
 def symbol_counts(symbols) -> list:
@@ -1671,17 +2081,20 @@ def run() -> int:
     log(f"main: launch counts {json.dumps(launches, sort_keys=True)}; "
         "count-only union shapes (rows, width): " + ", ".join(
             f"{k}x{v}" for k, v in sorted(counted.shapes.items())))
-    assert_launched("main", launches, ("intersect_count", "segmented_union",
+    assert_launched("main", launches, ("intersect_rows", "segmented_union",
                                        "segmented_union_count"))
+    if launches.get("intersect_count", 0):
+        raise AssertionError("the padded-row intersect entry launched on the main path")
     assert_no_sort_rows("main", launches)
     log(f"main: latencies ms {json.dumps(latencies, sort_keys=True)}")
 
-    phase_oracle(net, median_income, SEED, device)
+    panel = phase_panel(net, SEED, device)
+    phase_oracle(net, panel["net"], median_income, SEED, device)
     phase_hubs(net, median_income, device)
     traversal = phase_traversal(net, median_income, SEED, device)
     lm = phase_lm(device, SEED)
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
-                           traversal, lm, device)
+                           panel, traversal, lm, device)
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,17 +13,23 @@ dispatcher, as in the JAX package's ``core/dispatch.py``:
      kernels on the card, their plain torch versions on the CPU),
   5. scatters per-bucket results back into the original batch order.
 
+GetEdgeValue / CheckEdge take none of these steps on the card: one
+``ops.intersect_rows`` call over the whole batch launches a kernel that
+finds each pair's effective membership rows in the CSR and its overlay
+itself, so there is no host degree read, bucket, padding, gather or
+scatter. Their plain version, which the CPU runs, buckets by degree as
+above (``ref.intersect_rows_ref``), without the power-of-two padding.
+
 The port always buckets: PyTorch runs eagerly, so every batch is concrete
 and the JAX package's ``can_dispatch`` (traced vs concrete) has no
 counterpart. The global-max padded paths stay, as the oracle.
 
 Thresholds re-derived for the H100:
 
-* Every ``edge_value`` bucket goes to the intersect kernel, the 8- and
-  32-wide ones included. The JAX package's ``PALLAS_MIN_WIDTH = 128`` kept
-  narrow buckets off its TPU kernel because that kernel pads rows to a
-  full 128-lane tile; the CUDA kernel (one warp per row pair, binary
-  search) takes rows of any width, so the threshold does not apply.
+* The JAX package's ``PALLAS_MIN_WIDTH = 128`` kept narrow buckets off
+  its TPU kernel because that kernel pads rows to a full 128-lane tile;
+  the CUDA kernel reads rows of any length as they lie, so the threshold
+  does not apply.
 * Union rows up to ``UNION_KERNEL_MAX_FLAT`` entries (the in-block
   kernel's capacity, 32,768: 1,024 threads x 32 keys held in registers)
   go to the segmented-union kernel in one piece; the JAX package's
@@ -123,14 +129,17 @@ def _host_ids(x) -> np.ndarray:
     return np.asarray(x, dtype=np.int64).reshape(-1)
 
 
+def _device_ids(x, device) -> torch.Tensor:
+    """Query ids as a flat int32 tensor on ``device`` (int64 ids wrap, as
+    the int32 row padding of the bucket plan wraps them)."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(-1).to(device=device, dtype=torch.int32)
+    return to_tensor(np.asarray(x, dtype=np.int64).reshape(-1).astype(np.int32),
+                     device)
+
+
 def _shape(x) -> tuple:
     return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
-
-
-def _host_mask(nf) -> np.ndarray:
-    if isinstance(nf, torch.Tensor):
-        nf = nf.detach().cpu().numpy()
-    return np.asarray(nf, dtype=bool)
 
 
 def device_mask(nf, device) -> torch.Tensor | None:
@@ -216,14 +225,6 @@ def _second_hop_width(layer, un: np.ndarray, idx: np.ndarray, widths) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _edge_value_bucket(layer, u, v, width: int) -> torch.Tensor:
-    a, am = layer.memberships(u, width)
-    b, bm = layer.memberships(v, width)
-    a = torch.where(am, a, _SENT)
-    b = torch.where(bm, b, _SENT)
-    return kops.intersect_count(a, b).to(torch.float32)
-
-
 def _node_alters_bucket(layer, ids: np.ndarray, nf, wm: int, wn: int,
                         max_alters: int):
     """Union of co-members for one bucket of query ids (rows padded to a
@@ -248,43 +249,20 @@ def bucketed_edge_value(
     node_filter=None,
     widths=DEFAULT_BUCKET_WIDTHS,
 ) -> torch.Tensor:
-    """Degree-bucketed GetEdgeValue over a query batch -> f32[...].
+    """GetEdgeValue over a query batch -> f32[...], in one
+    ``ops.intersect_rows`` call.
 
-    Buckets by max(deg(u), deg(v)) so both membership rows fit the
-    bucket width. ``node_filter`` (bool[n_nodes]) restricts targets:
-    pairs whose ``v`` fails it return 0 and are dropped from the plan
-    before any bucket runs.
+    On the card that is one kernel launch over the whole batch; on the
+    CPU its plain version buckets by max(deg(u), deg(v)) over ``widths``.
+    ``node_filter`` (bool[n_nodes]) restricts targets: pairs whose ``v``
+    fails it return 0 and their rows are never read.
     """
     device = layer.memb.device
-    shape = _shape(u)
-    un = _host_ids(u)
-    vn = _host_ids(v)
-    B = un.size
-    out = torch.zeros((B,), dtype=torch.float32, device=device)
-    if B == 0:
-        return out.reshape(shape)
-    if node_filter is not None:
-        nf = _host_mask(node_filter)
-        keep = nf[np.clip(vn, 0, nf.size - 1)]
-        if keep.any():
-            sub = bucketed_edge_value(
-                layer, un[keep], vn[keep], widths=widths
-            )
-            _scatter(out, np.nonzero(keep)[0], sub)
-        return out.reshape(shape)
-    memb_ov = layer.memb_ov
-    deg = np.maximum(
-        eff_host_degrees(layer.memb, memb_ov, un),
-        eff_host_degrees(layer.memb, memb_ov, vn),
+    counts = kops.intersect_rows(
+        layer.memb, layer.memb_ov, _device_ids(u, device), _device_ids(v, device),
+        device_mask(node_filter, device), widths=widths,
     )
-    for idx, w in plan_buckets(deg, layer.max_memberships, widths):
-        n = _pow2_rows(idx.size)
-        res = _edge_value_bucket(
-            layer, _pad_rows(un[idx], n, device), _pad_rows(vn[idx], n, device),
-            w,
-        )
-        _scatter(out, idx, res)
-    return out.reshape(shape)
+    return counts.to(torch.float32).reshape(_shape(u))
 
 
 def bucketed_check_edge(layer, u, v, **kw) -> torch.Tensor:

@@ -41,6 +41,7 @@ __all__ = [
     "eff_contains",
     "eff_value_at",
     "eff_row_gather",
+    "eff_row_lengths",
     "eff_degrees",
     "eff_max_degree",
     "eff_host_degrees",
@@ -128,6 +129,20 @@ def eff_row_gather(
     vd, md = csr_row_gather(ov.delta, rows, max_len, **kw)
     d = take_clip(ov.dirty, rows)[..., None]
     return torch.where(d, vd, vb), torch.where(d, md, mb)
+
+
+def eff_row_lengths(
+    base: CSR, ov: DeltaOverlay | None, rows: torch.Tensor
+) -> torch.Tensor:
+    """int64 length of each queried row, with ``eff_row_gather``'s clip."""
+
+    def length(csr: CSR) -> torch.Tensor:
+        r = rows.long()
+        return take_clip(csr.indptr, r + 1).long() - take_clip(csr.indptr, r).long()
+
+    if ov is None:
+        return length(base)
+    return torch.where(take_clip(ov.dirty, rows), length(ov.delta), length(base))
 
 
 def eff_degrees(base: CSR, ov: DeltaOverlay | None) -> torch.Tensor:

@@ -19,7 +19,7 @@ from repro_torch.core.csr import SENTINEL, take_clip
 from . import ref
 from .flash_attention import flash_attention_cuda
 from .frontier import frontier_compact_cuda
-from .intersect import intersect_count_cuda
+from .intersect import intersect_count_cuda, intersect_rows_cuda
 from .rmsnorm import rmsnorm_cuda
 from .segmented_union import (
     MAX_FLAT,
@@ -44,6 +44,25 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
         return intersect_count_cuda(a.contiguous(), b.contiguous())
     return ref.intersect_count_ref(a, b)
+
+
+def intersect_rows(
+    base, ov, u: torch.Tensor, v: torch.Tensor,
+    node_filter: torch.Tensor | None = None, *, widths,
+) -> torch.Tensor:
+    """GetEdgeValue's count for each pair of int32 ids -> int32[B]: the
+    hyperedges u[i] and v[i] share in the membership CSR ``base`` with its
+    overlay ``ov``, 0 where v[i] fails ``node_filter`` (bool[n], clipped).
+
+    On CUDA tensors one launch of the kernel, which finds each pair's rows
+    in the CSR itself; on CPU tensors the plain version, the degree-bucketed
+    route over ``widths`` (``ref.intersect_rows_ref``)."""
+    if u.is_cuda:
+        overlay = None if ov is None else (ov.dirty, ov.delta.indptr, ov.delta.indices)
+        return intersect_rows_cuda(base.indptr, base.indices, u.contiguous(),
+                                   v.contiguous(), overlay=overlay,
+                                   node_filter=node_filter)
+    return ref.intersect_rows_ref(base, ov, u, v, node_filter, widths)
 
 
 def pseudo_edge_value(layer, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.csr import SENTINEL, padded_unique, sorted_isin, take_clip
+from repro_torch.core.overlay import eff_row_gather, eff_row_lengths
 
 _SENT = int(SENTINEL)
 
@@ -23,6 +24,39 @@ def intersect_count_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     valid = a != _SENT
     eq = (a[:, :, None] == b[:, None, :]) & valid[:, :, None]
     return eq.sum(dim=(1, 2)).to(torch.int32)
+
+
+def intersect_rows_ref(base, ov, u, v, node_filter, widths) -> torch.Tensor:
+    """|row(u[i]) ∩ row(v[i])| over the effective rows of the membership
+    CSR ``base`` with its overlay ``ov`` -> int32[B], 0 where v[i] fails
+    ``node_filter`` (bool[n], clipped): the degree-bucketed route.
+
+    Pairs that fail the filter are dropped first. The rest are bucketed by
+    max(deg u, deg v) on the ladder ``widths`` closed by the batch's
+    largest degree; each bucket's rows are gathered at its width
+    (``eff_row_gather``) and counted by binary search (``sorted_isin``, the
+    JAX package's bucket body off its TPU kernel), which holds O(B * width)
+    memory where an all-pairs count holds O(B * width^2).
+    """
+    out = torch.zeros(u.shape[0], dtype=torch.int32, device=u.device)
+    pos = torch.arange(u.shape[0], device=u.device)
+    if node_filter is not None:
+        pos = pos[take_clip(node_filter, v)]
+    u, v = u[pos], v[pos]
+    deg = torch.maximum(eff_row_lengths(base, ov, u), eff_row_lengths(base, ov, v))
+    if deg.numel() == 0:
+        return out
+    top = max(int(deg.max()), 1)
+    lo = -1
+    for w in [w for w in widths if w < top] + [top]:
+        sel = (deg > lo) & (deg <= w)
+        lo = w
+        if not bool(sel.any()):
+            continue
+        a, am = eff_row_gather(base, ov, u[sel], w)
+        b, bm = eff_row_gather(base, ov, v[sel], w)
+        out[pos[sel]] = sorted_isin(a, am, b, bm).sum(dim=-1).to(torch.int32)
+    return out
 
 
 def segmented_union_ref(

@@ -70,6 +70,145 @@ def test_intersect_kernel_matches_plain(cuda_device, K):
                                rtol=0, atol=0)
 
 
+# The CSR route's staging budget: the two rows of a pair with at most this
+# many entries together are merged by one lane, longer ones by the warp; a
+# warp stages at most ROWS_WARP_BUF entries at a time.
+ROWS_BUDGET = 128
+ROWS_WARP_BUF = 1280
+
+
+def _rows_csr(rng, lengths, universe, ids_dtype, indptr_dtype, device):
+    """A membership CSR whose row i holds lengths[i] sorted unique ids of
+    ``universe``, stored in the given dtypes on ``device``."""
+    from repro_torch.core.csr import csr_from_arrays
+
+    lengths = np.asarray(lengths)
+    indptr = np.zeros(lengths.size + 1, indptr_dtype)
+    indptr[1:] = np.cumsum(lengths)
+    ids = np.concatenate([np.sort(rng.choice(universe, n, replace=False))
+                          for n in lengths] + [np.zeros(0, np.int64)])
+    return csr_from_arrays(indptr, ids.astype(ids_dtype), None, lengths.size,
+                           int(universe.max()) + 1, device)
+
+
+def _rows_layer(seed, ids_dtype, indptr_dtype, overlay, device):
+    """(base CSR, overlay or None) on ``device``: 600 rows of 0-40 ids, rows
+    100-105 of 63-65 (the budget's edge: pairs of 127, 128 and 129
+    entries), rows 110-141 of 60-64, rows 200-219 of 100-2,000 and rows
+    220-224 of 1,281-3,000 (past a warp's shared buffer); ids above 2^15
+    (uint16) or 2^16 (int32). The
+    overlay dirties 120 rows and 10 rows past the base; its delta holds
+    int32 ids and the other indptr dtype."""
+    from repro_torch.core.overlay import DeltaOverlay
+
+    rng = np.random.default_rng(seed)
+    top = 60_000 if ids_dtype == np.uint16 else 1 << 20
+    universe = np.arange(top - 6_000, top)
+    lengths = rng.integers(0, 41, 600)
+    b = ROWS_BUDGET // 2
+    lengths[100:106] = [b - 1, b, b + 1, b - 1, b, b + 1]
+    lengths[110:142] = rng.integers(b - 4, b + 1, 32)
+    lengths[200:220] = rng.integers(100, 2001, 20)
+    lengths[220:225] = [ROWS_WARP_BUF + 1, 2500, 3000, 2200, 2999]
+    base = _rows_csr(rng, lengths, universe, ids_dtype, indptr_dtype, device)
+    if not overlay:
+        return base, None
+    dirty = np.zeros(610, bool)
+    dirty[rng.choice(600, 120, replace=False)] = True
+    dirty[600:] = True
+    dlen = np.where(dirty, rng.choice([0, 3, 32, 33, 150, 2500], 610), 0)
+    delta = _rows_csr(rng, dlen, universe, np.int32,
+                      np.int64 if indptr_dtype == np.int32 else np.int32, device)
+    return base, DeltaOverlay(delta=delta, dirty=torch.from_numpy(dirty).to(device),
+                              base_shadowed=0, dirty_host=dirty)
+
+
+def _rows_pairs(seed, B):
+    """B pairs over ids -3 .. 615: every warp of 32 mixes rows the lanes
+    merge and hub rows the warp searches; the first 12 pairs take the
+    budget's edge (63+64, 64+64, 64+65 entries and their mirror images),
+    pairs 32-63 rows of 60-64 each (their 32 pairs pass a warp's buffer, so
+    the warp stages them in rounds), the last five u = v."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(-3, 616, B)
+    v = rng.integers(-3, 616, B)
+    hubs = np.arange(0, B, 7)
+    v[hubs] = rng.integers(200, 225, hubs.size)
+    wide = np.arange(32, min(B, 64))
+    u[wide] = rng.integers(110, 142, wide.size)
+    v[wide] = rng.integers(110, 142, wide.size)
+    edge = [(100, 101), (101, 104), (101, 102), (102, 104), (103, 105), (105, 100)]
+    for i, (a, b) in enumerate(edge[:B // 2]):
+        u[2 * i], v[2 * i] = a, b
+        u[2 * i + 1], v[2 * i + 1] = b, a
+    u[-5:] = v[-5:]
+    return u.astype(np.int32), v.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 1000])
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("overlay", [False, True])
+@pytest.mark.parametrize("indptr_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("ids_dtype", [np.uint16, np.int32])
+def test_intersect_rows_kernel_matches_plain(cuda_device, ids_dtype, indptr_dtype,
+                                             overlay, filtered, B):
+    from repro_torch.core.dispatch import DEFAULT_BUCKET_WIDTHS
+
+    layer = _rows_layer(700, ids_dtype, indptr_dtype, overlay, cuda_device)  # seed 700
+    u, v = _rows_pairs(701 + B, B)  # seed 701+B
+    nf = np.random.default_rng(702).random(590) < 0.7 if filtered else None  # seed 702
+    args = [torch.from_numpy(x).to(cuda_device) if x is not None else None
+            for x in (u, v, nf)]
+    # the plain version, the degree-bucketed route, on the same tensors
+    want = ref.intersect_rows_ref(*layer, *args, DEFAULT_BUCKET_WIDTHS).cpu()
+    before = dict(launch_counts)
+    got = ops.intersect_rows(*layer, *args, widths=DEFAULT_BUCKET_WIDTHS)
+    torch.cuda.synchronize()
+    assert launch_counts["intersect_rows"] == before.get("intersect_rows", 0) + 1
+    assert launch_counts["intersect_count"] == before.get("intersect_count", 0)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    if B == 1000:
+        assert int((want > 0).sum()) > 100 and int(want.max()) > 40
+
+
+@pytest.mark.cuda
+def test_intersect_rows_wrapper_refuses_bad_operands(cuda_device):
+    from repro_torch.kernels.intersect import intersect_rows_cuda
+
+    base, _ = _rows_layer(703, np.int32, np.int32, False, cuda_device)  # seed 703
+    ids = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        intersect_rows_cuda(base.indptr, base.indices, ids.long(), ids)
+    with pytest.raises(ValueError):
+        intersect_rows_cuda(base.indptr, base.indices, ids, ids[:4])
+    with pytest.raises(ValueError):
+        intersect_rows_cuda(base.indptr, base.indices, ids.cpu(), ids.cpu())
+    with pytest.raises(TypeError):
+        intersect_rows_cuda(base.indptr.short(), base.indices, ids, ids)
+    with pytest.raises(ValueError):
+        intersect_rows_cuda(base.indptr, base.indices, ids, ids,
+                            node_filter=torch.zeros(0, dtype=torch.bool,
+                                                    device=cuda_device))
+    with pytest.raises(ValueError):
+        intersect_rows_cuda(base.indptr, base.indices, ids, ids,
+                            overlay=(torch.ones(3, dtype=torch.bool), base.indptr,
+                                     base.indices))
+
+
+@pytest.mark.cuda
+def test_edge_queries_launch_the_csr_route_once_a_layer(cuda_device):
+    net = _network(None)
+    u, v = np.random.default_rng(704).integers(0, 2000, (2, 300))  # seed 704
+    sel = api.selectnodes(net, "income", ">", 50)
+    before = dict(launch_counts)
+    for filt in (None, sel):
+        api.getedge(net, "wk", u, v, filter=filt)
+        api.checkedge(net, "sc", u, v, filter=filt)
+    assert launch_counts["intersect_rows"] == before.get("intersect_rows", 0) + 4
+    assert launch_counts["intersect_count"] == before.get("intersect_count", 0)
+
+
 def _union_rows(rng, B, K, dups):
     """Unsorted rows with SENTINEL holes, row 0 all-SENTINEL: ``dups`` ids in
     [0, K // 2), many repeats; else signed ids in [-2^30, 2^30), almost

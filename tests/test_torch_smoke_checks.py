@@ -1,4 +1,6 @@
-"""``chip_smoke.py``'s check of the LM kernels against their plain versions.
+"""``chip_smoke.py``'s check of the LM kernels against their plain versions,
+its timing records, and its bookkeeping of the CSR-route intersect kernel
+(launches a call, the bytes a batch of pairs must read, the Panel recipe).
 
 The check holds each kernel's bf16 output, element by element, within
 2^-7 of the plain version evaluated in f32 on the same inputs (plus 2^-12
@@ -219,3 +221,68 @@ def test_call_device_ms_counts_a_kernel_launched_n_times_a_call(smoke):
     with pytest.raises(AssertionError, match="2 times a call"):
         smoke.call_device_ms({"union_merge_kernel": [21, 10.0]},
                              (("union_merge_kernel", 2),), 10)
+
+
+def test_edge_launches_wants_one_csr_launch_a_call_and_no_padded_one(smoke,
+                                                                    monkeypatch):
+    import collections
+
+    from repro_torch.kernels import build
+
+    counts = collections.Counter({"intersect_rows": 5, "intersect_count": 2})
+    monkeypatch.setattr(build, "launch_counts", counts)
+    before = {"intersect_rows": 2, "intersect_count": 2}
+    assert smoke.edge_launches("x", before, 3) == "intersect_rows x1 a call"
+    with pytest.raises(AssertionError):
+        smoke.edge_launches("x", before, 4)
+    counts["intersect_count"] += 1
+    with pytest.raises(AssertionError):
+        smoke.edge_launches("x", before, 3)
+
+
+def _small_layer(indptr_dtype):
+    """Rows of 0, 3, 20 and 9 int32 ids (row starts at byte 0, 0, 12, 92)."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.csr import csr_from_arrays
+
+    lengths = [0, 3, 20, 9]
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(indptr_dtype)
+    ids = np.concatenate([np.arange(k) * 7 for k in lengths]).astype(np.int32)
+    memb = csr_from_arrays(indptr, ids, None, 4, 200, "cpu")
+    return SimpleNamespace(memb=memb, memb_ov=None), indptr
+
+
+@pytest.mark.parametrize("indptr_dtype", [np.int32, np.int64])
+def test_rows_bytes_count_what_the_pairs_must_read(smoke, indptr_dtype):
+    layer, indptr = _small_layer(indptr_dtype)
+    u = torch.tensor([1, 0, 3, 2, 9], dtype=torch.int32)
+    v = torch.tensor([2, 2, -1, 2, 3], dtype=torch.int32)
+    psz = np.dtype(indptr_dtype).itemsize
+    # pairs (1, 2) and (2, 2) have both rows; (2, 9 -> empty row 9) not
+    entries = (3 + 20) + (20 + 20)
+    assert smoke.rows_bytes(layer, u, v) == 12 * 5 + 4 * psz * 5 + 4 * entries
+
+    def sectors(r):
+        r = min(max(r, 0), 4)
+        r1 = min(r + 1, 4)
+        lo, hi = int(indptr[r]) * 4, int(indptr[r1]) * 4
+        rows = (hi - 1) // 32 - lo // 32 + 1 if hi > lo else 0
+        return rows, len({r * psz // 32, r1 * psz // 32})
+
+    want = 12 * 5
+    for a, b in zip(u.tolist(), v.tolist()):
+        (ra, pa), (rb, pb) = sectors(a), sectors(b)
+        want += 32 * ((ra + rb if ra and rb else 0) + pa + pb)
+    assert smoke.rows_sector_bytes(layer, u, v) == want
+
+
+def test_panel_membership_chunks_follow_the_recipe(smoke):
+    parts = list(smoke.panel_membership_chunks(20_000, 1_000, seed=5))
+    nodes = np.concatenate([n for n, _ in parts])
+    groups = np.concatenate([g for _, g in parts])
+    per = np.bincount(nodes, minlength=20_000)
+    assert per.min() >= 1 and per.max() <= smoke.PANEL_CAP
+    assert abs(per.mean() - smoke.PANEL_MEAN) < 0.5
+    assert groups.min() >= 0 and groups.max() < 1_000
+    assert np.all(np.diff(nodes) >= 0)
