@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths — pseudo-projection point queries and
-batched traversal on a population-scale mixed-mode network, and LM
-serving at full width — on the card, through the entry points a user
+Drives the port's main paths — pseudo-projection point queries, batched
+traversal and sampling and analysis on a population-scale mixed-mode
+network, and LM serving at full width — on the card, through the entry points a user
 calls (``repro_torch.core.api``, ``repro_torch.models.lm_serve``), and
 fails (non-zero exit) if any phase fails:
 
@@ -59,7 +59,30 @@ fails (non-zero exit) if any phase fails:
               k-hops must equal scipy's on its materialized projection.
               Each call prints its wall time, device-idle share and the
               device activities that took most of its busy time;
-10. lm      — LM serving at full width, bf16, through
+10. sampling — on the same network, with launch counts reset just before
+              and read just after: walk fleets through ``api.walkbatch``
+              (65,536 starts x 4 walkers x 40 steps over the 4 layers with
+              layer weights and the income > median filter; 262,144
+              Households walkers x 40 steps), neighborhood samples (fanout
+              [10, 5], 8,192 seeds by walk steps, 1,024 by alter unions),
+              the four estimators, degreedist with and without the filter,
+              getdensity, projected_degree, a BFS over all layers,
+              shortestpath, countcomponents, memoryreport, describenet,
+              subnetwork on a seeded 1 % of the nodes, the processing calls
+              on a 1M-node directed valued layer and a TemporalNetwork of
+              three yearly 100k-node snapshots; each call's wall time,
+              device-idle share and busiest activities. The threefry kernels
+              (threefry_bits, randint, csr_row_sample) and segmented_union
+              must launch; each threefry kernel must equal its plain
+              version at every launch shape of the phase; the first 1,024
+              starts' rows of each fleet and sample must equal the port's
+              CPU path on a host copy of the network (a walker whose layer
+              choice on the card differed from the CPU's, by the log of the
+              Gumbel draw, is excused and counted; more than 1 in 10^4 of
+              65,536 compared walkers fails); BFS levels must equal k-hop
+              groups, and a small network's BFS distances and shortest
+              paths scipy's;
+11. lm      — LM serving at full width, bf16, through
               ``ServeEngine.generate``: qwen3-1.7b (28 layers, d_model
               2048) and mamba2-130m (24 layers, d_model 768), each with
               weights drawn from a seeded generator, serving 8 requests of
@@ -80,7 +103,7 @@ fails (non-zero exit) if any phase fails:
               against the argmax of ``Model.apply``, and, in an f32 copy
               of each model, prefill + 8 decode steps against
               ``Model.apply`` (2 requests, 256-token prompts);
-11. timing  — each kernel, its plain version and its bound at the heaviest
+12. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
               by CUDA events with the L2 flushed before each launch; the
@@ -96,7 +119,9 @@ fails (non-zero exit) if any phase fails:
               plain and library calls timed with CUDA events over
               back-to-back calls. RMSNorm runs on a rotation of buffers
               larger than the L2 (cold rows, as in a prefill), at the
-              hidden and the q-norm shape. A kernel or library time under
+              hidden and the q-norm shape. The threefry kernels at the
+              sampling phase's heaviest launch of each, csr_row_sample
+              cold with its sector count. A kernel or library time under
               its bound fails the phase.
 
 Its last lines are the ``kernels`` JSON record and then
@@ -189,6 +214,43 @@ EGO_MAX_ALTERS = 256
 TRAVERSAL_SUBSAMPLE = 64
 TRAVERSAL_REPEATS = 3
 SMALL_NODES = 3000
+
+# Sampling phase, on the same network: threadleR's sampling analyses. A
+# walk fleet of 65,536 starts x 4 walkers x 40 steps over the 4 layers
+# (layer weights, the income > median filter) and a one-layer fleet of
+# 262,144 Households walkers; GraphSAGE-style neighborhood samples
+# (fanout [10, 5]) from 8,192 seeds by walk steps and 1,024 by alter
+# unions; the four estimators (1,048,576 uniform nodes; 8,192 walkers x 64
+# steps). The first PREFIX_STARTS starts of each fleet and sample are held
+# against the port's CPU path; CHOICE_WALKERS walkers' layer choices are
+# compared, at most CHOICE_TOL of them may differ (the card's log).
+FLEET_STARTS = 65_536
+FLEET_WALKERS = 4
+FLEET_STEPS = 40
+FLEET_WEIGHTS = (1.0, 2.0, 2.0, 1.0)  # Households, Workplaces, Schools, Random
+ONE_LAYER_WALKERS = 262_144
+NS_FANOUT = (10, 5)
+NS_WALK_SEEDS = 8192
+NS_ALTERS_SEEDS = 1024
+NS_ALTERS_PREFIX = 128
+EST_NODES = 1 << 20
+EST_WALKERS = 8192
+EST_STEPS = 64
+PROJ_DEGREE_NODES = 8192
+PREFIX_STARTS = 1024
+CHOICE_WALKERS = 65_536
+CHOICE_TOL = 1e-4
+BFS_CHECK_FRONTIER = 32_768
+SUBNET_SHARE = 0.01
+# processing runs on a smaller directed, valued layer: symmetrize sorts
+# and dedups twice the edges in host numpy, a cost that grows with the
+# edges past what the phase can spend at Random's 50M
+PROCESSING_NODES = 1_000_000
+PROCESSING_DEGREE = 10.0
+TEMPORAL_NODES = 100_000
+TEMPORAL_YEARS = (2019, 2020, 2021)
+TEMPORAL_PAIRS = 256
+TEMPORAL_WALKERS = 1024
 
 # LM phase: both configurations at full width in bf16 (depth not cut),
 # random weights from SEED. Traffic: LM_REQUESTS prompts of LM_PROMPT
@@ -304,6 +366,10 @@ def cuda_ms(fn, iters: int) -> float:
 PROFILER_WINDOWS = 3
 
 
+class ProfilerLostEvents(RuntimeError):
+    """The profiler delivered no device event in any of its windows."""
+
+
 def device_activity(fn, iters: int) -> dict:
     """Every kernel, copy and fill that ``iters`` calls of ``fn`` put on
     the card, after a warm-up (torch.profiler/CUPTI): {name: [events,
@@ -335,7 +401,7 @@ def device_activity(fn, iters: int) -> dict:
                 acts[e.name][1] += e.time_range.elapsed_us()
         if sum(us for _, us in acts.values()) > 0:
             return acts
-    raise RuntimeError(
+    raise ProfilerLostEvents(
         f"torch.profiler recorded no device activity in {PROFILER_WINDOWS} windows")
 
 
@@ -684,8 +750,13 @@ def edge_launches(label: str, before: dict, calls: int) -> str:
 def busy_share(fn, wall_ms: float, top: int = 0) -> str:
     """Device busy time of one profiled call and the idle share of the
     median call; ``top`` > 0 adds the device activities that took most of
-    the busy time (name, launches, ms)."""
-    acts = device_activity(fn, 1)
+    the busy time (name, launches, ms). A display, not a check: where the
+    profiler of this long process delivers no event of a short call in
+    any window, the busy time reads "not measured"."""
+    try:
+        acts = device_activity(fn, 1)
+    except ProfilerLostEvents as err:
+        return f"device busy not measured ({err})"
     busy = sum(us for _, us in acts.values()) / 1e3
     out = (f"device busy {busy:.3f} ms, idle "
            f"{max(0.0, 1.0 - busy / wall_ms) * 100:.1f}% of the median call")
@@ -913,7 +984,8 @@ def main_path_shapes(net, queries: dict) -> dict:
 
 
 def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
-                 counted, panel: dict, traversal: dict, lm: dict, device) -> list:
+                 counted, panel: dict, traversal: dict, sampling: dict, lm: dict,
+                 device) -> list:
     """Kernel, plain version and bound at the heaviest shape each kernel's
     phase launched: the main path's for the padded intersect entry and the
     union (and its recorded rows for the count-only union, ``counted``), the
@@ -1055,6 +1127,7 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
         ops_count, f"[{rows},{kc}] vs [{rows},{kv}] -> [{rows},{max_out}] ({call})",
         library_none="no torch call dedups per row against a second row",
     ))
+    records += draw_timing(sampling)
     for r in records:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{r['name']} disagrees at the main-path shape")
@@ -1608,6 +1681,704 @@ def small_traversal_check(device, seed: int, bad: list) -> None:
             break
 
 
+# ---------------------------------------------------------------------------
+# Sampling phase: walk fleets, neighborhood samples, estimators, analysis,
+# processing, memory reports and temporal networks
+# ---------------------------------------------------------------------------
+
+
+def moved(obj, device):
+    """A copy of a port container (frozen dataclasses of tensors, host
+    arrays and metadata) with every tensor on ``device``."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, torch.device):
+        return torch.device(device)
+    if isinstance(obj, tuple):
+        return tuple(moved(x, device) for x in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: moved(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+class DrawInputs:
+    """Within the block, wraps the threefry kernels' CUDA wrappers
+    (``ops.<name>_cuda``): keeps a copy of the inputs of the first launch of
+    every distinct shape of each kernel and the heaviest launch by the bytes
+    it must move (``draw_bytes``), so the checks and the timing phase run
+    each kernel on what the sampling phase gave it. Network buffers are
+    kept by reference, row ids and bounds copied. It counts nothing in
+    ``launch_counts``."""
+
+    NAMES = ("threefry_bits", "randint", "csr_row_sample")
+
+    def __init__(self):
+        self.first = {}  # (name, shape) -> (args, kwargs)
+        self.heaviest = {}  # name -> (bytes, args, kwargs)
+        self.shapes = collections.Counter()
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        self._inner = {n: getattr(ops, f"{n}_cuda") for n in self.NAMES}
+
+        def recorder(name, inner):
+            def record(*args, **kwargs):
+                shape = draw_shape(name, args, kwargs)
+                self.shapes[(name,) + shape] += 1
+                nbytes = draw_bytes(name, args, kwargs, exact=False)
+                new_first = (name, shape) not in self.first
+                heavier = name not in self.heaviest or nbytes > self.heaviest[name][0]
+                if new_first or heavier:
+                    # the rows (csr_row_sample's third argument) and bounds
+                    # are copied; the CSR buffers belong to the network
+                    kept = tuple(
+                        a.clone() if isinstance(a, torch.Tensor)
+                        and (name != "csr_row_sample" or i == 2) else a
+                        for i, a in enumerate(args))
+                    if new_first:
+                        self.first[(name, shape)] = (kept, dict(kwargs))
+                    if heavier:
+                        self.heaviest[name] = (nbytes, kept, dict(kwargs))
+                return inner(*args, **kwargs)
+            return record
+
+        for n, inner in self._inner.items():
+            setattr(ops, f"{n}_cuda", recorder(n, inner))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for n, inner in self._inner.items():
+            setattr(ops, f"{n}_cuda", inner)
+
+
+def draw_shape(name, args, kwargs) -> tuple:
+    if name == "threefry_bits":
+        return (int(args[1]),)
+    if name == "randint":
+        return (int(args[4]),) + tuple(
+            "per-element" if hasattr(b, "shape") else "scalar" for b in args[2:4])
+    indptr, ids, rows = args[:3]
+    return (rows.numel(), str(indptr.dtype), str(ids.dtype),
+            kwargs.get("overlay") is not None)
+
+
+# integer operations of one threefry-2x32 hash in csrc/threefry.cu: 2 key
+# adds, 20 rounds of add, rotate and xor, 5 injections of 2 adds, the xor
+# of the output words; of one int32 randint: two hashes and the reduction
+# (span, multiplier, 3 remainders, a product, 2 adds)
+HASH_OPS = 2 + 20 * 3 + 5 * 2 + 1
+RANDINT_OPS = 2 * HASH_OPS + 9
+
+
+def draw_bytes(name, args, kwargs, exact: bool = True) -> int:
+    """The bytes a draw kernel's launch must move: threefry_bits writes 4 B
+    an element; randint writes 4 B and reads any per-element bound; a row
+    sample reads the row id, two indptr entries (and the dirty byte of a
+    delta overlay), the sampled id of each non-empty row (``exact``: counted
+    from the rows; else every row), and writes 4 B and the valid byte."""
+    if name == "threefry_bits":
+        return 4 * int(args[1])
+    if name == "randint":
+        n = int(args[4])
+        return 4 * n + sum(4 * n for b in args[2:4] if hasattr(b, "shape"))
+    indptr, ids, rows = args[:3]
+    n = rows.numel()
+    per_row = 4 + 2 * indptr.element_size() + 4 + 1
+    if kwargs.get("overlay") is not None:
+        per_row += 1
+    filled = n if not exact else int(draw_row_lengths(args, kwargs)[0].gt(0).sum())
+    return n * per_row + filled * ids.element_size()
+
+
+def draw_csrs(args, kwargs):
+    """A row-sample launch's arguments as (base CSR, overlay or None) for
+    the plain version."""
+    from repro_torch.core.csr import CSR
+    from repro_torch.core.overlay import DeltaOverlay
+
+    def csr(indptr, ids):
+        return CSR(indptr=indptr, indices=ids, values=None,
+                   n_rows=indptr.numel() - 1, n_cols=0, indptr_host=None)
+
+    base = csr(*args[:2])
+    ov = kwargs.get("overlay")
+    if ov is not None:
+        ov = DeltaOverlay(delta=csr(ov[1], ov[2]), dirty=ov[0], base_shadowed=0,
+                          dirty_host=None)
+    return base, ov
+
+
+def draw_row_lengths(args, kwargs):
+    """(length, indptr position) of each sampled row, with the kernel's
+    clip rules; the position is that of the base or the delta CSR."""
+    import torch
+
+    from repro_torch.core.csr import take_clip
+
+    base, ov = draw_csrs(args, kwargs)
+    r = args[2].long()
+    length = take_clip(base.indptr, r + 1).long() - take_clip(base.indptr, r).long()
+    pos = r.clamp(0, base.n_rows)
+    if ov is not None:
+        d = take_clip(ov.dirty, r)
+        dl = (take_clip(ov.delta.indptr, r + 1).long()
+              - take_clip(ov.delta.indptr, r).long())
+        length = torch.where(d, dl, length)
+        pos = torch.where(d, r.clamp(0, ov.delta.n_rows), pos)
+    return length, pos
+
+
+def draw_sector_bytes(args, kwargs) -> int:
+    """A row sample's random reads counted as device memory serves them,
+    in whole 32-byte sectors: each row's indptr pair (1 or 2 sectors) and
+    the sampled id of each non-empty row (1 sector); row ids and outputs
+    as they are."""
+    indptr, ids, rows = args[:3]
+    length, pos = draw_row_lengths(args, kwargs)
+    psz = indptr.element_size()
+    pairs = 1 + (pos * psz // 32 != (pos + 1) * psz // 32).long()
+    return 9 * rows.numel() + 32 * int(pairs.sum() + length.gt(0).sum())
+
+
+def draw_plain(name, args, kwargs):
+    """The plain torch version of a threefry kernel's CUDA wrapper on the
+    same arguments -> a tuple of output tensors."""
+    from repro_torch.kernels import ref
+
+    if name == "threefry_bits":
+        return (ref.threefry_bits_ref(*args),)
+    if name == "randint":
+        return (ref.randint_ref(*args),)
+    base, ov = draw_csrs(args, kwargs)
+    return ref.csr_row_sample_ref(base, ov, args[2], *args[3:5])
+
+
+def draw_kernel(name, args, kwargs):
+    from repro_torch.kernels import ops
+
+    out = getattr(ops, f"{name}_cuda")(*args, **kwargs)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def exact_check(label: str, got, want) -> None:
+    """Fails unless every output tensor of a kernel equals its plain
+    version's element for element (dtype and shape included)."""
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(
+                f"{label}: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+        bad = int((g != w).sum())
+        if bad:
+            raise AssertionError(f"{label}: {bad} of {w.numel()} elements differ "
+                                 "from the plain version")
+
+
+def draw_err(got, want) -> int:
+    """The largest absolute difference over a draw kernel's outputs (bool
+    outputs as 0/1)."""
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def fleet_choices(keys, logits, n: int, device):
+    """Each step's layer choice of n walkers -> int32[steps, n] on the host,
+    from the (layer-choice, step) keys of ``walk_keys``."""
+    import torch
+
+    from repro_torch.core import prng
+
+    lg = logits.to(device)
+    return torch.stack([prng.categorical(k_layer, lg, (n,)).cpu()
+                        for k_layer, _ in keys]).numpy()
+
+
+def prefix_check(label: str, got, want, excused, checked: int) -> str:
+    """The rows of ``got`` (the card's) against ``want`` (the CPU path's):
+    every row must be equal, except the rows ``excused`` (bool[rows]: a
+    layer choice on the card differed from the CPU's there), and at most
+    CHOICE_TOL of the ``checked`` walkers whose choices were compared may
+    have such a difference."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {got.shape} vs {want.shape}")
+    differ = (got != want).reshape(got.shape[0], -1).any(axis=1)
+    excused = np.asarray(excused, bool)[: got.shape[0]]
+    wrong = np.flatnonzero(differ & ~excused)
+    if wrong.size:
+        raise AssertionError(
+            f"{label}: {wrong.size} rows differ from the CPU path with the same "
+            f"layer choices (first: row {int(wrong[0])})")
+    n_excused = int(np.asarray(excused).sum())
+    if n_excused > CHOICE_TOL * checked:
+        raise AssertionError(
+            f"{label}: {n_excused} of {checked} walkers chose another layer on "
+            f"the card than on the CPU (limit {CHOICE_TOL:g} of them)")
+    return (f"{label}: {got.shape[0]} rows equal the CPU path "
+            f"({int(differ.sum())} differ, each after a layer choice that "
+            f"differed)")
+
+
+def profiled(fn) -> tuple:
+    """One call of ``fn`` under the profiler -> (wall ms, device busy ms,
+    busiest activities, output). For calls too heavy to repeat."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*Profiler clears events")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+    acts = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acts[e.name][0] += 1
+            acts[e.name][1] += e.time_range.elapsed_us()
+    return wall, acts, out
+
+
+def busy_line(acts: dict, wall_ms: float, top: int = 4) -> str:
+    busy = sum(us for _, us in acts.values()) / 1e3
+    ranked = sorted(acts.items(), key=lambda kv: -kv[1][1])[:top]
+    return (f"device busy {busy:.3f} ms, idle "
+            f"{max(0.0, 1.0 - busy / wall_ms) * 100:.1f}%; most busy: " + ", ".join(
+                f"{name[:60]} x{n} {us / 1e3:.3f} ms" for name, (n, us) in ranked))
+
+
+def processing_layer(n_nodes: int, seed: int, device):
+    """A directed, valued Erdős–Rényi layer (mean out-degree
+    PROCESSING_DEGREE, values 1-5) for the processing calls."""
+    from repro_torch.core.layers import one_mode_from_edges
+
+    rng = np.random.default_rng(seed)
+    m = int(n_nodes * PROCESSING_DEGREE)
+    src = rng.integers(0, n_nodes, m)
+    dst = rng.integers(0, n_nodes, m)
+    vals = rng.integers(1, 6, m).astype(np.float32)
+    return one_mode_from_edges(n_nodes, src, dst, values=vals, directed=True,
+                               device=device)
+
+
+def temporal_network(seed: int, device):
+    """TEMPORAL_YEARS snapshots of a TEMPORAL_NODES-node register network
+    (the Households and Workplaces recipe, redrawn each year)."""
+    from repro_torch.core import api
+    from repro_torch.core.layers import two_mode_from_membership_chunks
+    from repro_torch.core.temporal import TemporalNetwork
+
+    n = TEMPORAL_NODES
+    ns = api.createnodeset(n, device=device)
+    snaps = []
+    for i, year in enumerate(TEMPORAL_YEARS):
+        net = api.createnetwork(ns)
+        for j, (name, per_node, npg) in enumerate(LAYER_RECIPE[:2]):
+            groups = max(int(n / npg), 1)
+            net = net.with_layer(name, two_mode_from_membership_chunks(
+                n, groups, membership_chunks(n, per_node, groups, seed + 10 * i + j),
+                device=device))
+        snaps.append((year, net))
+    return TemporalNetwork.from_snapshots(snaps)
+
+
+def sampling_calls(net, layers, sel, median_income: int, seed: int, device) -> dict:
+    """The sampling phase's calls: name -> (call, timed repeats or None for
+    one profiled call only), and the inputs the checks need."""
+    from repro_torch.core import analysis, api, estimators, prng, processing, walks
+    from repro_torch.core.nodeset import NodeSelection
+
+    rng = np.random.default_rng(seed + 20)
+    n = net.n_nodes
+    ins = {
+        "fleet": rng.integers(0, n, FLEET_STARTS),
+        "one": rng.integers(0, n, ONE_LAYER_WALKERS),
+        "ns_walk": rng.integers(0, n, NS_WALK_SEEDS),
+        "ns_alters": rng.integers(0, n, NS_ALTERS_SEEDS),
+        "proj": rng.integers(0, n, PROJ_DEGREE_NODES),
+        "bfs": int(rng.integers(0, n)),
+        "target": int(rng.integers(0, n)),
+        "subnet": NodeSelection(rng.random(n) < SUBNET_SHARE),
+        "seeds": {k: seed + 21 + i for i, k in enumerate(
+            ("fleet", "one", "ns_walk", "ns_alters", "est"))},
+    }
+    t0 = time.perf_counter()
+    proc = processing_layer(PROCESSING_NODES, seed + 30, device)
+    temporal = temporal_network(seed + 40, device)
+    tpairs = rng.integers(0, TEMPORAL_NODES, (TEMPORAL_PAIRS, 2))
+    log(f"sampling: processing layer ({PROCESSING_NODES} nodes, {proc.n_edges} "
+        f"directed valued edges) and {len(TEMPORAL_YEARS)} temporal snapshots of "
+        f"{TEMPORAL_NODES} nodes built in {time.perf_counter() - t0:.3f} s")
+    ins.update(proc=proc, temporal=temporal)
+    s = ins["seeds"]
+    est_key = prng.key(s["est"])
+    win = temporal.window(TEMPORAL_YEARS[0], TEMPORAL_YEARS[-1])
+    calls = {
+        f"walkbatch x{FLEET_STARTS} starts x{FLEET_WALKERS} walkers x{FLEET_STEPS} "
+        f"steps, 4 layers weighted {list(FLEET_WEIGHTS)}, income > {median_income}":
+            (lambda: api.walkbatch(net, ins["fleet"], FLEET_STEPS, walkers=FLEET_WALKERS,
+                                   seed=s["fleet"], layernames=layers,
+                                   layer_weights=FLEET_WEIGHTS, filter=sel), 1),
+        f"walkbatch Households x{ONE_LAYER_WALKERS} x{FLEET_STEPS} steps":
+            (lambda: api.walkbatch(net, ins["one"], FLEET_STEPS, seed=s["one"],
+                                   layernames=["Households"]), 1),
+        f"neighborhood_sample walk x{NS_WALK_SEEDS} fanout {list(NS_FANOUT)}":
+            (lambda: walks.neighborhood_sample(net, ins["ns_walk"], NS_FANOUT,
+                                               prng.key(s["ns_walk"]), layers), 1),
+        f"neighborhood_sample alters x{NS_ALTERS_SEEDS} fanout {list(NS_FANOUT)}":
+            (lambda: walks.neighborhood_sample(net, ins["ns_alters"], NS_FANOUT,
+                                               prng.key(s["ns_alters"]), layers,
+                                               method="alters"), 1),
+        f"estimate_mean_degree x{EST_NODES}":
+            (lambda: estimators.estimate_mean_degree(net, EST_NODES, est_key, layers), 1),
+        f"estimate_degree_distribution {EST_WALKERS} walkers x{EST_STEPS}":
+            (lambda: estimators.estimate_degree_distribution(
+                net, EST_WALKERS, EST_STEPS, est_key, layers), 1),
+        f"estimate_assortativity income {EST_WALKERS} walkers x{EST_STEPS}":
+            (lambda: estimators.estimate_assortativity(
+                net, "income", EST_WALKERS, EST_STEPS, est_key, layers), 1),
+        f"estimate_component_mass {EST_WALKERS} walkers x{EST_STEPS}":
+            (lambda: estimators.estimate_component_mass(
+                net, EST_WALKERS, EST_STEPS, est_key, layers), 1),
+        "degreedist unfiltered": (lambda: api.degreedist(net, layers), 1),
+        f"degreedist income > {median_income}":
+            (lambda: api.degreedist(net, layers, filter=sel), 1),
+        "getdensity per layer": (lambda: [api.getdensity(net, nm) for nm in layers], 1),
+        f"projected_degree x{PROJ_DEGREE_NODES}":
+            (lambda: analysis.projected_degree(net, ins["proj"], layers), 1),
+        f"bfs_distances from {ins['bfs']}, all layers":
+            (lambda: analysis.bfs_distances(net, ins["bfs"], layers), 1),
+        f"shortestpath {ins['bfs']} -> {ins['target']}":
+            (lambda: api.shortestpath(net, ins["bfs"], ins["target"], layers), 1),
+        "countcomponents (analysis.connected_components)":
+            (lambda: api.countcomponents(net, layers), 1),
+        "memoryreport": (lambda: api.memoryreport(net), None),
+        "describenet": (lambda: api.describenet(net), None),
+        f"subnetwork on {ins['subnet'].count} seeded nodes":
+            (lambda: api.subnetwork(net, ins["subnet"]), None),
+        f"symmetrize max ({PROCESSING_NODES}-node directed valued layer)":
+            (lambda: processing.symmetrize(proc, "max"), None),
+        "dichotomize > 2": (lambda: processing.dichotomize(proc, 2.0, "gt"), None),
+        "filter_edges >= 3": (lambda: processing.filter_edges(proc, 3.0), None),
+        f"temporal edge_years + first_contact x{TEMPORAL_PAIRS}, memory_by_year":
+            (lambda: ([temporal.edge_years("Workplaces", int(u), int(v))
+                       for u, v in tpairs],
+                      [temporal.first_contact(int(u), int(v)) for u, v in tpairs],
+                      temporal.memory_by_year()), None),
+        f"temporal window walk x{TEMPORAL_WALKERS} x{FLEET_STEPS} steps":
+            (lambda: walks.random_walk(win, np.arange(TEMPORAL_WALKERS), FLEET_STEPS,
+                                       prng.key(seed + 45)), 1),
+    }
+    return calls, ins
+
+
+def phase_sampling(net, median_income: int, seed: int, device) -> dict:
+    """The sampling and analysis calls through the entry points, timed per
+    call, with the launch counts set to 0 just before and read just after;
+    then the checks: the threefry kernels and the segmented union launched,
+    each threefry kernel equal to its plain version at every shape the
+    phase gave it, the first PREFIX_STARTS starts' rows of each fleet and
+    sample equal to the port's CPU path (a walker whose layer choice on the
+    card differed from the CPU's excused, at most CHOICE_TOL of them),
+    BFS against a k-hop, a small network against scipy. Returns the counts
+    and the recorded launches."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.kernels import build
+
+    layers = [nm for nm, _, _ in LAYER_RECIPE] + ["Random"]
+    sel = api.selectnodes(net, "income", ">", median_income)
+    calls, ins = sampling_calls(net, layers, sel, median_income, seed, device)
+    outputs, latencies = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    build.launch_counts.clear()
+    with DrawInputs() as rec:
+        for name, (call, repeats) in calls.items():
+            before = collections.Counter(build.launch_counts)
+            t0 = time.perf_counter()
+            if repeats is None:
+                ms, acts, out = profiled(call)
+                runs = 1
+            else:
+                ms, out = host_median_ms(call, repeats)
+                _, acts, _ = profiled(call)
+                runs = repeats + 2
+            delta = collections.Counter(build.launch_counts)
+            delta.subtract(before)
+            per_call = {k: v / runs for k, v in delta.items() if v}
+            outputs[name], latencies[name] = out, ms
+            log(f"sampling: {name}: {'one profiled call' if repeats is None else 'median'}"
+                f" {ms:.3f} ms, {busy_line(acts, ms)}; per call "
+                f"{json.dumps(per_call, sort_keys=True)}; {time.perf_counter() - t0:.3f} s"
+                " in all")
+    sync()
+    launches = dict(build.launch_counts)
+    log(f"sampling: launch counts {json.dumps(launches, sort_keys=True)}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()}; "
+        f"{time.perf_counter() - t_phase:.3f} s for the calls")
+    log("sampling: threefry launch shapes: " + ", ".join(
+        f"{k}x{v}" for k, v in sorted(rec.shapes.items(), key=str)))
+    log(f"sampling: latencies ms {json.dumps(latencies, sort_keys=True)}")
+    assert_launched("sampling", launches, DrawInputs.NAMES + ("segmented_union",))
+    worst = {}
+    for (kname, shape), (args, kwargs) in rec.first.items():
+        exact_check(f"{kname} at {shape}", draw_kernel(kname, args, kwargs),
+                    draw_plain(kname, args, kwargs))
+        worst[kname] = 0
+    log(f"sampling: each threefry kernel equals its plain version at all "
+        f"{len(rec.first)} launch shapes of the phase")
+    sampling_checks(net, layers, sel, ins, list(outputs.values()), seed, device)
+    return {"launches": launches, "heaviest": rec.heaviest, "worst": worst}
+
+
+def sampling_checks(net, layers, sel, ins, outs, seed: int, device) -> None:
+    """The prefix checks against the port's CPU path on a host copy of the
+    network, BFS against a k-hop, sanity of the other outputs, and a small
+    network's BFS and shortest paths against scipy."""
+    from repro_torch.core import analysis, prng, walks
+    from repro_torch.core.traversal import (
+        khop_neighborhood, khop_records, random_walk_batch, walk_keys,
+    )
+
+    import torch
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    host = moved(net, cpu)
+    log(f"sampling: host copy of the network in {time.perf_counter() - t0:.3f} s")
+    s = ins["seeds"]
+    n = net.n_nodes
+    (fleet, one, ns_walk, ns_alters, mean_deg, _, _, mass, dd, dd_sel, dens, proj,
+     dist, hops, n_comp, mem, desc, sub, sym, dich, filt, temporal, twalk) = outs
+    q = PREFIX_STARTS
+    lines = []
+
+    # the 4-layer fleet: layer choices of the first CHOICE_WALKERS walkers on
+    # the card and on the CPU, then the first q starts' rows
+    from repro_torch.core.walks import _layer_logits
+
+    logits = _layer_logits(len(layers), FLEET_WEIGHTS)
+    keys = walk_keys(prng.key(s["fleet"]), FLEET_STEPS)
+    n_walkers = FLEET_STARTS * FLEET_WALKERS
+    card = fleet_choices(keys, logits, n_walkers, device)[:, :CHOICE_WALKERS]
+    host_choice = fleet_choices(keys, logits, CHOICE_WALKERS, cpu)
+    excused = (card != host_choice).any(axis=0)
+    log(f"sampling: layer choices of {CHOICE_WALKERS} fleet walkers x "
+        f"{FLEET_STEPS} steps: {int(excused.sum())} walkers chose otherwise on "
+        f"the card than on the CPU ({int((card != host_choice).sum())} choices)")
+    want = random_walk_batch(host, ins["fleet"][:q], FLEET_STEPS, prng.key(s["fleet"]),
+                             walkers_per_start=FLEET_WALKERS, layer_names=layers,
+                             layer_weights=FLEET_WEIGHTS, node_filter=sel)
+    lines.append(prefix_check("walkbatch 4 layers", fleet[: q * FLEET_WALKERS],
+                              want.numpy(), excused, CHOICE_WALKERS))
+    fl = np.asarray(fleet)
+    if fl.shape != (n_walkers, FLEET_STEPS + 1) or fl.min() < 0 or fl.max() >= n:
+        raise AssertionError(f"walkbatch fleet of shape {fl.shape} out of range")
+    want = random_walk_batch(host, ins["one"][:q], FLEET_STEPS, prng.key(s["one"]),
+                             layer_names=["Households"])
+    lines.append(prefix_check("walkbatch Households", one[:q], want.numpy(),
+                              np.zeros(q, bool), q))
+
+    # neighborhood samples: per seed, its hop-1 and hop-2 samples as one row
+    def seed_rows(hops_, b):
+        return np.concatenate([np.asarray(h.cpu()).reshape(b, -1) for h in hops_], 1)
+
+    # a seed is excused where any of its draws chose another layer on the
+    # card: hop h's draw j belongs to seed j // (fanout[0] * ... * fanout[h])
+    key = prng.key(s["ns_walk"])
+    uniform = _layer_logits(len(layers), None)
+    excused = np.zeros(NS_WALK_SEEDS, bool)
+    width = 1
+    for f in NS_FANOUT:
+        key, k_layer, _ = prng.split(key, 3)
+        width *= f
+        m = NS_WALK_SEEDS * width
+        diff = (fleet_choices([(k_layer, None)], uniform, m, device)[0]
+                != fleet_choices([(k_layer, None)], uniform, m, cpu)[0])
+        excused |= diff.reshape(NS_WALK_SEEDS, width).any(axis=1)
+    want = walks.neighborhood_sample(host, ins["ns_walk"][:q], NS_FANOUT,
+                                     prng.key(s["ns_walk"]), layers)
+    lines.append(prefix_check(
+        "neighborhood_sample walk", seed_rows(ns_walk, NS_WALK_SEEDS)[:q],
+        seed_rows(want, q), excused, NS_WALK_SEEDS))
+    qa = NS_ALTERS_PREFIX
+    want = walks.neighborhood_sample(host, ins["ns_alters"][:qa], NS_FANOUT,
+                                     prng.key(s["ns_alters"]), layers, method="alters")
+    lines.append(prefix_check(
+        "neighborhood_sample alters", seed_rows(ns_alters, NS_ALTERS_SEEDS)[:qa],
+        seed_rows(want, qa), np.zeros(qa, bool), qa))
+
+    # the rest: in range, and against exact host counts
+    bad = []
+    sample = prng.randint(prng.key(s["est"]), (EST_NODES,), 0, n, cpu).numpy()
+    exact = float(host_degrees(host, layers)[sample].mean())
+    if not abs(mean_deg - exact) <= 1e-5 * exact:
+        bad.append(f"estimate_mean_degree {mean_deg} vs {exact}")
+    if not 0.0 <= mass <= 1.0:
+        bad.append(f"estimate_component_mass {mass}")
+    if sum(c for _, c in dd) != n or sum(c for _, c in dd_sel) != sel.count:
+        bad.append("degreedist counts")
+    if not all(0.0 <= d <= 1.0 for d in dens):
+        bad.append(f"getdensity {dens}")
+    if proj.shape != (PROJ_DEGREE_NODES,) or int(proj.min()) < 0:
+        bad.append("projected_degree")
+    if not 1 <= n_comp <= n or mem.total_nbytes != net.nbytes:
+        bad.append(f"countcomponents {n_comp} / memoryreport {mem.total_nbytes}")
+    if desc["n_nodes"] != n or sub.n_nodes != ins["subnet"].count:
+        bad.append("describenet / subnetwork")
+    if sym.directed or dich.n_edges > ins["proc"].n_edges or filt.n_edges > ins["proc"].n_edges:
+        bad.append("processing")
+    if twalk.shape != (TEMPORAL_WALKERS, FLEET_STEPS + 1):
+        bad.append("temporal window walk")
+    # BFS levels against k-hop groups from the same source: all layers at
+    # k=1 (~14,700 nodes: 6 schools of ~2,400), and Households + Random at
+    # k=2 (Workplaces' ~316 alters a node make a 2-hop set of ~10^5, past
+    # any frontier cap); a group as large as the cap would be cut
+    d = dist.cpu().numpy()
+    src = ins["bfs"]
+    for sub_layers, k in ((layers, 1), (["Households", "Random"], 2)):
+        dk = d if k == 1 else analysis.bfs_distances(net, src, sub_layers).cpu().numpy()
+        rec = khop_records([src], *khop_neighborhood(
+            net, [src], k, max_frontier=BFS_CHECK_FRONTIER, layer_names=sub_layers))[0]
+        for h in range(1, k + 1):
+            got = sorted(np.flatnonzero(dk == h).tolist())
+            want_h = [v for v, hh in zip(rec["nodes"], rec["hops"]) if hh == h]
+            if got != want_h or len(want_h) >= BFS_CHECK_FRONTIER:
+                bad.append(f"bfs level {h} ({len(got)} nodes) vs khop over "
+                           f"{sub_layers} ({len(want_h)})")
+            lines.append(f"BFS level {h} over {sub_layers}: {len(got)} nodes, equal "
+                         "to the k-hop group")
+    if hops != (int(d[ins["target"]]) if d[ins["target"]] < 2**31 - 1 else -1):
+        bad.append(f"shortestpath {hops} vs bfs {int(d[ins['target']])}")
+    small_sampling_check(device, seed, bad)
+    if bad:
+        raise AssertionError(f"sampling outputs differ from their references: {bad}")
+    for line in lines:
+        log(f"sampling: {line}")
+    log(f"sampling: BFS levels equal k-hop groups; shortestpath equals the BFS "
+        f"distance; {SMALL_NODES}-node network: BFS distances and shortest paths "
+        f"equal scipy's on the materialized projection; checks "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+def host_degrees(net, layers) -> np.ndarray:
+    from repro_torch.core.analysis import degree_centrality
+
+    return degree_centrality(net, layers).cpu().numpy().astype(np.float64)
+
+
+def small_sampling_check(device, seed: int, bad: list) -> None:
+    """The small network of ``small_projection_check``: BFS distances from
+    32 sources and 16 shortest paths against scipy on the materialized
+    projection."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from repro_torch.core import analysis, api
+    from repro_torch.core.projection import project_two_mode
+
+    net = api.createnetwork(api.createnodeset(SMALL_NODES, device=device))
+    net = api.generate(net, "wk", type="2mode", h=60, a=3, seed=seed + 4)
+    out = project_two_mode(net.layer("wk")).out
+    adj = sp.csr_matrix(
+        (np.ones(out.nnz), out.indices.cpu().numpy().astype(np.int64),
+         out.indptr_host.astype(np.int64)), shape=(SMALL_NODES, SMALL_NODES))
+    rng = np.random.default_rng(seed + 12)
+    src = rng.integers(0, SMALL_NODES, 32)
+    dist = csgraph.shortest_path(adj, unweighted=True, indices=src)
+    for i, s in enumerate(src):
+        got = analysis.bfs_distances(net, int(s)).cpu().numpy()
+        want = np.where(np.isinf(dist[i]), 2**31 - 1, dist[i]).astype(np.int32)
+        if not np.array_equal(got, want):
+            bad.append(f"small/bfs-vs-scipy source {int(s)}")
+            break
+    targets = rng.integers(0, SMALL_NODES, 16)
+    for i, t in enumerate(targets):
+        want = -1 if np.isinf(dist[i][t]) else int(dist[i][t])
+        if api.shortestpath(net, int(src[i]), int(t)) != want:
+            bad.append(f"small/shortestpath-vs-scipy {int(src[i])} -> {int(t)}")
+            break
+
+
+def draw_timing(sampling: dict) -> list:
+    """The threefry kernels at the sampling phase's heaviest launch of each:
+    ``threefry_bits`` and ``randint`` by ``kernel_record`` (bound: the
+    output bytes or the hashes' integer operations, the larger);
+    ``csr_row_sample`` cold (the rows lie at random in a layer larger than
+    the L2), CUDA events with the L2 flushed before each launch, its bytes
+    bound with the same reads in 32-byte sectors beside it."""
+    records = []
+    launches, worst = sampling["launches"], sampling["worst"]
+    for name, ops_per, replaces in (
+        ("threefry_bits", HASH_OPS,
+         "none: XLA fuses jax.random's threefry2x32 on the TPU (the layer "
+         "choice, src/repro/core/traversal.py:369)"),
+        ("randint", RANDINT_OPS,
+         "none: XLA fuses jax.random.randint on the TPU "
+         "(src/repro/core/estimators.py:48)"),
+    ):
+        _, args, kwargs = sampling["heaviest"][name]
+        n = int(args[1] if name == "threefry_bits" else args[4])
+        kernel = lambda a=args, k=kwargs, nm=name: draw_kernel(nm, a, k)  # noqa: E731
+        plain = lambda a=args, k=kwargs, nm=name: draw_plain(nm, a, k)  # noqa: E731
+        err = draw_err(kernel(), plain())
+        records.append(kernel_record(
+            name, (f"{name}_kernel",), "src/repro_torch/csrc/threefry.cu", replaces,
+            launches.get(name, 0), max(err, worst.get(name, 0)), kernel, plain, 50,
+            draw_bytes(name, args, kwargs), n * ops_per,
+            f"{draw_shape(name, args, kwargs)} (the sampling phase's heaviest)",
+            library_none="no torch call draws threefry bits (torch's generators "
+                         "are Philox)",
+        ))
+    _, args, kwargs = sampling["heaviest"]["csr_row_sample"]
+    kernel = lambda: draw_kernel("csr_row_sample", args, kwargs)  # noqa: E731
+    plain = lambda: draw_plain("csr_row_sample", args, kwargs)  # noqa: E731
+    err = max(draw_err(kernel(), plain()), worst.get("csr_row_sample", 0))
+    ms = cold_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 5)
+    nbytes = draw_bytes("csr_row_sample", args, kwargs)
+    n = args[2].numel()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * RANDINT_OPS / SCALAR_OPS_PER_S * 1e3
+    sectors = draw_sector_bytes(args, kwargs)
+    rec = {
+        "name": "csr_row_sample", "route": "cuda",
+        "source": "src/repro_torch/csrc/threefry.cu",
+        "replaces": "none: XLA fuses csr_row_sample's gathers and draw on the TPU "
+                    "(src/repro/core/csr.py:538)",
+        "launches": int(launches.get("csr_row_sample", 0)),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "shape": f"{draw_shape('csr_row_sample', args, kwargs)} (the sampling "
+                 "phase's heaviest)",
+        "ms_from": "cuda events, cold: L2 flushed before each launch",
+    }
+    log(f"timing: csr_row_sample at {rec['shape']}: kernel {ms:.4f} ms cold, "
+        f"{ms / rec['bound_ms']:.2f}x its bound {rec['bound_ms']:.4f} ms ({nbytes} "
+        f"bytes, operations {ops_ms:.4f} ms; the same reads in whole 32-byte sectors "
+        f"{sectors} bytes, {sectors / HBM_BYTES_PER_S * 1e3:.4f} ms); plain "
+        f"{plain_ms:.4f} ms; no library call (no torch call draws a threefry row "
+        f"sample); {rec['launches']} launches in its phase; {device_line(CLOCK_FIELDS)}")
+    records.append(check_readings(rec))
+    return records
+
+
 class KernelInputs:
     """Within the block, keeps a copy of the inputs of the first launch of
     every distinct shape of each LM kernel, under ``label``, so the checks
@@ -2092,9 +2863,10 @@ def run() -> int:
     phase_oracle(net, panel["net"], median_income, SEED, device)
     phase_hubs(net, median_income, device)
     traversal = phase_traversal(net, median_income, SEED, device)
+    sampling = phase_sampling(net, median_income, SEED, device)
     lm = phase_lm(device, SEED)
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
-                           panel, traversal, lm, device)
+                           panel, traversal, sampling, lm, device)
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""repro_torch.core — network storage and the point-query path in PyTorch."""
+"""repro_torch.core — network storage, queries, traversal, sampling and
+analysis in PyTorch."""
 
 from .csr import (
     CSR,
@@ -14,6 +15,8 @@ from .csr import (
 from .layers import (
     LayerOneMode,
     LayerTwoMode,
+    compact_layer,
+    has_overlay,
     one_mode_from_edge_chunks,
     one_mode_from_edges,
     two_mode_empty,
@@ -34,11 +37,32 @@ from .generators import (
     random_two_mode,
     watts_strogatz,
 )
-from .projection import project_two_mode
+from .analysis import (
+    bfs_distances,
+    connected_components,
+    degree_centrality,
+    degree_distribution,
+    density,
+    projected_degree,
+    shortest_path_length,
+)
+from .processing import (
+    dichotomize,
+    filter_edges,
+    induced_subnetwork,
+    subgraph_layer,
+    symmetrize,
+)
+from .projection import project_two_mode, projection_nbytes
+from .request import QueryRequest, merge_filter_kwargs, run_queries, run_query
 from .traversal import (
     components_batched,
     ego_batch,
     khop_neighborhood,
     khop_records,
+    random_walk_batch,
 )
+from .walks import ego_sample, neighborhood_sample, random_walk
+from .memory import memory_report, peak_rss, resident_rss
+from .temporal import TemporalNetwork
 from .convert import network_from_arrays

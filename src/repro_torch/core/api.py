@@ -1,5 +1,7 @@
 """Script-style API mirroring the paper's command set: the point queries,
-batched traversal (``khop``, ``egosample``) and component counts.
+batched traversal (``khop``, ``egosample``), walk fleets and node samples,
+degree, density, path, component and memory reports, attributes, layers
+and subnetworks.
 
     nodes = createnodeset(createnodes=10_000_000)       # on the CUDA card
     net   = createnetwork(nodeset=nodes)
@@ -20,19 +22,34 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .analysis import (
+    attribute_summary,
+    connected_components,
+    degree_distribution,
+    density as layer_density,
+    shortest_path_length,
+)
 from .csr import SENTINEL
 from .generators import barabasi_albert, erdos_renyi, random_two_mode, watts_strogatz
-from .layers import one_mode_from_edges, two_mode_empty
+from .layers import LayerTwoMode, one_mode_from_edges, two_mode_empty
+from .memory import memory_report
 from .network import Network, create_network
 from .nodeset import NodeSelection, Nodeset, create_nodeset
+from .processing import induced_subnetwork
 from .request import QueryRequest, merge_filter_kwargs, run_queries, run_query
-from .traversal import components_batched
 
 __all__ = [
     "createnodeset", "createnetwork", "addlayer", "generate",
-    "checkedge", "getedge", "getnodealters", "getdegree",
-    "setnodeattr", "selectnodes",
-    "khop", "egosample", "countcomponents", "componentsfast",
+    "checkedge", "getedge", "getnodealters", "shortestpath", "memoryreport",
+    # attribute manager + selections
+    "setnodeattr", "getnodeattr", "dropattr", "listattrs", "selectnodes",
+    "countnodes", "attributesummary",
+    # degree / structure queries
+    "getdegree", "degreedist", "getdensity", "countcomponents",
+    # batched traversal and sampling
+    "khop", "egosample", "walkbatch", "componentsfast", "samplenodes",
+    # container surface
+    "listlayers", "deletelayer", "describenet", "subnetwork",
 ]
 
 
@@ -162,20 +179,40 @@ def getdegree(
     return np.asarray(out)
 
 
+def shortestpath(
+    net: Network, u: int, v: int, layernames: Sequence[str] | None = None
+) -> int:
+    return shortest_path_length(net, u, v, layernames)
+
+
+def memoryreport(net: Network):
+    return memory_report(net)
+
+
+def degreedist(
+    net: Network, layernames: Sequence[str] | None = None, filter=None,
+    node_filter=None,
+) -> list[list[int]]:
+    """Degree histogram -> [[degree, count], ...] ascending (CLI table).
+    (``node_filter=`` is a deprecated alias for ``filter=``.)"""
+    filter = merge_filter_kwargs(filter, node_filter)
+    degs, counts = degree_distribution(net, layernames, node_filter=filter)
+    return [[int(d), int(c)] for d, c in zip(degs, counts)]
+
+
+def getdensity(net: Network, layer: str) -> float:
+    return layer_density(net.layer(layer))
+
+
 def countcomponents(
     net: Network, layernames: Sequence[str] | None = None, filter=None,
     node_filter=None,
 ) -> int:
     """Component count; ``filter`` restricts to the induced selection
     (filtered-out nodes count as singletons). (``node_filter=`` is a
-    deprecated alias.)
-
-    The JAX package goes through ``analysis.connected_components``, which
-    only delegates to ``components_batched``; ``analysis.py`` is not
-    ported yet (ROADMAP Queue 1 item 7), so this calls it directly.
-    """
+    deprecated alias.)"""
     filter = merge_filter_kwargs(filter, node_filter)
-    labels = components_batched(net, layernames, node_filter=filter)
+    labels = connected_components(net, layernames, node_filter=filter)
     return int(torch.unique(labels).numel())
 
 
@@ -230,6 +267,45 @@ def egosample(
     )
     vals, mask = vals.cpu().numpy(), mask.cpu().numpy()
     return [vals[i][mask[i]].tolist() for i in range(ids.size)]
+
+
+def walkbatch(
+    net: Network, starts, steps: int, walkers: int = 1, seed: int = 0,
+    layernames: Sequence[str] | None = None,
+    layer_weights: Sequence[float] | None = None, filter=None,
+    node_filter=None,
+) -> list[list[int]]:
+    """CLI ``walkbatch``: a walk fleet — ``walkers`` walkers per start
+    node, one path row each (see traversal.random_walk_batch), drawn from
+    ``prng.key(seed)``. Routed through :class:`QueryRequest`.
+    (``node_filter=`` is a deprecated alias.)"""
+    filter = merge_filter_kwargs(filter, node_filter)
+    ids = np.atleast_1d(np.asarray(starts, np.int64))
+    layers = None if layernames is None else list(layernames)
+    paths = run_query(net, QueryRequest.walkbatch(
+        [int(s) for s in ids], int(steps), walkers=int(walkers),
+        seed=int(seed), layers=layers,
+        layer_weights=None if layer_weights is None else list(layer_weights),
+        filter=filter,
+    ))
+    return np.asarray(paths).tolist()
+
+
+def samplenodes(
+    net: Network, n: int, seed: int = 0,
+    selection: NodeSelection | None = None,
+) -> np.ndarray:
+    """Uniform node-id sample (without replacement when possible); with
+    ``selection``, samples only selected nodes. Host numpy, as in the JAX
+    package (``np.random.default_rng(seed)``)."""
+    rng = np.random.default_rng(seed)
+    pool = selection.ids() if selection is not None else net.n_nodes
+    pool_size = len(pool) if selection is not None else pool
+    n = int(n)
+    if pool_size == 0:
+        return np.zeros(0, np.int64)
+    replace = n > pool_size
+    return np.sort(rng.choice(pool, size=n, replace=replace).astype(np.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +367,91 @@ def setnodeattr(
     return net.with_nodeset(ns.set_attr(name, kind, ids, vals))
 
 
+def getnodeattr(net: Network, name: str, nodes):
+    """CLI ``getattr`` -> (values, has_mask) numpy arrays."""
+    vals, has = net.nodeset.get_attr(name, net._batch(np.atleast_1d(nodes)))
+    return vals.cpu().numpy(), has.cpu().numpy()
+
+
+def dropattr(net: Network, name: str) -> Network:
+    return net.with_nodeset(net.nodeset.drop_attr(name))
+
+
+def listattrs(net: Network) -> list[dict]:
+    return [
+        {"name": n, "kind": c.kind, "n_set": c.n_set}
+        for n, c in zip(net.nodeset.attrs.names, net.nodeset.attrs.columns)
+    ]
+
+
 def selectnodes(net: Network, name: str, op: str, value=None) -> NodeSelection:
     """Vectorized attribute predicate -> NodeSelection."""
     return net.nodeset.select(name, op, value)
+
+
+def countnodes(net: Network, selection: NodeSelection | None = None) -> int:
+    if selection is None:
+        return net.n_nodes
+    return selection.count
+
+
+def attributesummary(net: Network, name: str) -> dict:
+    return attribute_summary(net, name)
+
+
+# ---------------------------------------------------------------------------
+# Container surface
+# ---------------------------------------------------------------------------
+
+
+def listlayers(net: Network) -> list[dict]:
+    return [
+        {
+            "name": name,
+            "mode": layer.mode,
+            "edges": (
+                layer.n_memberships if isinstance(layer, LayerTwoMode)
+                else layer.n_edges
+            ),
+        }
+        for name, layer in zip(net.layer_names, net.layers)
+    ]
+
+
+def deletelayer(net: Network, name: str) -> Network:
+    return net.without_layer(name)
+
+
+def describenet(net: Network) -> dict:
+    """One-call structural summary (CLI ``describenet``); bytes are the
+    tensors' bytes, wherever they lie."""
+    return {
+        "n_nodes": net.n_nodes,
+        "n_layers": len(net.layers),
+        "total_bytes": net.nbytes,
+        "layers": [
+            {
+                "name": name,
+                "mode": layer.mode,
+                "bytes": layer.nbytes,
+                **(
+                    {
+                        "memberships": layer.n_memberships,
+                        "hyperedges": layer.n_hyperedges,
+                        "equivalent_projected_edges":
+                            layer.equivalent_projected_edges(),
+                    }
+                    if isinstance(layer, LayerTwoMode)
+                    else {"edges": layer.n_edges, "directed": layer.directed}
+                ),
+            }
+            for name, layer in zip(net.layer_names, net.layers)
+        ],
+        "attrs": listattrs(net),
+    }
+
+
+def subnetwork(net: Network, selection) -> Network:
+    """CLI ``subnetwork``: induced subgraph over a NodeSelection, with
+    compacted node ids and an ``orig_id`` attribute back-reference."""
+    return induced_subnetwork(net, selection)

@@ -594,6 +594,23 @@ def csr_row_gather(
     return torch.where(valid, vals, fill), valid
 
 
+def csr_row_sample(
+    csr: CSR, rows: torch.Tensor, key
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uniformly sample one column from each queried row (``key``: a
+    ``core/prng.py`` key).
+
+    Returns (samples int32, valid bool) shaped like ``rows``; an empty row
+    returns the queried row's own id, invalid, so callers can 'stay in
+    place'. The draw is ``randint(key, rows.shape, 0, max(length, 1))``,
+    bit for bit the JAX package's; on the card one launch of the threefry
+    row-sample kernel (``overlay.eff_row_sample`` without an overlay).
+    """
+    from repro_torch.core.overlay import eff_row_sample
+
+    return eff_row_sample(csr, None, rows, key)
+
+
 def sorted_isin(
     a: torch.Tensor, a_valid: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor
 ) -> torch.Tensor:

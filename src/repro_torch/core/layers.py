@@ -19,7 +19,7 @@ Builders run on the host (numpy) and upload the finished CSRs.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -41,12 +41,14 @@ from .csr import (
 from .overlay import (
     DeltaOverlay,
     eff_contains,
+    eff_coo,
     eff_degrees,
     eff_host_degree_table,
     eff_max_degree,
     eff_n_rows,
     eff_nnz,
     eff_row_gather,
+    eff_row_sample,
     eff_value_at,
 )
 
@@ -58,6 +60,8 @@ __all__ = [
     "two_mode_from_memberships",
     "two_mode_from_membership_chunks",
     "two_mode_empty",
+    "has_overlay",
+    "compact_layer",
 ]
 
 _SENT = int(SENTINEL)
@@ -162,6 +166,12 @@ class LayerOneMode:
             )
         return take_clip(per_node, u)
 
+    def sample_neighbor(
+        self, u: torch.Tensor, key
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Uniform random out-neighbor per query node (random walk step)."""
+        return eff_row_sample(self.out, self.out_ov, u, key)
+
     def degrees(self) -> torch.Tensor:
         return eff_degrees(self.out, self.out_ov)
 
@@ -187,6 +197,10 @@ class LayerOneMode:
         if self.in_ is not None:
             n += self.in_.nbytes + _ov_nbytes(self.in_ov)
         return n
+
+    def drop_inbound(self) -> "LayerOneMode":
+        """Disable inbound storage, ~halving a directed layer's memory."""
+        return replace(self, in_=None, in_ov=None, store_inbound=False)
 
 
 def one_mode_from_edges(
@@ -433,6 +447,29 @@ class LayerTwoMode:
         _, mask = self.node_alters_padded(u, bound, node_filter=node_filter)
         return mask.sum(dim=-1).to(torch.int32)
 
+    def sample_neighbor(
+        self, u: torch.Tensor, key
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Pseudo-projected walk step without computing alters.
+
+        Sample a hyperedge h uniformly from u's memberships, then a member v
+        of h uniformly: a draw from the projected neighborhood with weight
+        ∝ Σ_{shared h} 1/k_h, in O(1). A self-draw (v == u) is resampled
+        once, then kept as 'stay'. Three row samples over the three keys of
+        ``split(key, 3)``, as in the JAX package.
+        """
+        from . import prng
+
+        k1, k2, k3 = prng.split(key, 3)
+        he, he_valid = eff_row_sample(self.memb, self.memb_ov, u, k1)
+        he = torch.where(he_valid, he, 0)
+        v, m_valid = eff_row_sample(self.members, self.members_ov, he, k2)
+        # one resample round for self-draws
+        v2, _ = eff_row_sample(self.members, self.members_ov, he, k3)
+        v = torch.where(v == u, v2, v)
+        valid = he_valid & m_valid
+        return torch.where(valid, v, u.to(torch.int32)), valid
+
     def degrees(self) -> torch.Tensor:
         """Membership counts per node (bipartite degree, not projected)."""
         return eff_degrees(self.memb, self.memb_ov)
@@ -500,4 +537,43 @@ def two_mode_empty(n_nodes: int, n_hyperedges: int, device=None) -> LayerTwoMode
         members=csr_empty(n_hyperedges, n_nodes, device=device),
         max_memberships=1,
         max_hyperedge_size=1,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Overlay folding (read side: analysis expands raw CSR buffers)
+# ---------------------------------------------------------------------------
+
+
+def has_overlay(layer) -> bool:
+    """True when the layer carries uncompacted delta state."""
+    if isinstance(layer, LayerTwoMode):
+        return layer.memb_ov is not None or layer.members_ov is not None
+    return layer.out_ov is not None or layer.in_ov is not None
+
+
+def compact_layer(layer):
+    """Fold the delta overlay into a fresh base CSR (bit-identical).
+
+    The effective edge set goes back through the standard builders, so
+    the result is exactly the layer a from-scratch construction of the
+    same edges would produce, on the layer's device.
+    """
+    if not has_overlay(layer):
+        return layer
+    if isinstance(layer, LayerTwoMode):
+        rows, cols, _ = eff_coo(layer.memb, layer.memb_ov)
+        return two_mode_from_memberships(
+            layer.n_nodes, layer.n_hyperedges, rows, cols,
+            device=layer.memb.device,
+        )
+    rows, cols, vals = eff_coo(layer.out, layer.out_ov)
+    if not layer.directed:
+        keep = rows <= cols  # each undirected edge stored in both rows
+        rows, cols = rows[keep], cols[keep]
+        vals = None if vals is None else vals[keep]
+    return one_mode_from_edges(
+        layer.n_nodes, rows, cols, values=vals, directed=layer.directed,
+        allow_self=layer.allow_self, store_inbound=layer.store_inbound,
+        device=layer.out.device,
     )

@@ -65,6 +65,14 @@ class Network:
             layer_names=self.layer_names + (name,),
         )
 
+    def without_layer(self, name: str) -> "Network":
+        i = self.layer_names.index(name)
+        return Network(
+            nodeset=self.nodeset,
+            layers=self.layers[:i] + self.layers[i + 1 :],
+            layer_names=self.layer_names[:i] + self.layer_names[i + 1 :],
+        )
+
     def with_nodeset(self, nodeset: Nodeset) -> "Network":
         """Swap the nodeset (attribute mutations rebind functionally)."""
         if nodeset.n_nodes != self.n_nodes:

@@ -191,6 +191,13 @@ class AttributeStore:
             columns=self.columns + (col,), names=self.names + (name,)
         )
 
+    def without_column(self, name: str) -> "AttributeStore":
+        i = self.names.index(name)
+        return AttributeStore(
+            columns=self.columns[:i] + self.columns[i + 1 :],
+            names=self.names[:i] + self.names[i + 1 :],
+        )
+
 
 def empty_attrs() -> AttributeStore:
     return AttributeStore(columns=(), names=())
@@ -223,6 +230,12 @@ class Nodeset:
             device=self.device,
         )
 
+    def drop_attr(self, name: str) -> "Nodeset":
+        return Nodeset(
+            attrs=self.attrs.without_column(name), n_nodes=self.n_nodes,
+            device=self.device,
+        )
+
     def select(self, name: str, op: str, value=None) -> NodeSelection:
         """Vectorized attribute predicate -> NodeSelection.
 
@@ -246,6 +259,9 @@ class Nodeset:
         hit = _OPS[canon](vals, _coerce_value(col.kind, value))
         mask[ids[hit]] = True
         return NodeSelection(mask)
+
+    def select_ids(self, name: str, op: str, value=None) -> np.ndarray:
+        return self.select(name, op, value).ids()
 
 
 def _coerce_value(kind: str, value):

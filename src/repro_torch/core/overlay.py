@@ -41,6 +41,7 @@ __all__ = [
     "eff_contains",
     "eff_value_at",
     "eff_row_gather",
+    "eff_row_sample",
     "eff_row_lengths",
     "eff_degrees",
     "eff_max_degree",
@@ -129,6 +130,20 @@ def eff_row_gather(
     vd, md = csr_row_gather(ov.delta, rows, max_len, **kw)
     d = take_clip(ov.dirty, rows)[..., None]
     return torch.where(d, vd, vb), torch.where(d, md, mb)
+
+
+def eff_row_sample(
+    base: CSR, ov: DeltaOverlay | None, rows: torch.Tensor, key
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row uniform sample with the overlay merged, bit-identical to
+    sampling the rebuilt CSR: the draw has per-element bounds, so a dirty
+    row's delta branch sees exactly the rebuilt row's length, and both
+    branches consume the same key. One launch on the card."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops as kops
+
+    k1, k2 = prng.split(key)
+    return kops.csr_row_sample(base, ov, rows, k1, k2)
 
 
 def eff_row_lengths(

@@ -10,9 +10,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from .layers import LayerOneMode, LayerTwoMode, one_mode_from_edges
+from .layers import (
+    LayerOneMode, LayerTwoMode, compact_layer, has_overlay,
+    one_mode_from_edges,
+)
 
-__all__ = ["project_two_mode"]
+__all__ = ["project_two_mode", "projection_nbytes"]
 
 
 def project_two_mode(
@@ -20,8 +23,8 @@ def project_two_mode(
 ) -> LayerOneMode:
     """Materialize the one-mode projection (values = shared-hyperedge counts).
 
-    Refuses projections above ``max_edges`` expanded pairs, and layers
-    carrying a live overlay (folding one in is mutation, not yet ported).
+    Refuses projections above ``max_edges`` expanded pairs; a layer with
+    a live overlay is folded first (``compact_layer``).
     """
     eq = layer.equivalent_projected_edges()
     if eq > max_edges:
@@ -29,8 +32,8 @@ def project_two_mode(
             f"projection would materialize {eq:,} edges; "
             "use pseudo-projection queries instead"
         )
-    if layer.memb_ov is not None or layer.members_ov is not None:
-        raise ValueError("project_two_mode needs a layer without an overlay")
+    if has_overlay(layer):
+        layer = compact_layer(layer)
     device = layer.memb.device
     indptr = layer.members.indptr_host
     members = layer.members.indices.cpu().numpy()
@@ -53,3 +56,8 @@ def project_two_mode(
         layer.n_nodes, src, dst, values=vals,
         directed=False, sum_duplicates=True, device=device,
     )
+
+
+def projection_nbytes(layer: LayerTwoMode, bytes_per_edge: int = 8) -> int:
+    """Memory the materialized projection would need (paper Eq. 1 costing)."""
+    return layer.equivalent_projected_edges() * bytes_per_edge

@@ -1,18 +1,21 @@
-"""QueryRequest — the query-description currency, point kinds.
+"""QueryRequest — the query-description currency.
 
 The wire/trace schema maps 1:1 onto the fields:
 
-    {"kind": "getedge", "layer": L, "u": i, "v": j}
-    {"kind": "alters",  "u": i [, "layers": [...]] [, "max_alters": m]}
-    {"kind": "degree",  "u": i|[ids] [, "layers": [...]]}
-    {"kind": "khop",    "sources": [ids], "k": k [, "layers": [...]]
-                        [, "max_frontier": f]}
+    {"kind": "getedge",   "layer": L, "u": i, "v": j}
+    {"kind": "alters",    "u": i [, "layers": [...]] [, "max_alters": m]}
+    {"kind": "degree",    "u": i|[ids] [, "layers": [...]]}
+    {"kind": "khop",      "sources": [ids], "k": k [, "layers": [...]]
+                          [, "max_frontier": f]}
+    {"kind": "walkbatch", "starts": i|[ids], "steps": n [, "walkers": w]
+                          [, "seed": s] [, "layers": [...]]
+                          [, "layer_weights": [...]]}
 
 plus an optional ``"filter"``: a NodeSelection, a bool mask, or a spec
 ``{"attr": a, "op": eq|ne|lt|le|gt|ge|has [, "value": v]}`` resolved
 against the network's attribute store, and an optional ``"timeout"``.
-The ``walkbatch`` kind is part of the schema but not of this port yet:
-canonicalizing one raises ``NotImplementedError``.
+A ``walkbatch`` draws from ``core/prng.py``'s ``key(seed)``, so its paths
+equal the JAX package's for the same request.
 
 :func:`run_query` executes one request; :func:`run_queries` a batch,
 grouped so requests sharing kind, static arguments and filter run as one
@@ -46,11 +49,6 @@ __all__ = [
 POINT_KINDS = ("getedge", "alters", "degree")
 HEAVY_KINDS = ("khop", "walkbatch")
 REQUEST_KINDS = POINT_KINDS + HEAVY_KINDS
-
-# Where each unported kind waits (ROADMAP.md, Queue 1).
-_NOT_PORTED = {
-    "walkbatch": "ROADMAP Queue 1 item 7 (walks and the RNG contract)",
-}
 
 _DEFAULT_MAX_ALTERS = 4096
 
@@ -136,6 +134,15 @@ class QueryRequest:
              filter=None, timeout=None):
         return cls(kind="khop", sources=sources, k=k, layers=layers,
                    max_frontier=max_frontier, filter=filter,
+                   timeout=timeout)
+
+    @classmethod
+    def walkbatch(cls, starts, steps, *, walkers=None, seed=None,
+                  layers=None, layer_weights=None, filter=None,
+                  timeout=None):
+        return cls(kind="walkbatch", starts=starts, steps=steps,
+                   walkers=walkers, seed=seed, layers=layers,
+                   layer_weights=layer_weights, filter=filter,
                    timeout=timeout)
 
     def to_dict(self) -> dict:
@@ -235,18 +242,13 @@ def canonical_request(net, req, *, _filter_memo: dict | None = None
                       ) -> CanonicalRequest:
     """Validate + canonicalize one request (dict or QueryRequest).
 
-    Raises ``ValueError`` / ``KeyError`` on malformed requests and
-    ``NotImplementedError`` for the kinds this port does not run yet.
+    Raises ``ValueError`` / ``KeyError`` on malformed requests.
     """
     q = QueryRequest.from_any(req)
     kind = str(q.kind)
     if kind not in REQUEST_KINDS:
         raise ValueError(
             f"unknown request kind {kind!r}; have {REQUEST_KINDS}"
-        )
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"request kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}"
         )
     mask, fp = _resolve_filter(net, q.filter, _filter_memo)
 
@@ -272,15 +274,32 @@ def canonical_request(net, req, *, _filter_memo: dict | None = None
         gk = (kind, layers, fp)
         return CanonicalRequest(kind, gk, gk + (u,), u, (), mask)
 
-    # khop
+    if kind == "khop":
+        layers = _canon_layers(net, q.layers)
+        k = int(_need(q.k, "k"))
+        if k < 0:
+            raise ValueError(f"k must be >= 0, got {k}")
+        mf = None if q.max_frontier is None else int(q.max_frontier)
+        src = _canon_ids(_need(q.sources, "sources"), what="sources")
+        gk = (kind, layers, k, mf, fp)
+        return CanonicalRequest(kind, gk, gk + (src,), src, (), mask)
+
+    # walkbatch: the draws couple rows across a batch, so each distinct
+    # request is its own dispatch group
     layers = _canon_layers(net, q.layers)
-    k = int(_need(q.k, "k"))
-    if k < 0:
-        raise ValueError(f"k must be >= 0, got {k}")
-    mf = None if q.max_frontier is None else int(q.max_frontier)
-    src = _canon_ids(_need(q.sources, "sources"), what="sources")
-    gk = (kind, layers, k, mf, fp)
-    return CanonicalRequest(kind, gk, gk + (src,), src, (), mask)
+    steps = int(_need(q.steps, "steps"))
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    walkers = 1 if q.walkers is None else int(q.walkers)
+    seed = 0 if q.seed is None else int(q.seed)
+    weights = q.layer_weights
+    weights = (
+        None if weights is None
+        else tuple(float(w) for w in np.atleast_1d(weights))
+    )
+    starts = _canon_ids(_need(q.starts, "starts"), what="starts")
+    gk = (kind, layers, steps, walkers, seed, weights, fp, starts)
+    return CanonicalRequest(kind, gk, gk, starts, (), mask)
 
 
 # ---------------------------------------------------------------------------
@@ -339,11 +358,25 @@ def _exec_khop(net, group_key, creqs):
     return res
 
 
+def _exec_walkbatch(net, group_key, creqs):
+    from . import prng
+    from .traversal import random_walk_batch
+
+    _, layers, steps, walkers, seed, weights, _, starts = group_key
+    paths = random_walk_batch(
+        net, np.asarray(starts, np.int32), steps, prng.key(seed),
+        walkers_per_start=walkers, layer_names=layers,
+        layer_weights=weights, node_filter=creqs[0].mask,
+    )
+    return [paths.cpu().numpy()] * len(creqs)
+
+
 _EXECUTORS = {
     "getedge": _exec_getedge,
     "alters": _exec_alters,
     "degree": _exec_degree,
     "khop": _exec_khop,
+    "walkbatch": _exec_walkbatch,
 }
 
 

@@ -12,13 +12,16 @@ threadleR's traversal-based analyses: thousands of sources per call.
   card): the sorted first occurrence of every candidate not yet visited.
 * ``khop_records`` — the client-facing record per source.
 * ``ego_batch`` — batched ego networks: sorted-unique k-hop alters.
+* ``random_walk_batch`` — walk fleets: W walkers per start, one host loop
+  over steps; each step's keys are split on the host and its row samples
+  run in the threefry row-sample kernel, so paths equal the JAX package's
+  bit for bit for the same key.
 * ``components_batched`` — min-label propagation with pointer jumping;
   two-mode layers propagate through hyperedge labels without projecting.
 
 PyTorch runs eagerly, so every source batch is concrete: per-node gather
 widths come from exact host bounds (``dispatch.alters_bound``) unless the
-caller passes ``max_alters_per_node``. ``random_walk_batch`` is not ported
-yet and raises.
+caller passes ``max_alters_per_node``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from . import dispatch
+from . import dispatch, prng
 from .csr import SENTINEL, take_clip, to_numpy
 from .layers import LayerTwoMode
 from .overlay import eff_edge_stream, eff_nnz
@@ -261,12 +264,69 @@ def ego_batch(
     )
 
 
-def random_walk_batch(*args, **kwargs):
-    """Walk fleets are not ported yet: they wait for the RNG contract."""
-    raise NotImplementedError(
-        "random_walk_batch is not ported yet: ROADMAP Queue 1 item 7 "
-        "(walks and the RNG contract)"
-    )
+def walk_keys(key, n_steps: int) -> list[tuple[prng.Key, prng.Key]]:
+    """The (layer-choice, step) keys of each of ``n_steps`` walk steps:
+    the JAX scan's ``kk, k_layer, k_step = split(kk, 3)``, on the host."""
+    out = []
+    for _ in range(n_steps):
+        key, k_layer, k_step = prng.split(key, 3)
+        out.append((k_layer, k_step))
+    return out
+
+
+def random_walk_batch(
+    net,
+    start_nodes,
+    n_steps: int,
+    key,
+    *,
+    walkers_per_start: int = 1,
+    layer_names: Sequence[str] | None = None,
+    layer_weights: Sequence[float] | None = None,
+    node_filter=None,
+) -> torch.Tensor:
+    """Walk fleet -> int32[B * walkers_per_start, n_steps + 1].
+
+    Walker w of start b is row ``b * walkers_per_start + w``; all walkers
+    advance together, one step per pass of a host loop (the JAX package's
+    ``lax.scan``) with the step's keys split on the host (``walk_keys``).
+    Each walker picks a layer per step from the normalized
+    ``layer_weights`` (``prng.categorical``), every selected layer takes a
+    step under its own key of ``split(k_step, n_layers)`` and the chosen
+    layer's step is kept. ``node_filter`` rejects moves into filtered-out
+    nodes (the walker stays put, as at a dangling node). Start nodes are
+    emitted as they are, even when they fail the filter. ``key`` is a
+    ``core/prng.py`` key; paths equal the JAX package's for the same key.
+    """
+    from .walks import _layer_logits
+
+    layers = net._select(layer_names)
+    logits = _layer_logits(len(layers), layer_weights).to(net.device)
+    nf = net._filter(node_filter)
+    if walkers_per_start < 1:
+        raise ValueError(
+            f"walkers_per_start must be >= 1, got {walkers_per_start}"
+        )
+    start = torch.repeat_interleave(net._batch(start_nodes), walkers_per_start)
+    path = torch.empty((n_steps + 1, start.shape[0]), dtype=torch.int32,
+                       device=net.device)
+    path[0] = start
+    u = start
+    for t, (k_layer, k_step) in enumerate(walk_keys(key, n_steps)):
+        if len(layers) == 1:
+            v = layers[0].sample_neighbor(u, k_step)[0]
+        else:
+            choice = prng.categorical(k_layer, logits, u.shape)
+            keys = prng.split(k_step, len(layers))
+            candidates = torch.stack(
+                [layer.sample_neighbor(u, kx)[0] for layer, kx in zip(layers, keys)]
+            )
+            v = torch.gather(candidates, 0, choice[None].long())[0]
+        if nf is not None:
+            v = torch.where(take_clip(nf, v), v, u)
+        path[t + 1] = v
+        u = v
+    return path.T.contiguous()
 
 
 def components_batched(

@@ -1,9 +1,10 @@
 """Public wrappers around the hand-written CUDA kernels.
 
 On a CUDA tensor each op launches its kernel (``kernels/intersect.py``,
-``kernels/segmented_union.py``, ``kernels/frontier.py``, and for the LM
-stack ``kernels/rmsnorm.py``, ``kernels/flash_attention.py``,
-``kernels/ssd_scan.py``); on a CPU tensor it runs the plain torch version
+``kernels/segmented_union.py``, ``kernels/frontier.py``, the sampling
+path's ``kernels/threefry.py``, and for the LM stack ``kernels/rmsnorm.py``,
+``kernels/flash_attention.py``, ``kernels/ssd_scan.py``); on a CPU tensor
+(or, for the draws, a CPU device) it runs the plain torch version
 from ``kernels/ref.py``. The choice is made by the device of the
 tensors given, never by catching a failure: a CUDA tensor that the kernel
 refuses raises.
@@ -30,6 +31,7 @@ from .segmented_union import (
     union_tiles_cuda,
 )
 from .ssd_scan import ssd_scan_cuda
+from .threefry import csr_row_sample_cuda, randint_cuda, threefry_bits_cuda
 
 _SENT = int(SENTINEL)
 
@@ -72,6 +74,42 @@ def pseudo_edge_value(layer, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     a = torch.where(am, a, _SENT)
     b = torch.where(bm, b, _SENT)
     return intersect_count(a, b).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# threefry draws (core/prng.py, row samples of the walk step)
+# ---------------------------------------------------------------------------
+
+
+def threefry_bits(key, n: int, device: torch.device) -> torch.Tensor:
+    """Element i < n of ``jax.random.bits(key, (n,))`` -> int32[n] (the
+    uint32 bits) on ``device``."""
+    if device.type == "cuda":
+        return threefry_bits_cuda(key, n, device)
+    return ref.threefry_bits_ref(key, n, device)
+
+
+def randint(k1, k2, lo, hi, n: int, device: torch.device) -> torch.Tensor:
+    """``jax.random.randint``'s int32 draw of n elements over the subkeys
+    k1, k2 of ``split(key)``; ``lo`` / ``hi`` ints or int32[n] tensors."""
+    if device.type == "cuda":
+        return randint_cuda(k1, k2, lo, hi, n, device)
+    return ref.randint_ref(k1, k2, lo, hi, n, device)
+
+
+def csr_row_sample(base, ov, rows: torch.Tensor, k1, k2
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One column drawn uniformly from each row ``rows`` of the CSR
+    ``base`` with its overlay ``ov`` -> (int32 samples, bool valid) shaped
+    like ``rows``; k1, k2: the subkeys of ``split(key)``. On CUDA tensors
+    one launch of the kernel; on CPU tensors ``ref.csr_row_sample_ref``."""
+    if not rows.is_cuda:
+        return ref.csr_row_sample_ref(base, ov, rows, k1, k2)
+    overlay = None if ov is None else (ov.dirty, ov.delta.indptr, ov.delta.indices)
+    flat = rows.reshape(-1).to(torch.int32).contiguous()
+    sample, valid = csr_row_sample_cuda(base.indptr, base.indices, flat, k1, k2,
+                                        overlay=overlay)
+    return sample.reshape(rows.shape), valid.reshape(rows.shape)
 
 
 # ---------------------------------------------------------------------------

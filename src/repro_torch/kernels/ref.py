@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.csr import SENTINEL, padded_unique, sorted_isin, take_clip
+from repro_torch.core.csr import (
+    SENTINEL, padded_unique, sorted_isin, take_clip, take_ids,
+)
 from repro_torch.core.overlay import eff_row_gather, eff_row_lengths
 
 _SENT = int(SENTINEL)
@@ -174,6 +176,99 @@ def filtered_degree_ref(
     of an UNfiltered full-width query that pass ``node_filter``."""
     keep = mask & take_clip(node_filter, torch.where(mask, vals, 0))
     return keep.sum(dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Threefry draws (``core/prng.py``): bits, randint, CSR row samples
+# ---------------------------------------------------------------------------
+#
+# uint32 words are held in int64 tensors, masked to 32 bits after every
+# add and shift (torch has few uint32 ops); results come out as int32
+# tensors holding the same bits.
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32_ref(key, x0: torch.Tensor, x1: torch.Tensor):
+    """threefry-2x32 (20 rounds) of counter words x0, x1 (int64 in
+    [0, 2^32)) under ``key``, a pair of uint32 ints -> two int64 words."""
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same 32 bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _bits64(key, n: int, device) -> torch.Tensor:
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32_ref(key, i >> 32, i & _M32)
+    return b0 ^ b1
+
+
+def threefry_bits_ref(key, n: int, device) -> torch.Tensor:
+    """Element i of ``jax.random.bits(key, (n,))`` (partitionable scheme:
+    the xor of the hash of counter (i >> 32, i & 0xFFFFFFFF)) -> int32[n]."""
+    return _as_int32(_bits64(key, n, device))
+
+
+def randint_ref(k1, k2, lo, hi, n: int, device) -> torch.Tensor:
+    """``jax.random.randint``'s reduction for int32 over subkeys k1, k2 (the
+    two halves of ``split(key)``) -> int32[n]. ``lo`` and ``hi`` are ints
+    or int32[n] tensors; span = uint32(hi - lo), 1 where hi <= lo; the
+    products and the sum wrap mod 2^32 as JAX's uint32 arithmetic does (so
+    the multiplier (2^16 mod span)^2 is 0 for any span above 2^16)."""
+    higher, lower = _bits64(k1, n, device), _bits64(k2, n, device)
+    lo64 = lo.to(torch.int64) if isinstance(lo, torch.Tensor) else int(lo)
+    hi64 = hi.to(torch.int64) if isinstance(hi, torch.Tensor) else int(hi)
+    span = torch.full((n,), 0, dtype=torch.int64, device=device) + ((hi64 - lo64) & _M32)
+    span = torch.where(torch.as_tensor(hi64 <= lo64, device=device), 1, span)
+    mult = torch.remainder(2**16, span)
+    mult = torch.remainder((mult * mult) & _M32, span)  # 2^16 * 2^16 wraps to 0
+    off = ((torch.remainder(higher, span) * mult) & _M32) + torch.remainder(lower, span)
+    off = torch.remainder(off & _M32, span)
+    return _as_int32((lo64 + off) & _M32)
+
+
+def _csr_row_sample_one(csr, rows: torch.Tensor, k1, k2):
+    r = rows.reshape(-1).long()
+    start = take_clip(csr.indptr, r).long()
+    length = take_clip(csr.indptr, r + 1).long() - start
+    own = rows.reshape(-1).to(torch.int32)
+    if csr.nnz == 0:
+        return own, torch.zeros(own.shape, dtype=torch.bool, device=own.device)
+    draw = randint_ref(k1, k2, 0, length.clamp(min=1), r.numel(), r.device)
+    sample = take_ids(csr.indices, (start + draw).clamp(0, csr.nnz - 1))
+    valid = length > 0
+    return torch.where(valid, sample, own), valid
+
+
+def csr_row_sample_ref(base, ov, rows: torch.Tensor, k1, k2):
+    """``csr_row_sample`` (``eff_row_sample`` with an overlay): one column
+    drawn uniformly from each queried row -> (int32 samples, bool valid),
+    shaped like ``rows``. Row r's bounds are indptr[clip(r)] and
+    indptr[clip(r + 1)]; the draw is ``randint`` over subkeys k1, k2 with
+    span max(length, 1); an empty row gives r itself and valid False.
+    With a delta overlay both branches draw with the same subkeys and
+    dirty[clip(r)] picks the delta's."""
+    sample, valid = _csr_row_sample_one(base, rows, k1, k2)
+    if ov is not None:
+        sd, vd = _csr_row_sample_one(ov.delta, rows, k1, k2)
+        d = take_clip(ov.dirty, rows.reshape(-1))
+        sample, valid = torch.where(d, sd, sample), torch.where(d, vd, valid)
+    return sample.reshape(rows.shape), valid.reshape(rows.shape)
 
 
 # ---------------------------------------------------------------------------

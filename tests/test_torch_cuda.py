@@ -373,6 +373,144 @@ def test_traversal_api_on_cuda_matches_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# Threefry draws (csrc/threefry.cu): bit-identical to the plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 1001, (1 << 20) + 3])
+@pytest.mark.parametrize("key", [(0, 0), (0, 7), (3625411723, 1954958720)])
+def test_threefry_bits_kernel_matches_plain(cuda_device, n, key):
+    before = launch_counts["threefry_bits"]
+    got = ops.threefry_bits(key, n, cuda_device)
+    assert launch_counts["threefry_bits"] == before + 1
+    assert torch.equal(got.cpu(), ref.threefry_bits_ref(key, n, torch.device("cpu")))
+
+
+_RANDINT_BOUNDS = {
+    "scalar": (0, 7),
+    "scalar-2^16+1": (0, 65537),
+    "large": (0, 10_000_000),
+    "negative": (-50, 50),
+    "full-int32": (-(2**31), 2**31 - 1),
+    "span-1": (3, 4),
+    "max-below-min": (9, 2),
+    "per-element": (0, "spans"),
+    "per-element-both": ("lows", "spans"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 333, 100_001])
+@pytest.mark.parametrize("case", sorted(_RANDINT_BOUNDS))
+def test_randint_kernel_matches_plain(cuda_device, case, n):
+    from repro_torch.core import prng
+
+    rng = np.random.default_rng(610)  # seed 610
+    bounds = []
+    for b in _RANDINT_BOUNDS[case]:
+        if b == "spans":  # spans -2 .. 70,000: span 1 where hi <= lo
+            b = torch.from_numpy(rng.integers(-2, 70_000, n).astype(np.int32))
+        elif b == "lows":
+            b = torch.from_numpy(rng.integers(-5, 5, n).astype(np.int32))
+        bounds.append(b)
+    k1, k2 = prng.split(prng.key(611))
+    lo, hi = (b.to(cuda_device) if isinstance(b, torch.Tensor) else b for b in bounds)
+    before = launch_counts["randint"]
+    got = ops.randint(k1, k2, lo, hi, n, cuda_device)
+    assert launch_counts["randint"] == before + 1
+    want = ref.randint_ref(k1, k2, *bounds, n, torch.device("cpu"))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 1000])
+@pytest.mark.parametrize("overlay", [False, True])
+@pytest.mark.parametrize("indptr_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("ids_dtype", [np.uint16, np.int32])
+def test_csr_row_sample_kernel_matches_plain(cuda_device, ids_dtype, indptr_dtype,
+                                             overlay, B):
+    """Rows of 0-3,000 ids (empty rows among them), ids -3 .. 615 (past
+    both ends), uint16 or int32 ids over int32 or int64 indptr, with and
+    without a delta overlay (int32 ids, the other indptr dtype)."""
+    from repro_torch.core import prng
+
+    cpu = torch.device("cpu")
+    base, ov = _rows_layer(612, ids_dtype, indptr_dtype, overlay, cuda_device)
+    cbase, cov = _rows_layer(612, ids_dtype, indptr_dtype, overlay, cpu)
+    rows = np.random.default_rng(613).integers(-3, 616, B).astype(np.int32)
+    k1, k2 = prng.split(prng.key(614))
+    before = launch_counts["csr_row_sample"]
+    got, ok = ops.csr_row_sample(base, ov, torch.from_numpy(rows).to(cuda_device), k1, k2)
+    assert launch_counts["csr_row_sample"] == before + 1
+    want, wok = ref.csr_row_sample_ref(cbase, cov, torch.from_numpy(rows), k1, k2)
+    assert torch.equal(got.cpu(), want) and torch.equal(ok.cpu(), wok)
+
+
+@pytest.mark.cuda
+def test_threefry_wrappers_refuse_bad_operands(cuda_device):
+    from repro_torch.kernels.threefry import (
+        csr_row_sample_cuda, randint_cuda, threefry_bits_cuda,
+    )
+
+    base, _ = _rows_layer(615, np.int32, np.int32, False, cuda_device)
+    rows = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        threefry_bits_cuda((0, 1), 4, torch.device("cpu"))
+    with pytest.raises(ValueError):
+        randint_cuda((0, 1), (2, 3), 0, rows[:4], 8, cuda_device)
+    with pytest.raises(TypeError):
+        randint_cuda((0, 1), (2, 3), 0, rows.long(), 8, cuda_device)
+    with pytest.raises(TypeError):
+        csr_row_sample_cuda(base.indptr, base.indices, rows.long(), (0, 1), (2, 3))
+    with pytest.raises(TypeError):
+        csr_row_sample_cuda(base.indptr.float(), base.indices, rows, (0, 1), (2, 3))
+    with pytest.raises(ValueError):
+        csr_row_sample_cuda(base.indptr, base.indices, rows.cpu(), (0, 1), (2, 3))
+
+
+@pytest.mark.cuda
+def test_sampling_and_analysis_api_on_cuda_matches_cpu(cuda_device):
+    """Walk fleets, neighborhood samples, estimators, BFS and processing on
+    the card against the same calls on the CPU: integer results equal (the
+    layer choice's log on the card may differ from the CPU's by an ulp, so
+    a tie could flip; none is expected at this size), floats within rel
+    1e-6."""
+    from repro_torch.core import analysis, estimators, prng, processing, walks
+
+    cpu, gpu = _network("cpu"), _network(None)
+    src = np.random.default_rng(616).integers(0, 2000, 128)  # seed 616
+    before = dict(launch_counts)
+    for layers, weights in ((None, [1.0, 2.0, 0.5]), (["wk"], None)):
+        fc = api.selectnodes(cpu, "income", ">", 50)
+        fg = api.selectnodes(gpu, "income", ">", 50)
+        assert api.walkbatch(cpu, src, 12, walkers=3, seed=5, layernames=layers,
+                             layer_weights=weights, filter=fc) == \
+            api.walkbatch(gpu, src, 12, walkers=3, seed=5, layernames=layers,
+                          layer_weights=weights, filter=fg)
+    for method in ("walk", "alters"):
+        hc = walks.neighborhood_sample(cpu, src[:32], [5, 3], prng.key(7), method=method)
+        hg = walks.neighborhood_sample(gpu, src[:32], [5, 3], prng.key(7), method=method)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(hc, hg))
+    assert estimators.estimate_mean_degree(cpu, 5000, prng.key(8)) == pytest.approx(
+        estimators.estimate_mean_degree(gpu, 5000, prng.key(8)), rel=1e-6)
+    np.testing.assert_allclose(
+        estimators.estimate_degree_distribution(gpu, 128, 16, prng.key(9)),
+        estimators.estimate_degree_distribution(cpu, 128, 16, prng.key(9)), rtol=1e-6)
+    for s in src[:4].tolist():
+        assert torch.equal(analysis.bfs_distances(cpu, s),
+                           analysis.bfs_distances(gpu, s).cpu())
+        assert api.shortestpath(cpu, s, int(src[-1])) == \
+            api.shortestpath(gpu, s, int(src[-1]))
+    assert api.degreedist(cpu) == api.degreedist(gpu)
+    sym_c = processing.symmetrize(cpu.layer("er"), "max")
+    sym_g = processing.symmetrize(gpu.layer("er"), "max")
+    assert torch.equal(sym_c.out.indices, sym_g.out.indices.cpu())
+    for key in ("threefry_bits", "randint", "csr_row_sample", "segmented_union"):
+        assert launch_counts[key] > before.get(key, 0), key
+
+
+# ---------------------------------------------------------------------------
 # LM kernels
 # ---------------------------------------------------------------------------
 

@@ -40,10 +40,11 @@ from repro_torch.models.lm_serve import Request, ServeEngine
 from repro_torch.models.model import Model
 
 ATOL = 1e-4
-ARCHS = ("qwen3-1.7b", "mamba2-130m")
+ARCHS = ("qwen3-1.7b", "mamba2-130m", "gemma-7b", "deepseek-coder-33b", "qwen3-4b")
 # prompt length for the full-forward checks: 128 takes the JAX flash
-# kernel (S % 128 == 0) for qwen3; 48 is 3 chunks of mamba2's 16
-SEQ = {"qwen3-1.7b": 128, "mamba2-130m": 48}
+# kernel (S % 128 == 0) for the dense configs; 48 is 3 chunks of mamba2's 16
+SEQ = {"qwen3-1.7b": 128, "mamba2-130m": 48, "gemma-7b": 128,
+       "deepseek-coder-33b": 128, "qwen3-4b": 128}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -76,7 +77,8 @@ def test_apply_matches_jax(pair, use_pallas):
 
 # a 13-token prompt is not a multiple of mamba2's chunk of 16 (the JAX op
 # takes its sequential path there)
-PROMPT = {"qwen3-1.7b": 16, "mamba2-130m": 13}
+PROMPT = {"qwen3-1.7b": 16, "mamba2-130m": 13, "gemma-7b": 16,
+          "deepseek-coder-33b": 16, "qwen3-4b": 16}
 
 
 def test_prefill_and_decode_match_jax(pair):
@@ -237,7 +239,7 @@ def test_init_draws_the_jax_distributions():
 def test_params_from_jax_unstacks_every_group(pair):
     arch, jcfg, _, params, model = pair
     assert jcfg.n_groups == len(model.layers) == 2
-    name = "wq" if arch.startswith("qwen") else "in_proj"
+    name = "in_proj" if arch.startswith("mamba") else "wq"
     for g in range(2):
         np.testing.assert_array_equal(
             getattr(model.layers[g].mix, name).numpy(),

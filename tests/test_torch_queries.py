@@ -337,8 +337,10 @@ def test_request_unported_kinds_and_validation(mixed):
     _, tnet = mixed
     assert treq.run_query(tnet, {"kind": "khop", "sources": [1], "k": 2})[0][
         "source"] == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        treq.run_query(tnet, {"kind": "walkbatch", "starts": [1], "steps": 3})
+    # walkbatch is ported now: the request equals the JAX package's
+    walk = {"kind": "walkbatch", "starts": [1], "steps": 3}
+    jreq.assert_results_equal(treq.run_query(tnet, walk),
+                              jreq.run_query(mixed[0], walk))
     with pytest.raises(ValueError, match="unknown request kind"):
         treq.run_query(tnet, {"kind": "bogus"})
     with pytest.raises(KeyError):

@@ -286,3 +286,128 @@ def test_panel_membership_chunks_follow_the_recipe(smoke):
     assert abs(per.mean() - smoke.PANEL_MEAN) < 0.5
     assert groups.min() >= 0 and groups.max() < 1_000
     assert np.all(np.diff(nodes) >= 0)
+
+
+# ---------------------------------------------------------------------------
+# The sampling phase's checks (fleet prefixes against the CPU path, the
+# threefry kernels against their plain versions) and its byte counts
+# ---------------------------------------------------------------------------
+
+
+def _fleet(seed=2100, rows=64, steps=9):
+    """A walk-fleet-like int32 path table, seed 2100."""
+    return np.random.default_rng(seed).integers(0, 1000, (rows, steps + 1)).astype(np.int32)
+
+
+def test_prefix_check_passes_equal_fleets(smoke):
+    want = _fleet()
+    line = smoke.prefix_check("fleet", want.tolist(), want, np.zeros(64, bool), 64)
+    assert "64 rows equal the CPU path" in line
+
+
+def test_prefix_check_rejects_one_walker_step_changed(smoke):
+    want = _fleet()
+    got = want.copy()
+    got[17, 5] += 1  # one walker's step
+    with pytest.raises(AssertionError, match="1 rows differ"):
+        smoke.prefix_check("fleet", got, want, np.zeros(64, bool), 64)
+
+
+def test_prefix_check_excuses_only_walkers_whose_layer_choice_differed(
+        smoke, monkeypatch):
+    want = _fleet()
+    got = want.copy()
+    got[17, 5:] += 1
+    excused = np.zeros(64, bool)
+    excused[17] = True
+    # one excused walker of 10,000 compared: within CHOICE_TOL = 1e-4
+    smoke.prefix_check("fleet", got, want, excused, 10_000)
+    with pytest.raises(AssertionError, match="chose another layer"):
+        smoke.prefix_check("fleet", got, want, excused, 5_000)
+    got[3, 1] += 1  # a second walker, its choices equal: refused
+    with pytest.raises(AssertionError, match="same layer choices"):
+        smoke.prefix_check("fleet", got, want, excused, 10_000)
+
+
+@pytest.mark.parametrize("name", ["threefry_bits", "randint", "csr_row_sample"])
+def test_exact_check_rejects_a_kernel_output_off_by_one(smoke, name):
+    """The plain version on the CPU stands in for the kernel; the check
+    passes it and rejects the same output with one element off by one."""
+    args, kwargs = _draw_args(name)
+    want = smoke.draw_plain(name, args, kwargs)
+    smoke.exact_check(name, want, smoke.draw_plain(name, args, kwargs))
+    assert smoke.draw_err(want, want) == 0
+    bad = [t.clone() for t in want]
+    bad[0][len(bad[0]) // 2] += 1
+    with pytest.raises(AssertionError, match="1 of"):
+        smoke.exact_check(name, bad, want)
+    assert smoke.draw_err(bad, want) == 1
+
+
+def _draw_args(name):
+    """A launch's arguments for each threefry kernel's wrapper, seed 2101:
+    1,001 bits; 333 draws under per-element bounds; 40 row samples of the
+    small layer of ``test_rows_bytes_count_what_the_pairs_must_read``."""
+    from repro_torch.core import prng
+
+    cpu = torch.device("cpu")
+    k1, k2 = prng.split(prng.key(2101))
+    if name == "threefry_bits":
+        return (k1, 1001, cpu), {}
+    if name == "randint":
+        hi = torch.from_numpy(np.random.default_rng(2101).integers(-2, 50, 333)
+                              .astype(np.int32))
+        return (k1, k2, 0, hi, 333, cpu), {}
+    layer, _ = _small_layer(np.int64)
+    rows = torch.from_numpy(np.random.default_rng(2101).integers(-1, 6, 40)
+                            .astype(np.int32))
+    return (layer.memb.indptr, layer.memb.indices, rows, k1, k2), {}
+
+
+def test_draw_bytes_count_what_a_row_sample_must_read(smoke):
+    (indptr, ids, rows, k1, k2), kw = _draw_args("csr_row_sample")
+    lengths = np.array([0, 3, 20, 9])
+    r = rows.numpy()
+    filled = int(sum(lengths[x] > 0 for x in r if 0 <= x < 4))
+    per_row = 4 + 2 * 8 + 4 + 1
+    assert smoke.draw_bytes("csr_row_sample", (indptr, ids, rows, k1, k2), kw) == \
+        40 * per_row + 4 * filled
+    assert smoke.draw_bytes("csr_row_sample", (indptr, ids, rows, k1, k2), kw,
+                            exact=False) == 40 * per_row + 4 * 40
+    assert smoke.draw_bytes("threefry_bits", *_draw_args("threefry_bits")) == 4 * 1001
+    assert smoke.draw_bytes("randint", *_draw_args("randint")) == 8 * 333
+    # each row's indptr pair (int64: entries r and r+1 share a sector unless
+    # r+1 starts a new one) and one sector for each non-empty row's sample
+    pos = np.clip(r, 0, 4)
+    pairs = sum(1 + (p * 8 // 32 != (p + 1) * 8 // 32) for p in pos)
+    assert smoke.draw_sector_bytes((indptr, ids, rows, k1, k2), kw) == \
+        9 * 40 + 32 * (pairs + filled)
+
+
+def test_moved_copies_every_tensor_of_a_network(smoke):
+    from repro_torch.core import api
+
+    net = api.createnetwork(api.createnodeset(50, device="cpu"))
+    net = api.generate(api.addlayer(net, "wk", 2), "wk", type="2mode", h=5, a=2, seed=1)
+    net = api.setnodeattr(net, "x", np.arange(50), np.arange(50), kind="int")
+    copy = smoke.moved(net, torch.device("cpu"))
+    assert copy is not net and copy.layer_names == net.layer_names
+    assert torch.equal(copy.layer("wk").memb.indices, net.layer("wk").memb.indices)
+    assert copy.nodeset.device == torch.device("cpu")
+
+
+def test_busy_share_reads_not_measured_when_the_profiler_loses_every_event(
+        smoke, monkeypatch):
+    def lost(fn, iters):
+        raise smoke.ProfilerLostEvents("no device activity in 3 windows")
+
+    monkeypatch.setattr(smoke, "device_activity", lost)
+    assert smoke.busy_share(lambda: None, 1.0, top=4).startswith(
+        "device busy not measured")
+
+    def fault(fn, iters):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    monkeypatch.setattr(smoke, "device_activity", fault)
+    with pytest.raises(RuntimeError, match="illegal"):
+        smoke.busy_share(lambda: None, 1.0)

@@ -310,10 +310,17 @@ def test_api_khop_egosample_and_request_parity(mixed, layers, filtered):
 
 
 def test_unported_walks_still_raise(mixed):
-    _, tnet = mixed
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        treq.run_query(tnet, {"kind": "walkbatch", "starts": [1], "steps": 3})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ttrav.random_walk_batch(tnet, [1], 3, None)
+    """Walks are ported now (they raised before): the walkbatch request and
+    the fleet equal the JAX package's; a malformed khop still raises."""
+    import jax
+
+    from repro_torch.core import prng
+
+    jnet, tnet = mixed
+    walk = {"kind": "walkbatch", "starts": [1], "steps": 3}
+    jreq.assert_results_equal(treq.run_query(tnet, walk), jreq.run_query(jnet, walk))
+    assert_same(ttrav.random_walk_batch(tnet, [1], 3, prng.key(4)),
+                jtrav.random_walk_batch(jnet, jnp.asarray([1]), 3,
+                                        jax.random.PRNGKey(4)))
     with pytest.raises(ValueError, match="k must be >= 0"):
         treq.run_query(tnet, {"kind": "khop", "sources": [1], "k": -1})
