@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — pseudo-projection point queries, batched
-traversal and sampling and analysis on a population-scale mixed-mode
-network, and LM serving at full width — on the card, through the entry points a user
-calls (``repro_torch.core.api``, ``repro_torch.models.lm_serve``), and
+traversal, sampling and analysis, files, mutation and durability on a
+population-scale mixed-mode network, and LM serving at full width — on
+the card, through the entry points a user calls
+(``repro_torch.core.api``, ``repro_torch.core.cli``,
+``repro_torch.models.lm_serve``), and
 fails (non-zero exit) if any phase fails:
 
 1. device   — the card's name and power limit (nvidia-smi);
@@ -82,7 +84,44 @@ fails (non-zero exit) if any phase fails:
               65,536 compared walkers fails); BFS levels must equal k-hop
               groups, and a small network's BFS distances and shortest
               paths scipy's;
-11. lm      — LM serving at full width, bf16, through
+11. storage — on the same network: ``savefile(compress=False)``, then
+              ``loadfile`` with and without ``mmap`` (wall time, GB/s;
+              every buffer must equal the network's), each load's peak
+              host-RSS growth read alone in a fresh interpreter (it must
+              reach the bytes the load allocates on the host, the
+              ``indptr`` mirrors and the staging buffer, and the mmap
+              load's must stay under the file's size); batches of
+              register changes through
+              ``api.addedges`` / ``deleteedges`` / ``setnodeattr`` (10,000
+              household and 10,000 workplace moves, 1,000 memberships in
+              100 new workplaces, 100,000 new and 10,000 ended Random
+              ties, 10,000 school joins, which cross the compaction ratio,
+              1,000 memberships in 100 new schools past id 65,535, 10,000
+              incomes), each batch with its wall time, device busy and
+              idle, delta nnz, overlay ratio, bytes uploaded and whether it
+              compacted; getedge and checkedge x8192 on the 4 layers (half
+              the sources on touched rows), getnodealters x2048, the
+              filtered getdegree x8192 and a Workplaces walk fleet of
+              65,536 starts x 40 steps on the overlays, with launch counts
+              reset just before and read just after (intersect_rows,
+              segmented_union and csr_row_sample must launch), each equal
+              to the same query on ``Network.compacted()`` (timed), 256
+              queries a kind equal to the padded plain path, and the three
+              kernels equal to their plain versions on the overlays
+              ``overlay_update`` wrote (an int32 delta over a uint16 base,
+              a member CSR grown past its base's rows); a ``DurableStore``
+              fed the same changes (create, apply, close, ``recovernet``:
+              equal to the directly mutated network, compacted) and its
+              WAL cut inside the last record (recovered with torn bytes to
+              the state before it), on ``STORE_NODES`` nodes; and JSON-
+              mode CLI scripts through ``Session()`` on the card: one loads
+              the saved file (mmap), applies the same changes and asks
+              checkedge, getnodealters, the filtered getdegree and khop on
+              inputs of the overlay queries above (its network must equal
+              the directly mutated one, its outputs those queries', and
+              frontier_compact must launch), the other runs savestore,
+              recovernet and wallog on ``STORE_NODES`` nodes;
+12. lm      — LM serving at full width, bf16, through
               ``ServeEngine.generate``: qwen3-1.7b (28 layers, d_model
               2048) and mamba2-130m (24 layers, d_model 768), each with
               weights drawn from a seeded generator, serving 8 requests of
@@ -103,7 +142,7 @@ fails (non-zero exit) if any phase fails:
               against the argmax of ``Model.apply``, and, in an f32 copy
               of each model, prefill + 8 decode steps against
               ``Model.apply`` (2 requests, 256-token prompts);
-12. timing  — each kernel, its plain version and its bound at the heaviest
+13. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
               by CUDA events with the L2 flushed before each launch; the
@@ -251,6 +290,34 @@ TEMPORAL_NODES = 100_000
 TEMPORAL_YEARS = (2019, 2020, 2021)
 TEMPORAL_PAIRS = 256
 TEMPORAL_WALKERS = 1024
+
+# Storage phase, on the same network: files, batches of register changes
+# through the api, queries on the overlays against compacted(), the durable
+# store and the CLI. The batches: 10,000 household moves and 10,000
+# workplace moves (each a delete and an add), 1,000 memberships in 100 new
+# workplaces, 100,000 new and 10,000 ended Random ties, 10,000 school
+# joins, 1,000 memberships in 100 new schools numbered from 65,536 (the
+# id space passes uint16: an int32 delta over Schools' uint16 base), and
+# 10,000 new incomes. They are batches of these sizes, not a measured
+# span of a register's churn. STORE_NODES sizes the network the durable
+# store and the CLI's savestore and recovernet run on (the same recipe
+# and changes): cut to 1M nodes. At 10M the store's zlib snapshot of
+# 1.4 GB took 103.9 s to write and 68.6 s to inflate and replay, and the
+# CLI's own savestore and recovernet 134.2 s, on an NVIDIA H100 80GB HBM3
+# host, where the phase has about 240 s.
+REG_MOVES = 10_000
+REG_NEW_GROUPS = 100
+REG_NEW_MEMBERS = 1_000
+REG_RANDOM_ADDS = 100_000
+REG_RANDOM_DELETES = 10_000
+REG_SCHOOL_JOINS = 10_000
+REG_FIRST_NEW_SCHOOL = 1 << 16
+REG_INCOME_UPDATES = 10_000
+STORE_NODES = 1_000_000
+STORAGE_WALK_STARTS = 65_536
+STORAGE_WALK_STEPS = 40
+STORAGE_REPEATS = 3
+CLI_QUERIES = 8
 
 # LM phase: both configurations at full width in bf16 (depth not cut),
 # random weights from SEED. Traffic: LM_REQUESTS prompts of LM_PROMPT
@@ -647,12 +714,14 @@ def overlay_rows_check(device, seed: int) -> int:
     return worst
 
 
-def pair_ids(layer, n: int, count: int, rng, device):
+def pair_ids(layer, n: int, count: int, rng, device, u=None):
     """Seeded (u, v) pairs; in the first half v is a co-member of u in one
-    of u's groups, so those pairs share at least one group."""
+    of u's groups, so those pairs share at least one group. ``u`` given
+    replaces the drawn sources (the draws stay the same)."""
     import torch
 
-    u = rng.integers(0, n, count)
+    drawn = rng.integers(0, n, count)
+    u = drawn if u is None else np.asarray(u, dtype=np.int64)
     v = rng.integers(0, n, count)
     half = count // 2
     he, hm = layer.memberships(torch.from_numpy(u[:half].astype(np.int32)).to(device))
@@ -1330,8 +1399,9 @@ def kernel_record(name, symbols, source, replaces, launches, err, kernel, plain,
     ``symbols``, the kernels one call launches, each once or (name, n) n
     times (``call_device_ms`` over the profiler's events, so it holds when
     the profiler drops events; where
-    the profiler lost every event of a symbol in all windows, the
-    event-timed time per call, an upper bound, and ``ms_from`` says which);
+    the profiler lost every event of a symbol in all windows, or every
+    device event of them, the event-timed time per call, an upper bound,
+    and ``ms_from`` says which);
     ``plain_ms`` the time per call of the plain version and ``library_ms``
     that of ``library``, one torch call computing the same function (None
     where there is none, for the reason ``library_none``), both from CUDA
@@ -1341,7 +1411,10 @@ def kernel_record(name, symbols, source, replaces, launches, err, kernel, plain,
     window's other device activity are printed beside."""
     ms, seen = None, {}
     for _ in range(PROFILER_WINDOWS):
-        acts = device_activity(kernel, iters)
+        try:
+            acts = device_activity(kernel, iters)
+        except ProfilerLostEvents:
+            acts = {}  # every device event of the windows lost: as below
         ms, seen = call_device_ms(acts, symbols, iters)
         if ms is not None:
             break
@@ -2379,6 +2452,726 @@ def draw_timing(sampling: dict) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# Storage phase: files, mutation, durability and the CLI
+# ---------------------------------------------------------------------------
+
+
+def tensor_bits(t):
+    """``t`` as a tensor torch compares on every device (uint16 as int16)."""
+    import torch
+
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def net_buffers(net) -> list:
+    """(name, tensor or host array) of every buffer of a network: the
+    attributes, each layer's CSRs with their indptr host mirrors, and each
+    overlay's delta CSR, dirty mask and its host mirror; with the scalars
+    beside them."""
+    out = [("n_nodes", net.n_nodes), ("layer_names", net.layer_names)]
+    for an, col in zip(net.nodeset.attrs.names, net.nodeset.attrs.columns):
+        out += [(f"attr.{an}.kind", col.kind), (f"attr.{an}.ids", col.node_ids),
+                (f"attr.{an}.values", col.values)]
+
+    def csr(key, c):
+        if c is None:
+            return [(key, None)]
+        return [(f"{key}.shape", (c.n_rows, c.n_cols)), (f"{key}.indptr", c.indptr),
+                (f"{key}.indptr_host", c.indptr_host), (f"{key}.indices", c.indices),
+                (f"{key}.values", c.values)]
+
+    for name, layer in zip(net.layer_names, net.layers):
+        if layer.mode == 2:
+            parts = (("memb", layer.memb, layer.memb_ov),
+                     ("members", layer.members, layer.members_ov))
+            out.append((f"{name}.max", (layer.max_memberships,
+                                        layer.max_hyperedge_size)))
+        else:
+            parts = (("out", layer.out, layer.out_ov), ("in", layer.in_, layer.in_ov))
+            out.append((f"{name}.flags", (layer.directed, layer.valued,
+                                          layer.allow_self, layer.store_inbound)))
+        for part, c, ov in parts:
+            out += csr(f"{name}.{part}", c)
+            if ov is None:
+                out.append((f"{name}.{part}_ov", None))
+            else:
+                out += csr(f"{name}.{part}_ov.delta", ov.delta)
+                out += [(f"{name}.{part}_ov.dirty", ov.dirty),
+                        (f"{name}.{part}_ov.dirty_host", ov.dirty_host),
+                        (f"{name}.{part}_ov.base_shadowed", ov.base_shadowed)]
+    return out
+
+
+def assert_same_network(label: str, got, want) -> int:
+    """Fails unless every buffer of ``got`` equals ``want``'s: the same
+    names, dtypes, shapes and elements (``torch.equal`` on the buffers'
+    device), the same scalars. Returns the bytes compared."""
+    import torch
+
+    a, b = net_buffers(got), net_buffers(want)
+    if [k for k, _ in a] != [k for k, _ in b]:
+        raise AssertionError(f"{label}: the networks hold different buffers")
+    nbytes = 0
+    for (key, x), (_, y) in zip(a, b):
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            same = (x.dtype == y.dtype and x.shape == y.shape
+                    and x.device == y.device
+                    and torch.equal(tensor_bits(x), tensor_bits(y)))
+            nbytes += x.nbytes
+        elif isinstance(x, np.ndarray) and isinstance(y, np.ndarray):
+            same = x.dtype == y.dtype and np.array_equal(x, y)
+        else:
+            same = type(x) is type(y) and x == y
+        if not same:
+            raise AssertionError(f"{label}: {key} differs")
+    return nbytes
+
+
+class PeakRss:
+    """Within the block, the peak growth of this process's resident set
+    over its size on entry: VmRSS sampled every 2 ms and read once more on
+    exit, with the block's objects still alive."""
+
+    @staticmethod
+    def read() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        raise KeyError("VmRSS")
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = self.read()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, self.read())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.growth = max(self.peak, self.read()) - self.base
+
+
+def load_rss_child(path: str, mmap: bool, device: str) -> None:
+    """One ``loadfile`` of ``path`` in this (fresh) interpreter, printing
+    one JSON line: the peak host-RSS growth over the load, and what the
+    load must allocate on the host: the ``indptr`` mirrors it keeps
+    beside the device CSRs and, on a card, the pinned staging buffer.
+    The device context exists and garbage is collected before the base
+    reading, so the reading holds the load alone."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import api, io
+
+    dev = torch.device(device)
+    torch.ones(1, device=dev)
+    gc.collect()
+    gc.disable()
+    with PeakRss() as rss:
+        net = api.loadfile(path, mmap=mmap, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    gc.enable()
+    csrs = [c for layer in net.layers
+            for c in ((layer.memb, layer.members) if layer.mode == 2
+                      else (layer.out, layer.in_)) if c is not None]
+    print(json.dumps({
+        "growth": rss.growth,
+        "mirrors": sum(int(c.indptr_host.nbytes) for c in csrs),
+        "staging": io.STAGING_BYTES if dev.type == "cuda" else 0,
+    }), flush=True)
+
+
+def load_rss(path: Path, mmap: bool, device) -> dict:
+    """``load_rss_child`` in a fresh interpreter: a reading that no
+    memory freed by earlier phases and reused by the load can lower."""
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]; "
+            f"import chip_smoke; chip_smoke.load_rss_child({str(path)!r}, {mmap!r}, "
+            f"{str(device)!r})")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=False)
+    if out.returncode:
+        raise RuntimeError(f"the load's RSS reading failed ({out.returncode}): "
+                           f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def register_ops(net, seed: int, device) -> tuple[list, dict]:
+    """The batches of register changes (the REG_* recipe) drawn against the
+    unmutated ``net`` -> ([(label, WAL op)], {layer: host ids of the nodes
+    its ops touch}). Ops are ``core/wal.py``'s, so the same list goes
+    through the api and through ``DurableStore.apply``."""
+    import torch
+
+    from repro_torch.core import wal
+    from repro_torch.core.csr import take_ids
+
+    rng = np.random.default_rng(seed + 40)
+    n = net.n_nodes
+
+    def first_ids(csr, nodes):
+        pos = torch.from_numpy(csr.indptr_host[nodes].astype(np.int64)).to(device)
+        return take_ids(csr.indices, pos).cpu().numpy().astype(np.int64)
+
+    ops, touched = [], {}
+    for name in ("Households", "Workplaces"):
+        layer = net.layer(name)
+        u = rng.choice(n, REG_MOVES, replace=False)
+        u = u[np.diff(layer.memb.indptr_host)[u] > 0]
+        ops += [(f"{name} moves: delete", wal.make_delete_edges_op(
+                    name, u, first_ids(layer.memb, u))),
+                (f"{name} moves: add", wal.make_add_edges_op(
+                    name, u, rng.integers(0, layer.n_hyperedges, u.size)))]
+        touched[name] = u
+    wp = net.layer("Workplaces")
+    u = rng.integers(0, n, REG_NEW_MEMBERS)
+    ops.append(("Workplaces: 100 new groups", wal.make_add_edges_op(
+        "Workplaces", u, wp.n_hyperedges + rng.integers(0, REG_NEW_GROUPS, u.size))))
+    touched["Workplaces"] = np.union1d(touched["Workplaces"], u)
+    a, b = rng.integers(0, n, (2, REG_RANDOM_ADDS))
+    ops.append(("Random: new ties", wal.make_add_edges_op("Random", a, b)))
+    out = net.layer("Random").out
+    u = rng.choice(n, 2 * REG_RANDOM_DELETES, replace=False)
+    u = u[np.diff(out.indptr_host)[u] > 0][:REG_RANDOM_DELETES]
+    v = first_ids(out, u)
+    ops.append(("Random: ended ties", wal.make_delete_edges_op("Random", u, v)))
+    touched["Random"] = np.unique(np.concatenate([a, b, u, v]))
+    sc = net.layer("Schools")
+    u = rng.integers(0, n, REG_SCHOOL_JOINS)
+    ops.append(("Schools: joins", wal.make_add_edges_op(
+        "Schools", u, rng.integers(0, sc.n_hyperedges, u.size))))
+    u2 = rng.integers(0, n, REG_NEW_MEMBERS)
+    ops.append(("Schools: 100 new schools past uint16", wal.make_add_edges_op(
+        "Schools", u2, REG_FIRST_NEW_SCHOOL + rng.integers(0, REG_NEW_GROUPS, u2.size))))
+    touched["Schools"] = np.union1d(u, u2)
+    u = rng.choice(n, REG_INCOME_UPDATES, replace=False)
+    ops.append(("income: new values", wal.make_set_attr_op(
+        "income", u, rng.integers(0, 100_000, u.size), kind="int")))
+    return ops, touched
+
+
+def apply_register_op(net, op):
+    """One register op through the api call a user makes for it."""
+    from repro_torch.core import api
+
+    if op["op"] == "add_edges":
+        return api.addedges(net, op["layer"], op["src"], op["dst"],
+                            values=op.get("values"))
+    if op["op"] == "delete_edges":
+        return api.deleteedges(net, op["layer"], op["src"], op["dst"])
+    if op["op"] == "set_attr":
+        return api.setnodeattr(net, op["name"], op["nodes"], op["values"],
+                               kind=op["kind"])
+    raise ValueError(f"no register op {op['op']!r}")
+
+
+def overlay_line(layer) -> tuple[int, int]:
+    """(delta nnz, bytes uploaded: the delta CSRs and dirty masks) over
+    the layer's live overlays."""
+    if layer.mode == 2:
+        ovs = (layer.memb_ov, layer.members_ov)
+    else:
+        ovs = (layer.out_ov, layer.in_ov)
+    ovs = [ov for ov in ovs if ov is not None]
+    return (sum(ov.delta.nnz for ov in ovs),
+            sum(ov.delta.nbytes + int(ov.dirty.nbytes) for ov in ovs))
+
+
+def mutate(net, ops, label: str, profile: bool = True):
+    """``ops`` through the api, one at a time, each printed with its wall
+    time (device busy and idle with ``profile``), delta nnz, overlay ratio,
+    bytes uploaded and whether the layer compacted -> (net, [wall ms],
+    {layer: compactions})."""
+    from repro_torch.core.layers import has_overlay, layer_overlay_ratio
+
+    walls, compactions = [], collections.Counter()
+    for name, op in ops:
+        layer_name = op.get("layer")
+        before = (has_overlay(net.layer(layer_name)) if layer_name else False)
+        if profile:
+            ms, acts, net = profiled(lambda: apply_register_op(net, op))
+            busy = busy_line(acts, ms, top=2)
+        else:
+            t0 = time.perf_counter()
+            net = apply_register_op(net, op)
+            ms, busy = (time.perf_counter() - t0) * 1e3, "not profiled"
+        walls.append(ms)
+        if layer_name is None:
+            log(f"{label}: {name}: {len(op['nodes'])} nodes, {ms:.3f} ms, {busy}")
+            continue
+        layer = net.layer(layer_name)
+        nnz, up = overlay_line(layer)
+        compacted = not has_overlay(layer)
+        compactions[layer_name] += compacted
+        log(f"{label}: {name}: {len(op['src'])} pairs, {ms:.3f} ms, {busy}; delta "
+            f"nnz {nnz}, overlay ratio {layer_overlay_ratio(layer):.4f}, "
+            f"{up} bytes of overlay uploaded, compacted {compacted} (overlay "
+            f"before: {before})")
+    return net, walls, compactions
+
+
+def storage_queries(net, touched: dict, seed: int, device) -> dict:
+    """The phase's query inputs on the mutated network: getedge/checkedge
+    pairs per layer (half the sources on rows the ops touched), alters and
+    degree nodes (half touched) and the walk fleet's starts."""
+    rng = np.random.default_rng(seed + 41)
+    n, half = net.n_nodes, POINT_PAIRS // 2
+    every = np.unique(np.concatenate(list(touched.values())))
+    q = {}
+    for name, _, _ in LAYER_RECIPE:
+        mixed = np.concatenate([rng.choice(touched[name], half),
+                                rng.integers(0, n, POINT_PAIRS - half)])
+        q[f"edge/{name}"] = pair_ids(net.layer(name), n, POINT_PAIRS, rng, device,
+                                     u=mixed)
+    u = np.concatenate([rng.choice(touched["Random"], half),
+                        rng.integers(0, n, POINT_PAIRS - half)])
+    q["edge/Random"] = (u, rng.integers(0, n, POINT_PAIRS))
+    q["alters"] = np.concatenate([rng.choice(every, ALTERS_NODES // 2),
+                                  rng.integers(0, n, ALTERS_NODES // 2)])
+    q["degree"] = np.concatenate([rng.choice(every, DEGREE_NODES // 2),
+                                  rng.integers(0, n, DEGREE_NODES // 2)])
+    q["walk"] = np.concatenate([rng.choice(touched["Workplaces"],
+                                           STORAGE_WALK_STARTS // 2),
+                                rng.integers(0, n, STORAGE_WALK_STARTS // 2)])
+    return q
+
+
+def storage_calls(net, q: dict, sel, seed: int) -> dict:
+    """name -> call of the phase's queries on ``net`` through the api."""
+    from repro_torch.core import api
+
+    calls = {}
+    for name in [nm for nm, _, _ in LAYER_RECIPE] + ["Random"]:
+        u, v = q[f"edge/{name}"]
+        calls[f"getedge {name} x{u.size}"] = (
+            lambda net, name=name, u=u, v=v: api.getedge(net, name, u, v))
+        calls[f"checkedge {name} x{u.size}"] = (
+            lambda net, name=name, u=u, v=v: api.checkedge(net, name, u, v).cpu())
+    calls[f"getnodealters x{q['alters'].size}, 4 layers"] = (
+        lambda net: api.getnodealters(net, q["alters"], max_alters=MAX_ALTERS))
+    calls[f"getdegree income > median x{q['degree'].size}"] = (
+        lambda net: api.getdegree(net, q["degree"], filter=sel))
+    calls[f"walkbatch Workplaces {q['walk'].size} x {STORAGE_WALK_STEPS} steps"] = (
+        lambda net: api.walkbatch(net, q["walk"], STORAGE_WALK_STEPS, seed=seed + 42,
+                                  layernames=["Workplaces"]))
+    return calls
+
+
+def same_result(a, b) -> bool:
+    import torch
+
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_result(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def storage_plain_check(net, q: dict, nf, device) -> None:
+    """ORACLE_QUERIES queries of each kind on the mutated network against
+    the port's padded plain path, bit for bit (as the oracle phase)."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.kernels import ref
+
+    k, bad = ORACLE_QUERIES, []
+    for name, _, _ in LAYER_RECIPE:
+        u, v = (x[:k] for x in q[f"edge/{name}"])
+        layer = net.layer(name)
+        want = layer.edge_value_padded(torch.from_numpy(u.astype(np.int32)).to(device),
+                                       torch.from_numpy(v.astype(np.int32)).to(device)).cpu()
+        if not torch.equal(api.getedge(net, name, u, v), want):
+            bad.append(f"getedge/{name}")
+        if not torch.equal(api.checkedge(net, name, u, v).cpu(), want > 0):
+            bad.append(f"checkedge/{name}")
+    u = q["alters"][:k]
+    ut = torch.from_numpy(u.astype(np.int32)).to(device)
+    parts = [layer.node_alters_padded(ut, MAX_ALTERS)[0] if layer.mode == 2
+             else layer.node_alters(ut, MAX_ALTERS)[0] for layer in net.layers]
+    want, _ = ref.segmented_union_ref(torch.cat(parts, dim=-1), MAX_ALTERS)
+    if not torch.equal(api.getnodealters(net, u, max_alters=MAX_ALTERS)[0], want.cpu()):
+        bad.append("getnodealters")
+    u = q["degree"][:k]
+    ut = torch.from_numpy(u.astype(np.int32)).to(device)
+    want = sum(layer.filtered_degree_padded(ut, nf).cpu().long() for layer in net.layers)
+    if not np.array_equal(api.getdegree(net, u, filter=nf.cpu().numpy()), want.numpy()):
+        bad.append("getdegree")
+    if bad:
+        raise AssertionError(f"storage: the overlay network's kernel path differs "
+                             f"from the padded plain path: {bad}")
+
+
+def storage_kernel_checks(net, touched: dict, union_rows, draws, seed: int,
+                          device) -> str:
+    """The three kernels on the overlays ``overlay_update`` wrote, each
+    against its plain version on the same inputs, bit for bit:
+    ``intersect_rows`` on pairs of touched nodes of each two-mode layer
+    (unfiltered and filtered), ``csr_row_sample`` on touched and grown
+    rows of each membership and member CSR and at every launch shape of
+    the walk fleet, ``segmented_union`` on the heaviest launch of the
+    alters call."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.dispatch import DEFAULT_BUCKET_WIDTHS
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(seed + 43)
+    k1, k2 = prng.split(prng.key(seed + 44))
+    notes = []
+    for name, _, _ in LAYER_RECIPE:
+        layer = net.layer(name)
+        if layer.memb_ov is None:
+            notes.append(f"{name} compacted")
+            continue
+        u = torch.from_numpy(rng.choice(touched[name], ORACLE_QUERIES).astype(np.int32)).to(device)
+        v = torch.from_numpy(rng.choice(touched[name], ORACLE_QUERIES).astype(np.int32)).to(device)
+        nf = torch.from_numpy(rng.random(net.n_nodes) < 0.5).to(device)
+        for f in (None, nf):
+            got = ops.intersect_rows(layer.memb, layer.memb_ov, u, v, f,
+                                     widths=DEFAULT_BUCKET_WIDTHS)
+            want = ref.intersect_rows_ref(layer.memb, layer.memb_ov, u, v, f,
+                                          DEFAULT_BUCKET_WIDTHS)
+            exact_check(f"intersect_rows on {name}'s overlay", (got,), (want,))
+        for part, base, ov in (("memb", layer.memb, layer.memb_ov),
+                               ("members", layer.members, layer.members_ov)):
+            dirty = np.flatnonzero(ov.dirty_host)
+            rows = np.concatenate([rng.choice(dirty, 4096),
+                                   rng.integers(0, ov.delta.n_rows, 4096)])
+            rt = torch.from_numpy(rows.astype(np.int32)).to(device)
+            exact_check(f"csr_row_sample on {name}.{part}'s overlay",
+                        ops.csr_row_sample(base, ov, rt, k1, k2),
+                        ref.csr_row_sample_ref(base, ov, rt, k1, k2))
+        notes.append(
+            f"{name}: memb {layer.memb.indices.dtype} base under a "
+            f"{layer.memb_ov.delta.indices.dtype} delta, members "
+            f"{layer.members.n_rows} base rows under {layer.members_ov.delta.n_rows}")
+    for (kname, shape), (args, kwargs) in draws.first.items():
+        exact_check(f"{kname} at {shape} in the walk fleet",
+                    draw_kernel(kname, args, kwargs), draw_plain(kname, args, kwargs))
+    flat, max_out = union_rows.heaviest[1]
+    got = ops.segmented_union_cuda(flat, max_out)
+    exact_check(f"segmented_union at {tuple(flat.shape)}", (got,),
+                (ref.segmented_union_ref(flat, max_out)[0],))
+    return "; ".join(notes) + (f"; {len(draws.first)} csr_row_sample launch shapes "
+                               f"of the fleet; segmented_union at {tuple(flat.shape)}")
+
+
+def storage_files(net, tmp: Path, card: str, device) -> Path:
+    """Save and load: ``savefile(compress=False)``, then ``loadfile`` with
+    and without ``mmap``; every loaded buffer must equal the network's.
+    Each load's peak host-RSS growth is read alone (``load_rss``): it must
+    reach the bytes the load allocates on the host, and the mmap load's
+    must stay under the file's size. Returns the file."""
+    from repro_torch.core import api
+
+    path = tmp / "register.npz"
+    t0 = time.perf_counter()
+    api.savefile(net, str(path), compress=False)
+    save_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    log(f"storage: savefile(compress=False) {size} bytes in {save_s:.3f} s; {card}")
+    for mmap in (True, False):
+        sync()
+        t0 = time.perf_counter()
+        loaded = api.loadfile(str(path), mmap=mmap, device=device)
+        sync()
+        secs = time.perf_counter() - t0
+        nbytes = assert_same_network(f"loadfile(mmap={mmap})", loaded, net)
+        del loaded
+        rss = load_rss(path, mmap, device)
+        floor = rss["mirrors"] + rss["staging"]
+        log(f"storage: loadfile(mmap={mmap}) {secs:.3f} s, {size / secs / 1e9:.3f} GB/s "
+            f"of file; {nbytes} device bytes equal the network's; peak host-RSS "
+            f"growth of the load alone {rss['growth']} bytes ({rss['growth'] / size:.3f} "
+            f"of the file), floor {floor} (indptr mirrors {rss['mirrors']} + staging "
+            f"{rss['staging']}); {card}")
+        if rss["growth"] < floor:
+            raise AssertionError(
+                f"loadfile(mmap={mmap}): the host-RSS reading {rss['growth']} is below "
+                f"the {floor} bytes the load allocates on the host")
+        if mmap and rss["growth"] >= size:
+            raise AssertionError(
+                f"loadfile(mmap=True) grew the host RSS by {rss['growth']} bytes, not "
+                f"less than the file's {size}")
+    return path
+
+
+def storage_store(base, mutated_compact, ops, tmp: Path, card: str, device) -> dict:
+    """The durable store: ``DurableStore.create`` on ``base``, the same ops
+    through ``apply``, ``close``, ``recovernet``; the recovered network's
+    compacted buffers must equal ``mutated_compact``'s. Then the WAL cut in
+    the middle of its last record must recover with ``torn_bytes > 0`` to
+    the state before that op."""
+    from repro_torch.core import api, wal
+    from repro_torch.core.snapshot import WAL_NAME, DurableStore
+
+    store_dir = tmp / "store"
+    t0 = time.perf_counter()
+    store = DurableStore.create(store_dir, base)
+    create_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _, op in ops:
+        store.apply(op)
+    apply_s = time.perf_counter() - t0
+    last = store.net
+    store.close()
+    t0 = time.perf_counter()
+    rec, info = api.recovernet(str(store_dir), device=device)
+    sync()
+    recover_s = time.perf_counter() - t0
+    if info["replayed"] != len(ops) or info["torn_bytes"]:
+        raise AssertionError(f"storage: recovery replayed {info}")
+    assert_same_network("recovered store, raw buffers", rec, last)
+    t0 = time.perf_counter()
+    nbytes = assert_same_network("recovered store, compacted", rec.compacted(),
+                                 mutated_compact)
+    compact_s = time.perf_counter() - t0
+    log(f"storage: store of {base.n_nodes} nodes: create {create_s:.3f} s "
+        f"(compressed snapshot {sum(p.stat().st_size for p in store_dir.glob('snap-*.npz'))}"
+        f" bytes), apply {len(ops)} ops {apply_s:.3f} s, recovernet {recover_s:.3f} s "
+        f"({json.dumps(info)}), compacted() and compare {compact_s:.3f} s: "
+        f"{nbytes} device bytes equal the directly mutated network's; {card}")
+    log_path = store_dir / WAL_NAME
+    records, end, _ = wal.scan(log_path)
+    cut = records[-1].offset + (records[-1].end_offset - records[-1].offset) // 2
+    with open(log_path, "r+b") as f:
+        f.truncate(cut)
+    t0 = time.perf_counter()
+    torn, tinfo = api.recovernet(str(store_dir), device=device)
+    sync()
+    torn_s = time.perf_counter() - t0
+    if not (tinfo["torn_bytes"] > 0 and tinfo["replayed"] == len(ops) - 1):
+        raise AssertionError(f"storage: torn WAL recovered {tinfo}")
+    # the last op sets incomes: before it, the final layers and base's nodeset
+    if ops[-1][1]["op"] != "set_attr":
+        raise AssertionError("storage: the register ops must end with the income op")
+    assert_same_network("torn WAL recovery", torn, last.with_nodeset(base.nodeset))
+    log(f"storage: WAL cut at byte {cut} of {end} (inside lsn {records[-1].lsn}): "
+        f"recovered in {torn_s:.3f} s with {json.dumps(tinfo)}, equal to the "
+        f"state before the last op; {card}")
+    return {"create_s": create_s, "apply_s": apply_s, "recover_s": recover_s}
+
+
+def cli_op_line(op: dict) -> str:
+    """A register op (``core/wal.py``'s) as the CLI command a user types."""
+    def ids(xs):
+        return ";".join(map(str, xs))
+
+    if op["op"] == "set_attr":
+        return (f"setattr(net, {op['name']}, {ids(op['nodes'])}, {ids(op['values'])}, "
+                f"kind = {op['kind']})")
+    cmd = {"add_edges": "addedges", "delete_edges": "deleteedges"}[op["op"]]
+    line = f"{cmd}(net, {op['layer']}, src = {ids(op['src'])}, dst = {ids(op['dst'])}"
+    if op.get("values") is not None:
+        line += f", values = {ids(op['values'])}"
+    return line + ")"
+
+
+def cli_picks(size: int) -> np.ndarray:
+    """CLI_QUERIES positions of a query batch of ``size``: the first half
+    (on rows the batches touched) and the last (drawn over all nodes)."""
+    k = CLI_QUERIES // 2
+    return np.r_[0:k, size - (CLI_QUERIES - k):size]
+
+
+def storage_cli(path: Path, ops, q: dict, outs: dict, sel, median_income: int,
+                mutated, card: str, device) -> dict:
+    """A JSON-mode script through ``Session()`` on the card: ``loadfile``
+    (mmap) of the saved file, the same batches as ``addedges`` /
+    ``deleteedges`` / ``setattr`` commands, then checkedge on each layer,
+    getnodealters, the filtered getdegree and khop on CLI_QUERIES inputs
+    of the overlay queries (``q``). Its network must equal ``mutated``, its
+    outputs the overlay queries' (``outs``; khop the api's on ``mutated``),
+    and with launch counts reset just before and read just after,
+    ``intersect_rows``, ``segmented_union`` and ``frontier_compact`` must
+    launch. Returns the script's launch counts."""
+    from repro_torch.core import api
+    from repro_torch.core.cli import Session
+    from repro_torch.kernels import build
+
+    lines = [f'net = loadfile(file = "{path}", mmap = true)']
+    lines += [cli_op_line(op) for _, op in ops]
+    lines.append(f'sel = selectnodes(net, attr = income, op = ">", value = {median_income})')
+    want = [{"count": sel.count}]
+    for name in [nm for nm, _, _ in LAYER_RECIPE] + ["Random"]:
+        u, v = q[f"edge/{name}"]
+        got = outs[f"checkedge {name} x{u.size}"]
+        for i in cli_picks(u.size):
+            lines.append(f"checkedge(net, {name}, {u[i]}, {v[i]})")
+            want.append(bool(got[i]))
+    nodes = q["alters"]
+    vals, mask = outs[f"getnodealters x{nodes.size}, 4 layers"]
+    for i in cli_picks(nodes.size):
+        lines.append(f"getnodealters(net, {nodes[i]}, max_alters = {MAX_ALTERS})")
+        want.append(vals[i][mask[i]].tolist())
+    nodes = q["degree"]
+    got = outs[f"getdegree income > median x{nodes.size}"]
+    for i in cli_picks(nodes.size):
+        lines.append(f"getdegree(net, {nodes[i]}, filter = sel)")
+        want.append(int(got[i]))
+    sources = q["alters"][cli_picks(q["alters"].size)]
+    lines.append("khop(net, " + ";".join(map(str, sources))
+                 + ", k = 2, layernames = Households)")
+    want.append(json.loads(json.dumps(
+        api.khop(mutated, sources, 2, layernames=["Households"]), default=int)))
+    session = Session(mode="json", device=device)
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    outputs = [json.loads(o) for o in session.run_script("\n".join(lines))]
+    sync()
+    secs = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    got = [o["result"] for o in outputs]
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"storage: CLI outputs {bad} of {len(want)} differ from "
+                             f"the overlay queries' ({len(got)} outputs)")
+    nbytes = assert_same_network("storage: the CLI's network", session.env["net"], mutated)
+    assert_launched("storage CLI", launches,
+                    ("intersect_rows", "segmented_union", "frontier_compact"))
+    log(f"storage: CLI script of {len(lines)} lines ({len(ops)} batches) on "
+        f"{device} in {secs:.3f} s: its network equals the directly mutated one "
+        f"({nbytes} device bytes), {len(want)} outputs equal the overlay queries' "
+        f"and the api's khop; launch counts {json.dumps(launches, sort_keys=True)}; "
+        f"{card}")
+    return launches
+
+
+def storage_cli_store(path: Path, tmp: Path, card: str, device) -> None:
+    """A JSON-mode script through ``Session()`` on the card: ``loadfile``
+    (mmap) of ``path``, ``savestore``, ``recovernet`` and ``wallog``; the
+    recovered network must equal the loaded one."""
+    from repro_torch.core.cli import Session
+
+    store = tmp / "cli_store"
+    lines = [f'net = loadfile(file = "{path}", mmap = true)',
+             f'savestore(net, dir = "{store}")', f'rec = recovernet(dir = "{store}")',
+             f'wallog(dir = "{store}")']
+    session = Session(mode="json", device=device)
+    t0 = time.perf_counter()
+    outs = [json.loads(o) for o in session.run_script("\n".join(lines))]
+    sync()
+    secs = time.perf_counter() - t0
+    rec, log_rows = outs[-2]["result"], outs[-1]["result"]
+    if rec["snapshot_lsn"] != -1 or rec["torn_bytes"] or log_rows != []:
+        raise AssertionError(f"storage: CLI store recovered {rec}, wallog {log_rows}")
+    assert_same_network("storage: the CLI's recovered store", session.env["rec"],
+                        session.env["net"])
+    log(f"storage: CLI store script of {len(lines)} lines on {device} in {secs:.3f} s: "
+        f"savestore + recovernet {json.dumps(rec)}, equal to the loaded network; "
+        f"wallog {log_rows}; {card}")
+
+
+def phase_storage(net, median_income: int, seed: int, device) -> dict:
+    """Files, mutation, durability and the CLI on the phase's network:
+    save and load (every buffer equal; the mmap load's peak host-RSS growth
+    under the file's size), batches of register changes through the api,
+    the queries on the overlays with launch counts set to 0 just before
+    and read just after (``intersect_rows``, ``segmented_union`` and
+    ``csr_row_sample`` must launch, on overlays ``overlay_update`` wrote,
+    and equal their plain versions there), every query equal to the same
+    query on ``compacted()`` and ORACLE_QUERIES of each kind to the padded
+    plain path, the CLI on the saved file with the same batches and
+    inputs of those queries, the durable store and the CLI's store
+    commands. Returns the launch counts of the queries and of the CLI
+    script."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.layers import DEFAULT_COMPACT_RATIO
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    card = device_line()
+    with tempfile.TemporaryDirectory(prefix="threadle-storage-") as tmpname:
+        tmp = Path(tmpname)
+        path = storage_files(net, tmp, card, device)
+        ops, touched = register_ops(net, seed, device)
+        mutated, walls, compactions = mutate(net, ops, "storage: mutation")
+        log(f"storage: mutation: {len(ops)} ops in {sum(walls):.3f} ms; "
+            f"compactions by the compact-ratio policy "
+            f"({DEFAULT_COMPACT_RATIO}): {json.dumps(dict(compactions))}; {card}")
+        sel = api.selectnodes(mutated, "income", ">", median_income)
+        q = storage_queries(mutated, touched, seed, device)
+        calls = storage_calls(mutated, q, sel, seed)
+        outs, lat = {}, {}
+        build.launch_counts.clear()
+        with Launches("segmented_union_cuda",
+                      lambda flat, max_out: 4 * flat.shape[0] * (flat.shape[1] + max_out),
+                      lambda flat, max_out: tuple(flat.shape)) as union_rows, \
+                DrawInputs() as draws:
+            for name, call in calls.items():
+                ms, outs[name] = host_median_ms(lambda: call(mutated), STORAGE_REPEATS)
+                lat[name] = ms
+                log(f"storage: overlay {name}: median {ms:.3f} ms; {card}")
+            sync()
+        launches = dict(build.launch_counts)
+        log(f"storage: launch counts {json.dumps(launches, sort_keys=True)}")
+        assert_launched("storage", launches,
+                        ("intersect_rows", "segmented_union", "csr_row_sample"))
+        assert_no_sort_rows("storage", launches)
+        t0 = time.perf_counter()
+        compact = mutated.compacted()
+        sync()
+        compact_s = time.perf_counter() - t0
+        log(f"storage: Network.compacted() {compact_s:.3f} s; {card}")
+        clat = {}
+        for name, call in calls.items():
+            ms, out = host_median_ms(lambda: call(compact), STORAGE_REPEATS)
+            clat[name] = ms
+            if not same_result(outs[name], out):
+                raise AssertionError(f"storage: {name} on the overlays differs from "
+                                     "the same query on compacted()")
+            log(f"storage: compacted {name}: median {ms:.3f} ms (overlay "
+                f"{lat[name]:.3f} ms); equal; {card}")
+        storage_plain_check(mutated, q, sel.device_mask(device), device)
+        note = storage_kernel_checks(mutated, touched, union_rows, draws, seed, device)
+        log(f"storage: each query on the overlays equals compacted()'s; "
+            f"{ORACLE_QUERIES} of each kind equal the padded plain path; the "
+            f"kernels equal their plain versions on the port's overlays ({note})")
+        store_compact = compact if STORE_NODES == net.n_nodes else None
+        del compact, calls
+        cli_launches = storage_cli(path, ops, q, outs, sel, median_income, mutated,
+                                   card, device)
+        del outs, mutated
+        if STORE_NODES == net.n_nodes:
+            store_base, store_ops, cli_path = net, ops, path
+        else:
+            t0 = time.perf_counter()
+            store_base, _ = build_network(STORE_NODES, seed, device)
+            store_ops, _ = register_ops(store_base, seed, device)
+            small, _, _ = mutate(store_base, store_ops, "storage: store mutation",
+                                 profile=False)
+            store_compact = small.compacted()
+            cli_path = tmp / "store_net.npz"
+            api.savefile(store_base, str(cli_path), compress=False)
+            log(f"storage: store network of {STORE_NODES} nodes (cut), built, "
+                f"mutated, compacted and saved in {time.perf_counter() - t0:.3f} s")
+        storage_store(store_base, store_compact, store_ops, tmp, card, device)
+        storage_cli_store(cli_path, tmp, card, device)
+    torch.cuda.empty_cache()
+    log(f"storage: phase {time.perf_counter() - t_phase:.3f} s; {card}")
+    return {"launches": launches, "cli_launches": cli_launches}
+
+
+
 class KernelInputs:
     """Within the block, keeps a copy of the inputs of the first launch of
     every distinct shape of each LM kernel, under ``label``, so the checks
@@ -2864,6 +3657,7 @@ def run() -> int:
     phase_hubs(net, median_income, device)
     traversal = phase_traversal(net, median_income, SEED, device)
     sampling = phase_sampling(net, median_income, SEED, device)
+    phase_storage(net, median_income, SEED, device)
     lm = phase_lm(device, SEED)
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
                            panel, traversal, sampling, lm, device)

@@ -1,5 +1,5 @@
-"""repro_torch.core — network storage, queries, traversal, sampling and
-analysis in PyTorch."""
+"""repro_torch.core — network storage, queries, traversal, sampling,
+analysis, files, mutation and durability in PyTorch."""
 
 from .csr import (
     CSR,
@@ -13,10 +13,14 @@ from .csr import (
     resolve_device,
 )
 from .layers import (
+    DEFAULT_COMPACT_RATIO,
     LayerOneMode,
     LayerTwoMode,
+    add_edges,
     compact_layer,
+    delete_edges,
     has_overlay,
+    layer_overlay_ratio,
     one_mode_from_edge_chunks,
     one_mode_from_edges,
     two_mode_empty,
@@ -54,7 +58,15 @@ from .processing import (
     symmetrize,
 )
 from .projection import project_two_mode, projection_nbytes
-from .request import QueryRequest, merge_filter_kwargs, run_queries, run_query
+from .overlay import DeltaOverlay, overlay_ratio, overlay_update
+from .request import (
+    QueryRequest,
+    QueryResult,
+    assert_results_equal,
+    merge_filter_kwargs,
+    run_queries,
+    run_query,
+)
 from .traversal import (
     components_batched,
     ego_batch,
@@ -66,3 +78,26 @@ from .walks import ego_sample, neighborhood_sample, random_walk
 from .memory import memory_report, peak_rss, resident_rss
 from .temporal import TemporalNetwork
 from .convert import network_from_arrays
+from .io import (
+    TruncatedFileError,
+    export_layer_tsv,
+    import_layer_tsv,
+    load_attrs_tsv,
+    load_network,
+    save_network,
+)
+from .wal import (
+    WALCorruptHeaderError,
+    WALReplayError,
+    WALWriteError,
+    WriteAheadLog,
+    apply_op,
+    replay,
+)
+from .snapshot import (
+    DurableStore,
+    RecoveryInfo,
+    SnapshotMissingError,
+    recover,
+    write_snapshot,
+)

@@ -1,7 +1,8 @@
 """Script-style API mirroring the paper's command set: the point queries,
 batched traversal (``khop``, ``egosample``), walk fleets and node samples,
 degree, density, path, component and memory reports, attributes, layers
-and subnetworks.
+and subnetworks, files (npz and TSV), edge mutation and the durable store
+(WAL + snapshots).
 
     nodes = createnodeset(createnodes=10_000_000)       # on the CUDA card
     net   = createnetwork(nodeset=nodes)
@@ -12,7 +13,10 @@ and subnetworks.
 Functional like the JAX package: each mutation returns a new Network.
 ``createnodeset`` / ``createnetwork`` take ``device=None``, which means
 the CUDA card, and raise when there is none; pass ``device="cpu"`` to
-run on the CPU. Every later call follows the network's device.
+run on the CPU. Every later call follows the network's device;
+``loadfile`` and ``recovernet`` take ``device=`` as the builders do. The
+serving calls (``serve``, ``servenet``, ``pingnet``) are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,9 +33,23 @@ from .analysis import (
     density as layer_density,
     shortest_path_length,
 )
-from .csr import SENTINEL
+from .csr import DEFAULT_POLICY, POLICY_INT32, SENTINEL
 from .generators import barabasi_albert, erdos_renyi, random_two_mode, watts_strogatz
-from .layers import LayerTwoMode, one_mode_from_edges, two_mode_empty
+from .io import (
+    IMPORT_CHUNK_ROWS,
+    export_layer_tsv,
+    import_layer_tsv,
+    load_attrs_tsv,
+    load_network,
+    save_network,
+)
+from .layers import (
+    LayerTwoMode,
+    add_edges,
+    delete_edges,
+    one_mode_from_edges,
+    two_mode_empty,
+)
 from .memory import memory_report
 from .network import Network, create_network
 from .nodeset import NodeSelection, Nodeset, create_nodeset
@@ -41,16 +59,26 @@ from .request import QueryRequest, merge_filter_kwargs, run_queries, run_query
 __all__ = [
     "createnodeset", "createnetwork", "addlayer", "generate",
     "checkedge", "getedge", "getnodealters", "shortestpath", "memoryreport",
+    "savefile", "loadfile",
     # attribute manager + selections
-    "setnodeattr", "getnodeattr", "dropattr", "listattrs", "selectnodes",
-    "countnodes", "attributesummary",
+    "setnodeattr", "getnodeattr", "dropattr", "listattrs", "loadattrs",
+    "selectnodes", "countnodes", "attributesummary",
     # degree / structure queries
     "getdegree", "degreedist", "getdensity", "countcomponents",
     # batched traversal and sampling
     "khop", "egosample", "walkbatch", "componentsfast", "samplenodes",
+    # typed query currency (core/request.py) + one-shot execution
+    "QueryRequest", "runquery",
+    # serving (not ported yet: raise NotImplementedError)
+    "serve", "servenet", "pingnet",
     # container surface
-    "listlayers", "deletelayer", "describenet", "subnetwork",
+    "listlayers", "deletelayer", "describenet", "exportlayer",
+    "importlayer", "subnetwork",
+    # durability: batched edge mutation + store save/recover/log
+    "addedges", "deleteedges", "savestore", "recovernet", "wallog",
 ]
+
+UNPORTED = "ROADMAP Queue 1 item 11"
 
 
 def createnodeset(createnodes: int, device=None) -> Nodeset:
@@ -189,6 +217,15 @@ def memoryreport(net: Network):
     return memory_report(net)
 
 
+def savefile(obj: Network, file: str, compress: bool = True) -> None:
+    save_network(obj, file, compress=compress)
+
+
+def loadfile(file: str, mmap: bool = False, device=None) -> Network:
+    """Load an npz network onto ``device`` (``None``: the CUDA card)."""
+    return load_network(file, mmap=mmap, device=device)
+
+
 def degreedist(
     net: Network, layernames: Sequence[str] | None = None, filter=None,
     node_filter=None,
@@ -291,6 +328,29 @@ def walkbatch(
     return np.asarray(paths).tolist()
 
 
+def runquery(net: Network, request):
+    """Execute one :class:`QueryRequest` (or trace-schema dict) against
+    ``net`` -- the no-queue, no-cache reference path."""
+    return run_query(net, QueryRequest.from_any(request))
+
+
+# ---------------------------------------------------------------------------
+# Serving (serve/ of the JAX package): not ported yet
+# ---------------------------------------------------------------------------
+
+
+def serve(net: Network, trace, **kw):
+    raise NotImplementedError(f"serve is not ported yet ({UNPORTED})")
+
+
+def servenet(net: Network, **kw):
+    raise NotImplementedError(f"servenet is not ported yet ({UNPORTED})")
+
+
+def pingnet(host: str, port: int, **kw):
+    raise NotImplementedError(f"pingnet is not ported yet ({UNPORTED})")
+
+
 def samplenodes(
     net: Network, n: int, seed: int = 0,
     selection: NodeSelection | None = None,
@@ -371,6 +431,16 @@ def getnodeattr(net: Network, name: str, nodes):
     """CLI ``getattr`` -> (values, has_mask) numpy arrays."""
     vals, has = net.nodeset.get_attr(name, net._batch(np.atleast_1d(nodes)))
     return vals.cpu().numpy(), has.cpu().numpy()
+
+
+def loadattrs(
+    net: Network, file: str, name: str | None = None, kind: str | None = None
+) -> Network:
+    """CLI ``loadattrs``: sparse TSV attribute import (see io.load_attrs_tsv)."""
+    ns = net.nodeset
+    for aname, akind, ids, vals in load_attrs_tsv(file, name=name, kind=kind):
+        ns = ns.set_attr(aname, akind, ids, vals)
+    return net.with_nodeset(ns)
 
 
 def dropattr(net: Network, name: str) -> Network:
@@ -455,3 +525,90 @@ def subnetwork(net: Network, selection) -> Network:
     """CLI ``subnetwork``: induced subgraph over a NodeSelection, with
     compacted node ids and an ``orig_id`` attribute back-reference."""
     return induced_subnetwork(net, selection)
+
+
+def exportlayer(net: Network, layer: str, file: str) -> None:
+    export_layer_tsv(net, layer, file)
+
+
+def importlayer(
+    net: Network, name: str, file: str, mode: int = 1,
+    directed: bool = False, valued: bool = False,
+    n_hyperedges: int | None = None, default_value: float | None = None,
+    chunk_rows: int | None = None, narrow: bool = True,
+) -> Network:
+    layer = import_layer_tsv(
+        file, net.n_nodes, mode=mode, directed=directed, valued=valued,
+        n_hyperedges=n_hyperedges, default_value=default_value,
+        chunk_rows=IMPORT_CHUNK_ROWS if chunk_rows is None else chunk_rows,
+        policy=DEFAULT_POLICY if narrow else POLICY_INT32, device=net.device,
+    )
+    return net.with_layer(name, layer)
+
+
+# ---------------------------------------------------------------------------
+# Durability: edge mutation, store save / recover / log
+# ---------------------------------------------------------------------------
+
+
+def addedges(net: Network, layer: str, src, dst, values=None) -> Network:
+    """CLI ``addedges``: batched edge/membership insert (upsert on dupes)."""
+    return net.with_layer(layer, add_edges(net.layer(layer), src, dst,
+                                           values=values))
+
+
+def deleteedges(net: Network, layer: str, src, dst) -> Network:
+    """CLI ``deleteedges``: batched edge/membership delete (missing pairs
+    are ignored)."""
+    return net.with_layer(layer, delete_edges(net.layer(layer), src, dst))
+
+
+def savestore(net: Network, dir: str) -> dict:
+    """CLI ``savestore``: seed a durable store directory (snapshot + WAL)
+    from ``net``; later mutations go through ``snapshot.DurableStore``."""
+    from .snapshot import DurableStore
+
+    store = DurableStore.create(dir, net)
+    store.close()
+    return {"dir": str(dir), "last_lsn": store.last_lsn}
+
+
+def recovernet(dir: str, device=None) -> tuple[Network, dict]:
+    """CLI ``recovernet``: rebuild a network on ``device`` from a durable
+    store directory (latest intact snapshot + WAL tail replay) ->
+    (net, recovery info)."""
+    from .snapshot import recover
+
+    net, info = recover(dir, device=device)
+    return net, {
+        "snapshot_lsn": info.snapshot_lsn, "replayed": info.replayed,
+        "last_lsn": info.last_lsn,
+        "snapshots_skipped": info.snapshots_skipped,
+        "torn_bytes": info.torn_bytes,
+    }
+
+
+def wallog(dir: str, after: int = -1) -> list[dict]:
+    """CLI ``wallog``: summarize the durable store's WAL records (lsn, op,
+    and the op's key fields -- payload arrays reported as counts)."""
+    from pathlib import Path
+
+    from .snapshot import WAL_NAME
+    from .wal import scan
+
+    records, _, torn = scan(Path(dir) / WAL_NAME)
+    out = []
+    for r in records:
+        if r.lsn <= after:
+            continue
+        entry = {"lsn": r.lsn, "op": r.op.get("op")}
+        for key in ("name", "layer", "kind", "mode", "directed"):
+            if r.op.get(key) is not None:
+                entry[key] = r.op[key]
+        for key in ("nodes", "src", "dst", "values"):
+            if isinstance(r.op.get(key), list):
+                entry[f"n_{key}"] = len(r.op[key])
+        out.append(entry)
+    if torn:
+        out.append({"lsn": None, "op": "!torn-tail"})
+    return out

@@ -11,8 +11,9 @@ sort, ported verbatim so identical inputs give byte-identical buffers);
 the finished arrays are uploaded to ``device``. Each CSR also keeps a
 host numpy mirror of ``indptr``: the degree-bucketed dispatcher plans
 every query batch from row lengths, and reading a 10M-row ``indptr``
-back from the card per batch would cost a 40 MB copy. Nothing in this
-slice mutates a CSR, so the mirror cannot go stale.
+back from the card per batch would cost a 40 MB copy. No CSR is changed
+in place (mutation builds new delta CSRs and folds into new bases), so
+the mirror cannot go stale.
 
 Device queries are torch ops on int32 tensors. Torch indexing does not
 clip, so every gather clamps its positions first, where the JAX package

@@ -14,7 +14,10 @@ tensors on the layer's device). Two-mode queries always run through the
 degree-bucketed dispatcher (``core/dispatch.py``); the ``*_padded``
 methods are the global-max padded paths, kept as the oracle.
 
-Builders run on the host (numpy) and upload the finished CSRs.
+Builders run on the host (numpy) and upload the finished CSRs. Mutation
+(``add_edges`` / ``delete_edges``) lands in a delta overlay
+(``core/overlay.py``) and folds back into the base past
+``DEFAULT_COMPACT_RATIO``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,6 +53,9 @@ from .overlay import (
     eff_row_gather,
     eff_row_sample,
     eff_value_at,
+    fold_overlay,
+    overlay_ratio,
+    overlay_update,
 )
 
 __all__ = [
@@ -62,9 +68,17 @@ __all__ = [
     "two_mode_empty",
     "has_overlay",
     "compact_layer",
+    "layer_overlay_ratio",
+    "add_edges",
+    "delete_edges",
+    "DEFAULT_COMPACT_RATIO",
 ]
 
 _SENT = int(SENTINEL)
+
+# Compaction policy: fold the overlay into the base CSR once the delta
+# grows past this fraction of the base nnz (and always on snapshot).
+DEFAULT_COMPACT_RATIO = 0.25
 
 
 def _ov_nbytes(ov: DeltaOverlay | None) -> int:
@@ -541,7 +555,7 @@ def two_mode_empty(n_nodes: int, n_hyperedges: int, device=None) -> LayerTwoMode
 
 
 # ---------------------------------------------------------------------------
-# Overlay folding (read side: analysis expands raw CSR buffers)
+# Overlay folding and mutation
 # ---------------------------------------------------------------------------
 
 
@@ -552,28 +566,224 @@ def has_overlay(layer) -> bool:
     return layer.out_ov is not None or layer.in_ov is not None
 
 
-def compact_layer(layer):
-    """Fold the delta overlay into a fresh base CSR (bit-identical).
-
-    The effective edge set goes back through the standard builders, so
-    the result is exactly the layer a from-scratch construction of the
-    same edges would produce, on the layer's device.
-    """
-    if not has_overlay(layer):
-        return layer
-    if isinstance(layer, LayerTwoMode):
-        rows, cols, _ = eff_coo(layer.memb, layer.memb_ov)
-        return two_mode_from_memberships(
-            layer.n_nodes, layer.n_hyperedges, rows, cols,
-            device=layer.memb.device,
-        )
+def _one_mode_logical_edges(
+    layer: LayerOneMode,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
+    """The layer's effective logical edge list (undirected edges once)."""
     rows, cols, vals = eff_coo(layer.out, layer.out_ov)
     if not layer.directed:
         keep = rows <= cols  # each undirected edge stored in both rows
         rows, cols = rows[keep], cols[keep]
         vals = None if vals is None else vals[keep]
-    return one_mode_from_edges(
-        layer.n_nodes, rows, cols, values=vals, directed=layer.directed,
-        allow_self=layer.allow_self, store_inbound=layer.store_inbound,
-        device=layer.out.device,
+    return rows, cols, vals
+
+
+def layer_overlay_ratio(layer) -> float:
+    """Largest delta-to-base nnz ratio across the layer's overlays."""
+    if isinstance(layer, LayerTwoMode):
+        return max(
+            overlay_ratio(layer.memb, layer.memb_ov),
+            overlay_ratio(layer.members, layer.members_ov),
+        )
+    r = overlay_ratio(layer.out, layer.out_ov)
+    if layer.in_ is not None:
+        r = max(r, overlay_ratio(layer.in_, layer.in_ov))
+    return r
+
+
+def compact_layer(layer):
+    """Fold the delta overlay into a fresh base CSR (bit-identical).
+
+    The result is exactly the layer a from-scratch construction of the
+    same edges would produce, on the layer's device: each CSR of the
+    layer is folded with its own overlay (``overlay.fold_overlay``) at
+    the default policy's widths. The overlays of a layer are kept in
+    step (``members`` with ``memb``, ``in_`` with ``out``), so the folded
+    pairs are each other's transposes, as the builders' are.
+    """
+    if not has_overlay(layer):
+        return layer
+    if isinstance(layer, LayerTwoMode):
+        n, h = layer.n_nodes, layer.n_hyperedges
+        dev = layer.memb.device
+        memb = fold_overlay(layer.memb, layer.memb_ov, n, h)
+        members = fold_overlay(layer.members, layer.members_ov, h, n)
+        return LayerTwoMode(
+            memb=csr_from_arrays(*memb, n, h, dev),
+            members=csr_from_arrays(*members, h, n, dev),
+            max_memberships=max(int(np.diff(memb[0]).max(initial=0)), 1),
+            max_hyperedge_size=max(int(np.diff(members[0]).max(initial=0)), 1),
+        )
+    n, dev = layer.n_nodes, layer.out.device
+    out = fold_overlay(layer.out, layer.out_ov, n, n)
+    if not layer.directed and out[2] is not None:
+        # the rebuild takes each undirected edge from its row-min side
+        # (``_one_mode_logical_edges``): the (v, u) copy gets (u, v)'s value.
+        # The structure is symmetric, so the transpose's entries line up.
+        t_vals = host_csr_transpose(*out, n, n)[2]
+        rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(out[0]))
+        out = (out[0], out[1], np.where(rows > out[1], t_vals, out[2]))
+    in_ = None
+    if layer.directed and layer.store_inbound:
+        in_ = (fold_overlay(layer.in_, layer.in_ov, n, n) if layer.in_ is not None
+               else host_csr_transpose(*out, n, n))
+    return LayerOneMode(
+        out=csr_from_arrays(*out, n, n, dev),
+        in_=None if in_ is None else csr_from_arrays(*in_, n, n, dev),
+        directed=layer.directed,
+        valued=out[2] is not None,
+        allow_self=layer.allow_self,
+        store_inbound=layer.store_inbound,
     )
+
+
+def _maybe_compact(layer, compact_ratio):
+    if compact_ratio is not None and layer_overlay_ratio(layer) > compact_ratio:
+        return compact_layer(layer)
+    return layer
+
+
+def _host_ids(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.atleast_1d(np.asarray(x, dtype=np.int64))
+
+
+def _two_mode_update(layer: "LayerTwoMode", memb_ov, members_ov, compact_ratio):
+    new = replace(
+        layer,
+        memb_ov=memb_ov,
+        members_ov=members_ov,
+        max_memberships=max(eff_max_degree(layer.memb, memb_ov), 1),
+        max_hyperedge_size=max(eff_max_degree(layer.members, members_ov), 1),
+    )
+    return _maybe_compact(new, compact_ratio)
+
+
+def add_edges(layer, src, dst, values=None, *,
+              compact_ratio=DEFAULT_COMPACT_RATIO):
+    """Batched edge insert -> new layer (functional; overlay fast path).
+
+    One-mode layers take (src, dst[, values]) edge triples: an edge that
+    already exists takes the NEW value when ``values`` is given, and KEEPS
+    its stored value when ``values=None`` (new edges default to 1.0).
+    Two-mode layers take (node, hyperedge) membership pairs; the
+    hyperedge space grows if a new id exceeds it.
+
+    The batch lands in the layer's delta overlay: only the touched rows
+    are re-resolved. Queries merge the overlay, bit-identical to a full
+    rebuild; once the delta outgrows ``compact_ratio`` x base nnz the
+    overlay is folded back into the base (``compact_ratio=0`` forces an
+    immediate rebuild, ``None`` never auto-compacts).
+    """
+    src, dst = _host_ids(src), _host_ids(dst)
+    if src.shape != dst.shape:
+        raise ValueError("src/dst length mismatch")
+    if isinstance(layer, LayerTwoMode):
+        if values is not None:
+            raise ValueError("two-mode memberships carry no edge values")
+        if src.size == 0:
+            return layer
+        n_hyper = max(layer.n_hyperedges, int(dst.max()) + 1)
+        memb_ov = overlay_update(
+            layer.memb, layer.memb_ov, src, dst, None, n_cols=n_hyper,
+        )
+        members_ov = overlay_update(
+            layer.members, layer.members_ov, dst, src, None, n_rows=n_hyper,
+        )
+        return _two_mode_update(layer, memb_ov, members_ov, compact_ratio)
+    if layer.valued:
+        # values given: the batch goes FIRST, so the first-occurrence
+        # dedup upserts the NEW value. values=None: existing content goes
+        # first -- an existing edge KEEPS its stored value and only new
+        # edges get the 1.0 default.
+        new_first = values is not None
+        if isinstance(values, torch.Tensor):
+            values = values.detach().cpu().numpy()
+        vals = (
+            np.ones(src.shape, np.float32) if values is None
+            else np.broadcast_to(np.asarray(values, dtype=np.float32), src.shape)
+        )
+    else:
+        if values is not None:
+            raise ValueError(
+                "layer is unvalued; re-import it valued to carry values"
+            )
+        new_first = True
+        vals = None
+    if not layer.allow_self:
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        if vals is not None:
+            vals = vals[keep]
+    if src.size == 0:
+        return layer
+    if layer.directed:
+        bs, bd, bv = src, dst, vals
+    else:
+        # canonicalize to (min, max) then mirror: both stored rows of an
+        # undirected edge resolve to the same winning value, whichever
+        # orientation the batch used
+        lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+        bs, bd = np.concatenate([lo, hi]), np.concatenate([hi, lo])
+        bv = None if vals is None else np.concatenate([vals, vals])
+    out_ov = overlay_update(
+        layer.out, layer.out_ov, bs, bd, bv,
+        valued=layer.valued, new_first=new_first,
+    )
+    in_ov = layer.in_ov
+    if layer.directed and layer.in_ is not None:
+        in_ov = overlay_update(
+            layer.in_, layer.in_ov, dst, src, vals,
+            valued=layer.valued, new_first=new_first,
+        )
+    new = replace(layer, out_ov=out_ov, in_ov=in_ov)
+    return _maybe_compact(new, compact_ratio)
+
+
+def delete_edges(layer, src, dst, *, compact_ratio=DEFAULT_COMPACT_RATIO):
+    """Batched edge delete -> new layer (missing pairs are ignored).
+
+    One-mode undirected layers treat (u, v) and (v, u) as the same edge;
+    two-mode layers delete (node, hyperedge) membership pairs. Deletes are
+    tombstones in the delta overlay, with ``add_edges``' compaction policy.
+    """
+    src, dst = _host_ids(src), _host_ids(dst)
+    if src.shape != dst.shape:
+        raise ValueError("src/dst length mismatch")
+    if isinstance(layer, LayerTwoMode):
+        ok = (
+            (src >= 0) & (src < layer.n_nodes)
+            & (dst >= 0) & (dst < layer.n_hyperedges)
+        )
+        src, dst = src[ok], dst[ok]
+        if src.size == 0:
+            return layer
+        memb_ov = overlay_update(
+            layer.memb, layer.memb_ov, src, dst, None, delete=True,
+        )
+        members_ov = overlay_update(
+            layer.members, layer.members_ov, dst, src, None, delete=True,
+        )
+        return _two_mode_update(layer, memb_ov, members_ov, compact_ratio)
+    n = layer.n_nodes
+    ok = (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
+    src, dst = src[ok], dst[ok]
+    if src.size == 0:
+        return layer
+    if layer.directed:
+        bs, bd = src, dst
+    else:
+        bs, bd = np.concatenate([src, dst]), np.concatenate([dst, src])
+    out_ov = overlay_update(
+        layer.out, layer.out_ov, bs, bd, None,
+        delete=True, valued=layer.valued,
+    )
+    in_ov = layer.in_ov
+    if layer.directed and layer.in_ is not None:
+        in_ov = overlay_update(
+            layer.in_, layer.in_ov, dst, src, None,
+            delete=True, valued=layer.valued,
+        )
+    new = replace(layer, out_ov=out_ov, in_ov=in_ov)
+    return _maybe_compact(new, compact_ratio)

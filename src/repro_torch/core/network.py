@@ -219,6 +219,28 @@ class Network:
             layer_names=layer_names, node_filter=node_filter,
         )
 
+    # -- bookkeeping ----------------------------------------------------------
+
+    def compacted(self) -> "Network":
+        """Fold every layer's delta overlay into a rebuilt base CSR.
+
+        Returns ``self`` unchanged when no layer carries an overlay, so
+        callers can use object identity to detect whether compaction did
+        anything. Query results are bit-identical before and after.
+        """
+        from .layers import compact_layer, has_overlay
+
+        if not any(has_overlay(l) for l in self.layers):
+            return self
+        return Network(
+            nodeset=self.nodeset,
+            layers=tuple(
+                compact_layer(l) if has_overlay(l) else l
+                for l in self.layers
+            ),
+            layer_names=self.layer_names,
+        )
+
     @property
     def nbytes(self) -> int:
         return self.nodeset.nbytes + sum(l.nbytes for l in self.layers)

@@ -19,7 +19,9 @@ equal the JAX package's for the same request.
 
 :func:`run_query` executes one request; :func:`run_queries` a batch,
 grouped so requests sharing kind, static arguments and filter run as one
-batched dispatch.
+batched dispatch. :class:`QueryResult` is one served result and
+:func:`assert_results_equal` the deep bit-identity check between two
+results.
 """
 
 from __future__ import annotations
@@ -31,15 +33,18 @@ from dataclasses import dataclass, field
 from typing import Any, Iterable
 
 import numpy as np
+import torch
 
 from .nodeset import node_filter_mask
 
 __all__ = [
     "QueryRequest",
+    "QueryResult",
     "CanonicalRequest",
     "canonical_request",
     "run_query",
     "run_queries",
+    "assert_results_equal",
     "merge_filter_kwargs",
     "POINT_KINDS",
     "HEAVY_KINDS",
@@ -158,6 +163,49 @@ class QueryRequest:
 
 
 _FIELD_NAMES = frozenset(f.name for f in dataclasses.fields(QueryRequest))
+
+
+@dataclass
+class QueryResult:
+    """One served result.
+
+    ``value`` may be shared with other requests; treat it as read-only.
+    ``to_record()`` materializes an independent JSON-safe copy.
+    """
+
+    rid: int
+    kind: str
+    value: Any
+    cached: bool = False
+    error: str | None = None
+
+    def to_record(self) -> dict:
+        rec = {"id": self.rid, "kind": self.kind, "cached": self.cached}
+        if self.error is not None:
+            rec["error"] = self.error
+        else:
+            rec["result"] = _pythonic(self.value)
+        return rec
+
+
+def _pythonic(v):
+    """Canonical result -> JSON-friendly python (lists / scalars); a
+    tensor goes through its host copy."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, np.bool_):
+        return bool(v)
+    if isinstance(v, (np.integer,)):
+        return int(v)
+    if isinstance(v, (np.floating,)):
+        return float(v)
+    if isinstance(v, dict):
+        return {k: _pythonic(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_pythonic(x) for x in v]
+    return v
 
 
 # ---------------------------------------------------------------------------
@@ -401,3 +449,20 @@ def run_queries(net, reqs: Iterable) -> list:
         for i, v in zip(idxs, vals):
             out[i] = v
     return out
+
+
+def assert_results_equal(a, b) -> None:
+    """Deep bit-identity between two canonical request results."""
+    assert type(a) is type(b), (type(a), type(b))
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert_results_equal(a[k], b[k])
+    elif isinstance(a, list):
+        assert len(a) == len(b), (len(a), len(b))
+        for x, y in zip(a, b):
+            assert_results_equal(x, y)
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b, (a, b)

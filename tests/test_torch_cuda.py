@@ -28,6 +28,8 @@ from repro_torch.kernels.frontier import MAX_CAND
 from repro_torch.kernels.segmented_union import MAX_FLAT
 from repro_torch.kernels.ssd_scan import kernel_chunk, tma_ready, uses_tensor_cores
 
+from _torch_parity import assert_network_identical
+
 S = int(SENTINEL)
 
 
@@ -902,3 +904,116 @@ def test_model_on_cuda_matches_cpu(cuda_device, arch):
     want = ServeEngine(cpu, max_seq=32).generate(reqs)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+# ---------------------------------------------------------------------------
+# Files, mutation, durability and the CLI on the card
+# ---------------------------------------------------------------------------
+
+
+def _storage_net(device, seed=1930, n=3000):
+    """A two-mode layer of uint16 ids, one of int32 ids, an undirected
+    valued layer and an attribute, built on ``device`` from one seed."""
+    from repro_torch.core.layers import one_mode_from_edges, two_mode_from_memberships
+
+    rng = np.random.default_rng(seed)
+    net = api.createnetwork(api.createnodeset(n, device=device))
+    net = api.generate(api.addlayer(net, "W", 2), "W", type="2mode", h=60, a=4, seed=seed)
+    net = net.with_layer("R", two_mode_from_memberships(
+        n, 70_000, rng.integers(0, n, 4000), rng.integers(0, 70_000, 4000), device=device))
+    s, d = rng.integers(0, n, (2, 8000))
+    net = net.with_layer("F", one_mode_from_edges(
+        n, s, d, values=rng.random(8000).astype(np.float32), device=device))
+    return api.setnodeattr(net, "age", np.arange(n), np.arange(n) % 90, kind="int")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mmap", [False, True])
+def test_file_load_on_cuda_matches_cpu(cuda_device, tmp_path, mmap):
+    from repro_torch.core import io
+
+    net = _storage_net(cuda_device)
+    path = tmp_path / "n.npz"
+    io.save_network(net, path, compress=not mmap)
+    got = io.load_network(path, mmap=mmap, device=cuda_device)
+    assert got.layer("W").memb.indices.is_cuda
+    assert_network_identical(got, io.load_network(path, mmap=mmap, device="cpu"))
+    assert_network_identical(got, net)
+
+
+@pytest.mark.cuda
+def test_staged_upload_spans_many_chunks(cuda_device, tmp_path):
+    """An array several staging buffers long, mapped and in memory."""
+    from repro_torch.core import io
+
+    arr = np.random.default_rng(1931).integers(0, 2**31 - 1, 3 * io.STAGING_BYTES // 8 + 5)
+    mm = np.memmap(tmp_path / "a.bin", dtype=np.int64, mode="w+", shape=arr.shape)
+    mm[:] = arr
+    mm.flush()
+    mapped = np.memmap(tmp_path / "a.bin", dtype=np.int64, mode="r", shape=arr.shape)
+    loader = io._Loader(cuda_device)
+    try:
+        for src in (mapped, arr.astype(np.uint16)):
+            got = loader.tensor(src)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), torch.from_numpy(np.array(src)))
+    finally:
+        loader.close()
+
+
+@pytest.mark.cuda
+def test_mutation_on_cuda_matches_cpu(cuda_device):
+    """The same batches on the card and on the CPU: identical overlays, the
+    same compaction, and the point queries, alters and a walk fleet equal."""
+    nets = {dev: _storage_net(dev) for dev in (cuda_device, torch.device("cpu"))}
+    rng = np.random.default_rng(1932)
+    a, b = rng.integers(0, 3000, (2, 300))
+    vals = rng.random(300).astype(np.float32)
+    for dev, net in nets.items():
+        net = api.addedges(net, "W", a[:100], b[:100] % 60)
+        net = api.addedges(net, "R", a[:50], 65_536 + b[:50] % 100)  # past uint16
+        net = api.deleteedges(net, "W", a[100:150], b[100:150] % 60)
+        net = api.addedges(net, "F", a, b, values=vals)
+        net = api.deleteedges(net, "F", b[:40], a[:40])
+        nets[dev] = net
+    gpu, cpu = nets[cuda_device], nets[torch.device("cpu")]
+    assert gpu.layer("R").memb_ov.delta.indices.dtype == torch.int32
+    assert_network_identical(gpu, cpu)
+    assert_network_identical(gpu.compacted(), cpu.compacted())
+    u, v = rng.integers(0, 3000, (2, 512))
+    for name in ("W", "R", "F"):
+        assert torch.equal(api.getedge(gpu, name, u, v), api.getedge(cpu, name, u, v))
+        assert torch.equal(api.checkedge(gpu, name, u, v).cpu(), api.checkedge(cpu, name, u, v))
+    for x, y in zip(api.getnodealters(gpu, u[:64]), api.getnodealters(cpu, u[:64])):
+        assert torch.equal(x, y)
+    assert (api.walkbatch(gpu, u[:64], 8, walkers=2, seed=5, layernames=["W", "R"])
+            == api.walkbatch(cpu, u[:64], 8, walkers=2, seed=5, layernames=["W", "R"]))
+
+
+@pytest.mark.cuda
+def test_store_and_cli_on_cuda_match_cpu(cuda_device, tmp_path):
+    import json
+
+    from repro_torch.core import snapshot, wal
+    from repro_torch.core.cli import Session
+
+    store = snapshot.DurableStore.create(tmp_path / "store", _storage_net(cuda_device))
+    store.apply(wal.make_add_edges_op("W", torch.arange(5, device=cuda_device),
+                                      torch.arange(5, device=cuda_device)))
+    store.apply(wal.make_set_attr_op("age", [1, 2], [33, 44], kind="int"))
+    want = store.net
+    store.close()
+    got, info = snapshot.recover(tmp_path / "store", device=cuda_device)
+    assert info.replayed == 2
+    assert_network_identical(got, want)
+    assert_network_identical(got, snapshot.recover(tmp_path / "store", device="cpu")[0])
+    script = (f'net = loadfile(file = "{tmp_path}/n.npz", mmap = true)\n'
+              "addedges(net, W, src = 1;2, dst = 3;4)\n"
+              "checkedge(net, W, 1, 2)\ngetnodealters(net, 1, layernames = W; F)\n"
+              "khop(net, 1; 2, k = 2, layernames = W)\n")
+    from repro_torch.core import io
+
+    io.save_network(_storage_net("cpu"), tmp_path / "n.npz", compress=False)
+    outs = {dev: [json.loads(o) for o in Session(mode="json", device=dev).run_script(script)]
+            for dev in (cuda_device, "cpu")}
+    assert outs[cuda_device] == outs["cpu"]

@@ -201,6 +201,22 @@ def test_kernel_record_falls_back_to_event_time_when_a_kernel_is_lost(
     assert len(windows) == smoke.PROFILER_WINDOWS
 
 
+def test_kernel_record_falls_back_to_event_time_when_every_event_is_lost(
+        smoke, monkeypatch):
+    _stub_timing(smoke, monkeypatch, {}, event_ms=0.5)
+    calls = []
+
+    def lost(fn, iters):
+        calls.append(iters)
+        raise smoke.ProfilerLostEvents("no device activity in 3 windows")
+
+    monkeypatch.setattr(smoke, "device_activity", lost)
+    rec = _ssd_record(smoke, ("ssd_tc_kernel",))
+    assert rec["ms"] == 0.5
+    assert rec["ms_from"] == "cuda events, host launch included"
+    assert len(calls) == smoke.PROFILER_WINDOWS
+
+
 def test_call_device_ms_refuses_a_kernel_launched_more_than_once_a_call(smoke):
     with pytest.raises(AssertionError, match="once a call"):
         smoke.call_device_ms({"ssd_tc_kernel": [20, 10.0]}, ("ssd_tc_kernel",), 10)
@@ -411,3 +427,206 @@ def test_busy_share_reads_not_measured_when_the_profiler_loses_every_event(
     monkeypatch.setattr(smoke, "device_activity", fault)
     with pytest.raises(RuntimeError, match="illegal"):
         smoke.busy_share(lambda: None, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# The storage phase, rehearsed on the CPU: counting stand-ins for the three
+# kernels' CUDA entries (each the plain version), cut constants
+# ---------------------------------------------------------------------------
+
+STORAGE_CUT = {
+    "REG_MOVES": 40, "REG_NEW_GROUPS": 10, "REG_NEW_MEMBERS": 50,
+    "REG_RANDOM_ADDS": 200, "REG_RANDOM_DELETES": 40, "REG_SCHOOL_JOINS": 40,
+    "REG_INCOME_UPDATES": 40, "POINT_PAIRS": 64, "ALTERS_NODES": 32,
+    "DEGREE_NODES": 64, "ORACLE_QUERIES": 16, "MAX_ALTERS": 512,
+    "STORAGE_WALK_STARTS": 64, "STORAGE_WALK_STEPS": 5, "STORAGE_REPEATS": 1,
+    "CLI_QUERIES": 4,
+}
+STORAGE_NODES = 20_000
+
+
+def _counting(key, fn):
+    from repro_torch.kernels import build
+
+    def run(*args, **kwargs):
+        build.launch_counts[key] += 1
+        return fn(*args, **kwargs)
+
+    return run
+
+
+@pytest.fixture
+def storage_smoke(smoke, monkeypatch):
+    """``chip_smoke`` with the storage phase's kernels stood in on the CPU
+    and its constants cut; the network is built once per test."""
+    import time
+
+    from repro_torch.core.csr import SENTINEL
+
+    for name, value in STORAGE_CUT.items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "STORE_NODES", STORAGE_NODES)
+    monkeypatch.setattr(smoke, "sync", lambda: None)
+    monkeypatch.setattr(smoke, "device_line", lambda fields="": "cpu (stand-in)")
+
+    def profiled(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, {}, out
+
+    monkeypatch.setattr(smoke, "profiled", profiled)
+    monkeypatch.setattr(ops, "intersect_rows",
+                        _counting("intersect_rows", ops.intersect_rows))
+    monkeypatch.setattr(ops, "segmented_union_cuda", _counting(
+        "segmented_union", lambda flat, max_out: ref.segmented_union_ref(flat, max_out)[0]))
+
+    def union(flat, max_out, *, tile=ops.MAX_FLAT):
+        batch, k = flat.shape[:-1], flat.shape[-1]
+        out = ops.segmented_union_cuda(flat.reshape(-1, k).contiguous(), max_out)
+        out = out.reshape(batch + (max_out,))
+        return out, out != int(SENTINEL)
+
+    monkeypatch.setattr(ops, "segmented_union", union)
+
+    def sample_cuda(indptr, ids, rows, k1, k2, *, overlay=None):
+        base, ov = smoke.draw_csrs((indptr, ids, rows), {"overlay": overlay})
+        return ref.csr_row_sample_ref(base, ov, rows, k1, k2)
+
+    monkeypatch.setattr(ops, "csr_row_sample_cuda",
+                        _counting("csr_row_sample", sample_cuda))
+
+    def sample(base, ov, rows, k1, k2):
+        overlay = None if ov is None else (ov.dirty, ov.delta.indptr, ov.delta.indices)
+        flat = rows.reshape(-1).to(torch.int32).contiguous()
+        s, v = ops.csr_row_sample_cuda(base.indptr, base.indices, flat, k1, k2,
+                                       overlay=overlay)
+        return s.reshape(rows.shape), v.reshape(rows.shape)
+
+    monkeypatch.setattr(ops, "csr_row_sample", sample)
+    monkeypatch.setattr(ops, "frontier_compact",
+                        _counting("frontier_compact", ops.frontier_compact))
+    # a load on the CPU holds the whole network on the host: the reading's
+    # own checks are rehearsed below
+    monkeypatch.setattr(smoke, "load_rss", lambda path, mmap, device: {
+        "growth": 1, "mirrors": 1, "staging": 0})
+    net, median = smoke.build_network(STORAGE_NODES, 0, torch.device("cpu"))
+    return smoke, net, median
+
+
+def test_storage_phase_rehearsed_on_the_cpu(storage_smoke, capsys):
+    smoke, net, median = storage_smoke
+    out = smoke.phase_storage(net, median, 0, torch.device("cpu"))
+    for key in ("intersect_rows", "segmented_union", "csr_row_sample"):
+        assert out["launches"][key] > 0
+    text = capsys.readouterr().out
+    assert "each query on the overlays equals compacted()'s" in text
+    # the Schools batch past 65,535 leaves an int32 delta over a uint16 base
+    assert "Schools: memb torch.uint16 base under a torch.int32 delta" in text
+    assert out["cli_launches"]["frontier_compact"] > 0
+    assert "WAL cut at byte" in text and "CLI script" in text
+    assert "its network equals the directly mutated one" in text
+    assert "CLI store script" in text
+
+
+@pytest.mark.parametrize("reading", ["below the floor", "the file's size"])
+def test_storage_files_rejects_a_load_rss_reading(storage_smoke, monkeypatch,
+                                                  tmp_path, reading):
+    """A reading under what the load allocates (indptr mirrors + staging)
+    misses growth; an mmap load's at the file's size made a host copy."""
+    smoke, net, _ = storage_smoke
+    growth = 99 if reading == "below the floor" else 1 << 40
+    monkeypatch.setattr(smoke, "load_rss", lambda path, mmap, device: {
+        "growth": growth, "mirrors": 64, "staging": 36})
+    with pytest.raises(AssertionError, match="below|not less than the file"):
+        smoke.storage_files(net, tmp_path, "cpu (stand-in)", torch.device("cpu"))
+
+
+def test_load_rss_reads_the_load_alone(smoke, tmp_path):
+    """The reading in a fresh interpreter: on the CPU the load holds every
+    array on the host, so it passes the mirrors and needs no staging."""
+    from repro_torch.core import api
+
+    net, _ = smoke.build_network(2_000, 0, torch.device("cpu"))
+    path = tmp_path / "n.npz"
+    api.savefile(net, str(path), compress=False)
+    got = smoke.load_rss(path, True, torch.device("cpu"))
+    assert got["staging"] == 0
+    assert got["mirrors"] == sum(
+        c.indptr_host.nbytes for layer in net.layers
+        for c in ((layer.memb, layer.members) if layer.mode == 2 else (layer.out, layer.in_))
+        if c is not None)
+    assert got["growth"] >= got["mirrors"] > 0
+
+
+def _changed(net, what: str):
+    """A copy of ``net`` with one buffer changed."""
+    from dataclasses import replace
+
+    layer = net.layer("Households")
+    memb = layer.memb
+    if what == "element":
+        ids = memb.indices.clone()
+        ids.view(torch.int16)[3] += 1  # uint16 ids: torch adds on int16
+        return net.with_layer("Households", replace(layer, memb=replace(memb, indices=ids)))
+    if what == "dtype":
+        return net.with_layer("Households", replace(layer, memb=replace(
+            memb, indptr=memb.indptr.to(torch.int64))))
+    col = net.nodeset.attrs.column("income")
+    vals = col.values.clone()
+    vals[-1] += 1
+    attrs = net.nodeset.attrs.with_column("income", replace(col, values=vals))
+    return net.with_nodeset(replace(net.nodeset, attrs=attrs))
+
+
+@pytest.mark.parametrize("what", ["element", "dtype", "attribute"])
+def test_assert_same_network_rejects_a_changed_buffer(storage_smoke, what):
+    smoke, net, _ = storage_smoke
+    assert smoke.assert_same_network("same", net, net) > 0
+    with pytest.raises(AssertionError, match="differs"):
+        smoke.assert_same_network("changed", _changed(net, what), net)
+
+
+def test_storage_phase_rejects_a_query_differing_from_compacted(storage_smoke,
+                                                               monkeypatch):
+    from repro_torch.core.network import Network
+
+    smoke, net, median = storage_smoke
+    real = Network.compacted
+
+    def compacted(self):
+        out = real(self)
+        if out is self:  # nothing to fold: the file save's call
+            return out
+        return out.with_layer("Households", out.layer("Workplaces"))
+
+    monkeypatch.setattr(Network, "compacted", compacted)
+    with pytest.raises(AssertionError, match="differs from the same query on compacted"):
+        smoke.phase_storage(net, median, 0, torch.device("cpu"))
+
+
+def test_storage_phase_rejects_a_recovery_missing_the_last_op(storage_smoke,
+                                                             monkeypatch):
+    from repro_torch.core import wal
+
+    smoke, net, median = storage_smoke
+    real = wal.WriteAheadLog.append
+
+    def append(self, op):
+        if op["op"] == "set_attr":  # acknowledged, never written
+            self.last_lsn += 1
+            return self.last_lsn
+        return real(self, op)
+
+    monkeypatch.setattr(wal.WriteAheadLog, "append", append)
+    with pytest.raises(AssertionError, match="recovery replayed"):
+        smoke.phase_storage(net, median, 0, torch.device("cpu"))
+
+
+def test_storage_phase_runs_the_store_on_a_cut_network(storage_smoke, monkeypatch,
+                                                      capsys):
+    smoke, net, median = storage_smoke
+    monkeypatch.setattr(smoke, "STORE_NODES", STORAGE_NODES // 2)
+    smoke.phase_storage(net, median, 0, torch.device("cpu"))
+    text = capsys.readouterr().out
+    assert f"store network of {STORAGE_NODES // 2} nodes (cut)" in text
+    assert f"store of {STORAGE_NODES // 2} nodes" in text
