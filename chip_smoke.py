@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — pseudo-projection point queries, batched
-traversal, sampling and analysis, files, mutation and durability on a
-population-scale mixed-mode network, and LM serving at full width — on
-the card, through the entry points a user calls
-(``repro_torch.core.api``, ``repro_torch.core.cli``,
-``repro_torch.models.lm_serve``), and
+traversal, sampling and analysis, files, mutation and durability, and the
+graph-serving engine and its wire on a population-scale mixed-mode
+network, and LM serving at full width — on the card, through the entry
+points a user calls (``repro_torch.core.api``, ``repro_torch.core.cli``,
+``repro_torch.serve``, ``repro_torch.models.lm_serve``), and
 fails (non-zero exit) if any phase fails:
 
 1. device   — the card's name and power limit (nvidia-smi);
@@ -121,7 +121,27 @@ fails (non-zero exit) if any phase fails:
               the directly mutated one, its outputs those queries', and
               frontier_compact must launch), the other runs savestore,
               recovernet and wallog on ``STORE_NODES`` nodes;
-12. lm      — LM serving at full width, bf16, through
+12. serving — the graph-serving engine on the same network (counts reset
+              before, read after; the oracle's launches not counted): the
+              JAX package's serving trace (benchmarks/run.py, seed 17) of
+              10,000 requests, getedge on Workplaces, alters and k-hop on
+              Households + Random, walks on Random, income > median as the
+              filter. (a) ``api.serve`` and a profiled engine run against a
+              loop of single calls: rates, cache hits, coalesced
+              duplicates, batches and launches per kind, device busy, idle
+              and host-to-device share; every result bit-identical, 256 of
+              each trace kind equal to the plain paths; (b)
+              ``api.servenet`` with 8 client sessions: capacity from a
+              closed loop of 2,000 requests, then an open loop at 0.8 of it
+              under the reference's fault burst (p50/p90/p99, faults,
+              idempotent replays), every wire result equal to (a)'s, no
+              error, ready afterwards, every CUDA launch and copy of the
+              window on the pump thread; (c) 16 mutations interleaved,
+              scoped against global invalidation, equal results, scoped
+              misses at most global. intersect_rows, segmented_union,
+              frontier_compact and csr_row_sample must launch, no sort
+              rows; at most 180 s;
+13. lm      — LM serving at full width, bf16, through
               ``ServeEngine.generate``: qwen3-1.7b (28 layers, d_model
               2048) and mamba2-130m (24 layers, d_model 768), each with
               weights drawn from a seeded generator, serving 8 requests of
@@ -142,7 +162,7 @@ fails (non-zero exit) if any phase fails:
               against the argmax of ``Model.apply``, and, in an f32 copy
               of each model, prefill + 8 decode steps against
               ``Model.apply`` (2 requests, 256-token prompts);
-13. timing  — each kernel, its plain version and its bound at the heaviest
+14. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
               by CUDA events with the L2 flushed before each launch; the
@@ -319,6 +339,58 @@ STORAGE_WALK_STEPS = 40
 STORAGE_REPEATS = 3
 CLI_QUERIES = 8
 
+# Serving phase (benchmarks/torch_serve_slo.py): the JAX package's
+# serving trace (benchmarks/run.py::build_serve_trace, seed 17) of
+# SERVE_REQUESTS on the register network: getedge on Workplaces, alters
+# and k-hop on Households + Random, walks on Random, income > median as
+# the filter. (a) the engine (SERVE_CACHE entries) against a loop of
+# single calls on every SERVE_LOOP_STRIDE-th request (the wire's results
+# are held against the engine's for every request); (b) the wire:
+# SERVE_CLIENTS sessions, capacity from a closed loop of the first
+# SERVE_CAPACITY_REQUESTS, then an open loop at SERVE_LOAD of it with the
+# reference's fault burst; (c) SERVE_MUTATIONS interleaved mutations (8
+# add_edges of 4 Random ties, 8 aux rewrites of 4 nodes; the reference's
+# 64 cut to 16, a Random batch costing 1.4-2.4 s of host numpy at 10M),
+# scoped against global invalidation.
+SERVE_REQUESTS = 10_000
+SERVE_SEED = 17
+SERVE_CACHE = 4096
+# the loop of single calls runs every 4th request (cut): all 10,000 took
+# 169.4 s on an NVIDIA H100 80GB HBM3 at 700 W, past the phase's 180 s
+SERVE_LOOP_STRIDE = 4
+SERVE_CLIENTS = 8
+SERVE_CAPACITY_REQUESTS = 2_000
+SERVE_LOAD = 0.8
+SERVE_DEADLINE_MS = 2000.0
+SERVE_MUTATIONS = 16
+SERVE_AUX_SEED = 23
+SERVE_MUTATION_SEED = 41
+SERVE_TARGET_RATIO = 5.0  # the reference's engine-vs-loop target, printed
+SERVE_P99_BUDGET_MS = 50.0  # the reference's p99 budget, printed
+SERVE_PHASE_LIMIT_S = 180.0
+SERVE_KERNELS = ("intersect_rows", "segmented_union", "frontier_compact",
+                 "csr_row_sample")
+# the CUDA kernel each graph launch count launches, once a count: a
+# profiled window that holds fewer of these kernels' device events than
+# the counts rose by lost events
+GRAPH_KERNEL_SYMBOLS = {
+    "intersect_rows": "intersect_rows_kernel",
+    "intersect_count": "intersect_count_kernel",
+    "segmented_union": "segmented_union_kernel",
+    "segmented_union_count": "segmented_union_kernel",
+    "segmented_union_wide": "segmented_union_kernel",
+    "union_merge": "union_merge_kernel",
+    "union_compact": "union_compact_kernel",
+    "frontier_compact": "frontier_kernel",
+    "csr_row_sample": "csr_row_sample_kernel",
+    "threefry_bits": "threefry_bits_kernel",
+    "randint": "randint_kernel",
+}
+# (b) sends one attribute write over the wire half way through the open
+# loop, on a column no request of the trace reads
+SERVE_PROBE_ATTR = "probe"
+SERVE_PROBE_NODES = (0, 1, 2, 3)
+
 # LM phase: both configurations at full width in bf16 (depth not cut),
 # random weights from SEED. Traffic: LM_REQUESTS prompts of LM_PROMPT
 # seeded tokens, LM_NEW new tokens, greedy and at LM_TEMPERATURE.
@@ -437,6 +509,18 @@ class ProfilerLostEvents(RuntimeError):
     """The profiler delivered no device event in any of its windows."""
 
 
+def device_events(prof) -> dict:
+    """A profile's device activities: {name: [events, microseconds]}."""
+    import torch
+
+    acts = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acts[e.name][0] += 1
+            acts[e.name][1] += e.time_range.elapsed_us()
+    return acts
+
+
 def device_activity(fn, iters: int) -> dict:
     """Every kernel, copy and fill that ``iters`` calls of ``fn`` put on
     the card, after a warm-up (torch.profiler/CUPTI): {name: [events,
@@ -448,7 +532,6 @@ def device_activity(fn, iters: int) -> dict:
     raises, so a time reported as device time always is one. A busy time
     summed from a window that lost events is a lower bound.
     """
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -461,11 +544,7 @@ def device_activity(fn, iters: int) -> dict:
                 for _ in range(iters):
                     fn()
                 sync()
-        acts = collections.defaultdict(lambda: [0, 0.0])
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                acts[e.name][0] += 1
-                acts[e.name][1] += e.time_range.elapsed_us()
+        acts = device_events(prof)
         if sum(us for _, us in acts.values()) > 0:
             return acts
     raise ProfilerLostEvents(
@@ -2005,7 +2084,6 @@ def prefix_check(label: str, got, want, excused, checked: int) -> str:
 def profiled(fn) -> tuple:
     """One call of ``fn`` under the profiler -> (wall ms, device busy ms,
     busiest activities, output). For calls too heavy to repeat."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -2016,12 +2094,7 @@ def profiled(fn) -> tuple:
             out = fn()
             sync()
             wall = (time.perf_counter() - t0) * 1e3
-    acts = collections.defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            acts[e.name][0] += 1
-            acts[e.name][1] += e.time_range.elapsed_us()
-    return wall, acts, out
+    return wall, device_events(prof), out
 
 
 def busy_line(acts: dict, wall_ms: float, top: int = 4) -> str:
@@ -3172,6 +3245,546 @@ def phase_storage(net, median_income: int, seed: int, device) -> dict:
 
 
 
+def serve_slo():
+    """``benchmarks/torch_serve_slo.py``: the serving trace and the wire's
+    load generators."""
+    bench = str(ROOT / "benchmarks")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import torch_serve_slo
+
+    return torch_serve_slo
+
+
+class ServeThreads:
+    """Within the block, wraps the engine's executors, ``Nodeset.select``
+    and the api's mutations: the threads the queries and the mutations
+    ran on, and the launch counts each request kind's dispatches added.
+    Counts nothing itself."""
+
+    MUTATIONS = ("addedges", "deleteedges", "setnodeattr", "deletelayer")
+
+    def __init__(self):
+        self.threads = collections.Counter()
+        self.mutations = collections.Counter()
+        self.by_kind = collections.defaultdict(collections.Counter)
+
+    def __enter__(self):
+        import threading
+
+        from repro_torch.core import api
+        from repro_torch.core.nodeset import Nodeset
+        from repro_torch.kernels import build
+        from repro_torch.serve import graph_engine as ge
+
+        self._real = dict(ge._EXECUTORS)
+        self._select = Nodeset.select
+        self._api = {name: getattr(api, name) for name in self.MUTATIONS}
+
+        def mutation(real):
+            def call(*args, **kw):
+                self.mutations[threading.get_ident()] += 1
+                return real(*args, **kw)
+            return call
+
+        for name, real in self._api.items():
+            setattr(api, name, mutation(real))
+
+        def wrap(kind, real):
+            def call(net, group_key, creqs):
+                self.threads[threading.get_ident()] += 1
+                before = collections.Counter(build.launch_counts)
+                out = real(net, group_key, creqs)
+                self.by_kind[kind].update(build.launch_counts - before)
+                return out
+            return call
+
+        for kind, real in self._real.items():
+            ge._EXECUTORS[kind] = wrap(kind, real)
+        real_select = self._select
+
+        def select(ns, *args, **kw):
+            self.threads[threading.get_ident()] += 1
+            return real_select(ns, *args, **kw)
+
+        Nodeset.select = select
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import api
+        from repro_torch.core.nodeset import Nodeset
+        from repro_torch.serve import graph_engine as ge
+
+        ge._EXECUTORS.update(self._real)
+        Nodeset.select = self._select
+        for name, real in self._api.items():
+            setattr(api, name, real)
+
+
+def kind_line(by_kind: dict) -> str:
+    return "; ".join(f"{kind} {json.dumps(dict(c), sort_keys=True)}"
+                     for kind, c in sorted(by_kind.items()))
+
+
+def wire_value(value):
+    """A served value as a client receives it: JSON round-tripped."""
+    from repro_torch.serve.graph_engine import _pythonic
+
+    return json.loads(json.dumps(_pythonic(value)))
+
+
+def graph_launches(counts) -> int:
+    """Kernel launches among launch counts (the plain sorts' counts are
+    not launches)."""
+    return sum(v for k, v in counts.items() if k in GRAPH_KERNEL_SYMBOLS)
+
+
+def graph_kernel_events(acts: dict) -> int:
+    """Device events of the graph kernels among profiled activities
+    ({name: [events, microseconds]})."""
+    import re
+
+    pattern = re.compile(
+        r"\b(" + "|".join(sorted(set(GRAPH_KERNEL_SYMBOLS.values()))) + r")\b")
+    return sum(n for name, (n, _) in acts.items() if pattern.search(name))
+
+
+def launch_threads(prof) -> collections.Counter:
+    """The threads that made the CUDA launches and copies the profiler
+    saw: {thread id: events}, runtime API events only. Kineto files such
+    an event under the native id of a thread it has registered, else under
+    the low 32 bits of the thread's ``threading.get_ident()`` as a signed
+    int; the profiler's own ``thread`` field numbers threads its own way
+    and reads the same for every thread."""
+    import torch
+
+    names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset",
+             "cudaLaunchKernelExC")
+    out = collections.Counter()
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() == torch.autograd.DeviceType.CPU
+                and ev.name().startswith(names)):
+            out[ev.device_resource_id()] += 1
+    return out
+
+
+def thread_ids(thread) -> set:
+    """The ids ``launch_threads`` may file ``thread``'s events under."""
+    low = thread.ident & 0xFFFFFFFF
+    return {thread.native_id, low, low - (1 << 32) if low >> 31 else low}
+
+
+def serving_oracle(net, trace, values, median_income, device) -> None:
+    """ORACLE_QUERIES requests of each trace kind (the first of each in
+    the trace) against the port's plain paths on the card, bit for bit: getedge on the padded
+    intersection, alters on the padded union and the plain dedup, degree on
+    the per-layer degrees, k-hop with the plain compaction and merge
+    (``use_kernel=False``), walks with the plain row sample."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.traversal import khop_neighborhood, khop_records
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import assert_results_equal, run_request
+
+    slo = serve_slo()
+    picks = collections.defaultdict(list)
+    for i, req in enumerate(trace):
+        if len(picks[slo.trace_kind(req)]) < ORACLE_QUERIES:
+            picks[slo.trace_kind(req)].append(i)
+    nf = api.selectnodes(net, "income", ">", median_income).device_mask(device)
+    bad = []
+
+    def ids_of(idx, key):
+        return torch.tensor([trace[i][key] for i in idx], dtype=torch.int32,
+                            device=device)
+
+    for kind in ("getedge", "fgetedge"):
+        idx = picks[kind]
+        layer = net.layer(trace[idx[0]]["layer"])
+        want = layer.edge_value_padded(
+            ids_of(idx, "u"), ids_of(idx, "v"),
+            node_filter=nf if kind == "fgetedge" else None).cpu().numpy()
+        if [float(w) for w in want] != [values[i] for i in idx]:
+            bad.append(kind)
+    for kind in ("alters", "falters"):
+        idx = picks[kind]
+        req = trace[idx[0]]
+        ut, m, mask = ids_of(idx, "u"), req["max_alters"], (
+            nf if kind == "falters" else None)
+        parts = [
+            layer.node_alters_padded(ut, m, node_filter=mask)[0] if layer.mode == 2
+            else layer.node_alters(ut, m, node_filter=mask)[0]
+            for layer in (net.layer(name) for name in req["layers"])]
+        want, wmask = ref.segmented_union_ref(torch.cat(parts, dim=-1), m)
+        want, wmask = want.cpu().numpy(), wmask.cpu().numpy()
+        if any(not np.array_equal(want[j][wmask[j]], values[i])
+               for j, i in enumerate(idx)):
+            bad.append(kind)
+    idx = picks["degree"]
+    ut = ids_of(idx, "u").long()
+    want = sum(layer.degrees()[ut].cpu().long() for layer in net.layers).tolist()
+    if want != [values[i] for i in idx]:
+        bad.append("degree")
+    idx = picks["khop"]
+    req = trace[idx[0]]
+    src = [trace[i]["sources"] for i in idx]
+    nodes, mask, hops = khop_neighborhood(
+        net, np.asarray(src, np.int32), req["k"], max_frontier=req["max_frontier"],
+        layer_names=req["layers"], use_kernel=False)
+    records = khop_records(src, nodes, mask, hops)
+    try:
+        for j, i in enumerate(idx):
+            assert_results_equal(values[i], records[j : j + 1])
+    except AssertionError:
+        bad.append("khop")
+    kernel = ops.csr_row_sample
+    ops.csr_row_sample = ref.csr_row_sample_ref
+    try:
+        for i in picks["walkbatch"]:
+            if not np.array_equal(run_request(net, trace[i]), values[i]):
+                bad.append("walkbatch")
+                break
+    finally:
+        ops.csr_row_sample = kernel
+    if bad:
+        raise AssertionError(f"serving: served results differ from the plain "
+                             f"paths: {bad}")
+    log(f"serving: oracle: {ORACLE_QUERIES} requests of each trace kind "
+        f"({', '.join(sorted(picks))}) bit-identical to the plain paths on "
+        "the card")
+
+
+def serving_engine(net, trace, median_income, card: str, device) -> dict:
+    """(a) the engine against the loop of single calls, through
+    ``api.serve`` (timed) and the same engine again under the profiler."""
+    from repro_torch.core import api
+    from repro_torch.serve import assert_results_equal, run_request
+
+    slo = serve_slo()
+    n = len(trace)
+    idx = range(0, n, SERVE_LOOP_STRIDE)
+    loop_out, kind_s, kind_n = {}, collections.Counter(), collections.Counter()
+    t0 = time.perf_counter()
+    for i in idx:  # each call ends in its results' host copy
+        t1 = time.perf_counter()
+        loop_out[i] = run_request(net, trace[i])
+        kind = slo.trace_kind(trace[i])
+        kind_s[kind] += time.perf_counter() - t1
+        kind_n[kind] += 1
+    sync()
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records, stats = api.serve(net, trace, cache_size=SERVE_CACHE)
+    sync()
+    serve_s = time.perf_counter() - t0
+    loop_qps, serve_qps = len(idx) / loop_s, n / serve_s
+    cut = "" if SERVE_LOOP_STRIDE == 1 else f" (every {SERVE_LOOP_STRIDE}th request, cut)"
+    log(f"serving: (a) loop of single calls{cut}: {len(idx)} requests in "
+        f"{loop_s:.3f} s, {loop_qps:.1f} requests/s; api.serve: {n} in "
+        f"{serve_s:.3f} s, {serve_qps:.1f} requests/s; engine/loop "
+        f"{serve_qps / loop_qps:.2f}x (the reference's target >= "
+        f"{SERVE_TARGET_RATIO:g}x, printed, not gated); {card}")
+    log("serving: (a) loop ms a request by kind: " + ", ".join(
+        f"{k} {kind_s[k] / kind_n[k] * 1e3:.3f} (x{kind_n[k]})" for k in sorted(kind_n)))
+    # the same engine run again under the profiler; a window that lost
+    # device events (fewer graph-kernel events than launches counted) is
+    # profiled again, up to PROFILER_WINDOWS runs, else not reported
+    for window in range(1, PROFILER_WINDOWS + 1):
+        engine = net.serve_session(cache_size=SERVE_CACHE)
+        with ServeThreads() as watch:
+            wall, acts, served = profiled(lambda: engine.serve(trace))
+        errors = [r.error for r in served if r.error is not None]
+        if errors:
+            raise AssertionError(f"serving: (a) {len(errors)} error results, first "
+                                 f"{errors[0]}")
+        for i in idx:
+            assert_results_equal(served[i].value, loop_out[i])
+        if [r.to_record() for r in served] != records or engine.stats != stats:
+            raise AssertionError("serving: (a) the engine's records or stats differ "
+                                 "from api.serve's on the same trace")
+        launched = graph_launches(sum(watch.by_kind.values(), collections.Counter()))
+        delivered = graph_kernel_events(acts)
+        if delivered >= launched:
+            break
+    busy = h2d = None
+    if delivered >= launched:
+        busy = sum(us for _, us in acts.values()) / 1e3
+        h2d = sum(us for name, (_, us) in acts.items() if "HtoD" in name) / 1e3
+        device_text = (busy_line(acts, wall, top=6) + f"; host-to-device copies "
+                       f"{h2d:.3f} ms, {h2d / busy if busy else 0.0:.4f} of busy")
+    else:
+        device_text = "device busy not measured (every window lost events)"
+    rs = engine.round_stats
+    cache = stats["cache"]
+    batches = sum(stats["batches"].values())
+    log(f"serving: (a) {n} served results, 0 errors; the {len(idx)} of the loop "
+        f"bit-identical to its single calls; cache hits {cache['hits']}, coalesced duplicates "
+        f"{stats['coalesced_dupes']} ({(cache['hits'] + stats['coalesced_dupes']) / n:.3f} "
+        f"of requests), batches {json.dumps(stats['batches'])}, "
+        f"{sum(stats['dispatched'].values()) / batches:.2f} requests a batch, "
+        f"{rs['rounds']} rounds, host {rs['round_s'] / rs['rounds'] * 1e3:.3f} ms a round")
+    log(f"serving: (a) profiled engine run (window {window} of at most "
+        f"{PROFILER_WINDOWS}): wall {wall:.3f} ms, {delivered} graph-kernel events "
+        f"for {launched} launches, {device_text}; {card}")
+    log(f"serving: (a) launches per kind: {kind_line(watch.by_kind)}")
+    values = [r.value for r in served]
+    return {"loop": loop_out, "values": values, "loop_qps": loop_qps,
+            "serve_qps": serve_qps, "stats": stats, "wall_ms": wall,
+            "busy_ms": busy, "h2d_ms": h2d, "by_kind": dict(watch.by_kind)}
+
+
+def wire_mutation(address, at: float, out: dict) -> None:
+    """At ``time.monotonic()`` ``at``, one attribute write over the wire
+    through a client of its own: SERVE_PROBE_ATTR of SERVE_PROBE_NODES set
+    to 1, 2, ...; the response, its round trip (ms) or the error in
+    ``out``."""
+    from repro_torch.serve import GraphServeClient, RetryPolicy
+
+    try:
+        time.sleep(max(0.0, at - time.monotonic()))
+        retry = RetryPolicy(max_attempts=8, base=0.002, cap=0.05)
+        with GraphServeClient(*address, retry=retry,
+                              seed=SERVE_MUTATION_SEED) as client:
+            t0 = time.perf_counter()
+            out["response"] = client.mutate("setattr", {
+                "name": SERVE_PROBE_ATTR, "nodes": list(SERVE_PROBE_NODES),
+                "values": list(range(1, len(SERVE_PROBE_NODES) + 1))},
+                deadline_ms=SERVE_DEADLINE_MS)
+            out["ms"] = (time.perf_counter() - t0) * 1e3
+    except Exception as err:  # reported by the caller
+        out["error"] = err
+
+
+def serving_wire(net, trace, values: list, card: str, device) -> dict:
+    """(b) the wire: capacity from a closed loop, then the open loop at
+    SERVE_LOAD of it under the reference's fault burst, profiled, with
+    one attribute write sent half way through it; every wire result
+    against (a)'s, the write read back, and every query, mutation and
+    CUDA launch or copy on the engine's pump thread."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import api
+    from repro_torch.kernels import build
+
+    slo = serve_slo()
+    n = len(trace)
+    plan = slo.default_fault_plan(n)
+    distinct = len({json.dumps(r, sort_keys=True) for r in trace})
+    cache = max(SERVE_CACHE, 1 << (distinct - 1).bit_length())
+    fe = api.servenet(net, port=0, fault_plan=plan, cache_size=cache)
+    wrote: dict = {}
+    try:
+        with ServeThreads() as watch:
+            cap = slo.run_closed_loop(fe.address, trace[:SERVE_CAPACITY_REQUESTS],
+                                      n_threads=SERVE_CLIENTS,
+                                      deadline_ms=SERVE_DEADLINE_MS)
+            plan.reset()  # the burst counts from the open loop's start
+            rate = SERVE_LOAD * cap["qps"]
+            before = collections.Counter(build.launch_counts)
+            writer = threading.Thread(target=wire_mutation, args=(
+                fe.address, time.monotonic() + n / (2 * rate), wrote))
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message=".*Profiler clears events")
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    writer.start()
+                    res = slo.run_open_loop(fe, trace, rate=rate,
+                                            n_threads=SERVE_CLIENTS,
+                                            deadline_ms=SERVE_DEADLINE_MS)
+                    writer.join()
+                    sync()
+            launched = graph_launches(build.launch_counts - before)
+        pump = fe.engine.pump_thread
+        ping = api.pingnet(*fe.address)
+        engine_stats = fe.engine.stats
+        rs = fe.engine.round_stats
+        served_net = fe.engine.net
+    finally:
+        fe.close()
+    cap_errors = [o for o in cap["outcomes"] if o[0] != "ok"]
+    log(f"serving: (b) capacity: closed loop of {SERVE_CAPACITY_REQUESTS} requests "
+        f"over {SERVE_CLIENTS} sessions in {cap['wall_s']:.3f} s, "
+        f"{cap['qps']:.1f} requests/s ({len(cap_errors)} errors); result cache "
+        f"{cache}; {card}")
+    log(f"serving: (b) open loop at {rate:.1f} requests/s ({SERVE_LOAD} of "
+        f"capacity), one setattr over the wire half way: p50 {res['p50_ms']:.3f} ms, "
+        f"p90 {res['p90_ms']:.3f} ms, p99 "
+        f"{res['p99_ms']:.3f} ms (the reference's budget {SERVE_P99_BUDGET_MS:g} ms, "
+        f"printed, not gated), max {res['max_ms']:.3f} ms; achieved "
+        f"{res['qps']:.1f} requests/s; errors {res['errors']}; faults fired "
+        f"{res['faults_fired']}, torn writes {res['torn_writes']}, idempotent "
+        f"replays {res['idempotent_replays']}, shed {res['shed']}; engine pump "
+        f"{rs['rounds']} rounds, host {rs['round_s']:.3f} s in rounds, waited "
+        f"{rs['pump_wait_s']:.3f} s for work; {card}")
+    if res["errors"] or cap_errors or engine_stats["pump_faults"]:
+        raise AssertionError(f"serving: (b) errors on the wire: {res['error_kinds']}, "
+                             f"{cap_errors[:1]}, pump faults {engine_stats['pump_faults']}")
+    if res["faults_fired"] < 1 or res["idempotent_replays"] < 1:
+        raise AssertionError("serving: (b) the fault burst never fired or no torn "
+                             "ack was replayed")
+    if not (ping["ok"] and ping["ready"]):
+        raise AssertionError(f"serving: (b) not ready after the burst: {ping}")
+    if "error" in wrote or not wrote["response"].get("ok"):
+        raise AssertionError(f"serving: (b) the wire's setattr failed: {wrote}")
+    probe, has = api.getnodeattr(served_net, SERVE_PROBE_ATTR, list(SERVE_PROBE_NODES))
+    if not has.all() or probe.tolist() != list(range(1, len(SERVE_PROBE_NODES) + 1)):
+        raise AssertionError(f"serving: (b) the acknowledged setattr does not read "
+                             f"back: {probe.tolist()}, present {has.tolist()}")
+    wrong = [i for i, (status, got) in enumerate(res["outcomes"])
+             if status != "ok" or got != wire_value(values[i])]
+    wrong += [i for i, (status, got) in enumerate(cap["outcomes"])
+              if got != wire_value(values[i])]
+    if wrong:
+        raise AssertionError(f"serving: (b) {len(wrong)} wire results differ from "
+                             f"(a)'s, first at request {wrong[0]}")
+    off_pump = {t: k for t, k in watch.threads.items() if t != pump.ident}
+    if off_pump or not watch.threads:
+        raise AssertionError(f"serving: (b) executors or filter resolution off the "
+                             f"pump thread: {off_pump}")
+    if set(watch.mutations) != {pump.ident}:
+        raise AssertionError(f"serving: (b) the wire's mutation ran on threads "
+                             f"{dict(watch.mutations)}, not the pump thread")
+    tids = launch_threads(prof)
+    delivered = graph_kernel_events(device_events(prof))
+    if set(tids) - thread_ids(pump):
+        raise AssertionError(
+            f"serving: (b) CUDA launches or copies off the pump thread (ids "
+            f"{sorted(thread_ids(pump))}) in the open-loop window: {dict(tids)}")
+    if not tids:
+        how = "the profiler gave no runtime events"
+    else:
+        how = (f"the profiler's runtime events: {sum(tids.values())} launches and "
+               f"copies, all filed under the pump thread's ids "
+               f"({', '.join(str(t) for t in sorted(tids))})")
+        if delivered < launched:
+            how += (f", from a window that lost events ({delivered} graph-kernel "
+                    f"events of {launched} launches)")
+    log(f"serving: (b) {n} wire results (JSON round trip) equal (a)'s; "
+        f"{SERVE_CAPACITY_REQUESTS} of the closed loop too; ready afterwards "
+        f"(ping {ping['latency_ms']:.3f} ms); the setattr acknowledged in "
+        f"{wrote['ms']:.3f} ms and read back; in both loops every "
+        f"executor call and filter resolution ran on the pump thread "
+        f"({sum(watch.threads.values())} calls), and the setattr too; {how}")
+    return {"capacity_qps": cap["qps"], "rate": rate, "setattr_ms": wrote["ms"], **{
+        k: res[k] for k in ("p50_ms", "p90_ms", "p99_ms", "max_ms", "qps",
+                            "faults_fired", "idempotent_replays", "torn_writes")}}
+
+
+def serving_mutations(net, trace, card: str) -> dict:
+    """(c) the mutating replay: SERVE_MUTATIONS mutations interleaved in
+    the trace, one engine with scoped invalidation and one without; every
+    result equal between the two, scoped misses at most global ones."""
+    from repro_torch.core import api
+    from repro_torch.serve import GraphServeEngine, assert_results_equal
+
+    n = net.n_nodes
+    aux = np.random.default_rng(SERVE_AUX_SEED).integers(0, 100, n)
+    base = api.setnodeattr(net, "aux", np.arange(n), aux, kind="int")
+    rng = np.random.default_rng(SERVE_MUTATION_SEED)
+    mutations = []
+    for i in range(SERVE_MUTATIONS):
+        if i % 2 == 0:
+            mutations.append(("add_edges", "Random", rng.integers(0, n, 4),
+                              rng.integers(0, n, 4)))
+        else:
+            mutations.append(("set_attr", "aux", rng.integers(0, n, 4),
+                              rng.integers(0, 100, 4)))
+    chunk = max(1, len(trace) // SERVE_MUTATIONS)
+
+    def replay(scoped: bool):
+        engine = GraphServeEngine(base, cache_size=SERVE_CACHE,
+                                  scoped_invalidation=scoped)
+        out, serve_s, walls = [], 0.0, []
+        for mi, start in enumerate(range(0, len(trace), chunk)):
+            t0 = time.perf_counter()
+            out.extend(engine.serve(trace[start:start + chunk]))
+            serve_s += time.perf_counter() - t0
+            if mi < len(mutations):
+                kind, name, a, b = mutations[mi]
+                t0 = time.perf_counter()
+                getattr(engine, kind)(name, a, b)
+                sync()
+                walls.append((kind, time.perf_counter() - t0))
+        return out, serve_s, walls, engine.stats
+
+    runs = {scoped: replay(scoped) for scoped in (True, False)}
+    (out_s, s_s, walls_s, st_s), (out_g, s_g, walls_g, st_g) = runs[True], runs[False]
+    errors = [r.error for r in out_s + out_g if r.error is not None]
+    if errors or len(out_s) != len(trace):
+        raise AssertionError(f"serving: (c) {len(errors)} error results: {errors[:1]}")
+    for a, b in zip(out_s, out_g):
+        assert_results_equal(a.value, b.value)
+    out = {}
+    for label, st, serve_s, walls in (("scoped", st_s, s_s, walls_s),
+                                      ("global", st_g, s_g, walls_g)):
+        c = st["cache"]
+        hit = (c["hits"] + st["coalesced_dupes"]) / len(trace)
+        by = collections.defaultdict(list)
+        for kind, w in walls:
+            by[kind].append(w * 1e3)
+        out[label] = {"misses": c["misses"], "hits": c["hits"], "hit_rate": hit}
+        log(f"serving: (c) {label} invalidation: {len(trace)} requests in "
+            f"{serve_s:.3f} s of serving, hits {c['hits']}, misses {c['misses']}, "
+            f"hit rate {hit:.4f}, entries invalidated {c['entries_invalidated']}; "
+            f"mutation walls ms: " + ", ".join(
+                f"{kind} x{len(ws)} median {statistics.median(ws):.1f} max "
+                f"{max(ws):.1f}" for kind, ws in sorted(by.items())) + f"; {card}")
+    if out["scoped"]["misses"] > out["global"]["misses"]:
+        raise AssertionError(f"serving: (c) scoped misses {out['scoped']['misses']} "
+                             f"above global {out['global']['misses']}")
+    log(f"serving: (c) {len(trace)} results bit-identical between scoped and "
+        f"global invalidation across {len(mutations)} mutations; scoped misses "
+        f"{out['scoped']['misses']} <= global {out['global']['misses']}")
+    return out
+
+
+def phase_serving(net, median_income: int, device) -> dict:
+    """The graph-serving engine, the wire and the mutating replay on the
+    phase's network (SERVE_* above), with the launch counts set to 0 just
+    before and read just after; the oracle's launches are not counted.
+    ``intersect_rows``, ``segmented_union``, ``frontier_compact`` and
+    ``csr_row_sample`` must launch, no union or frontier row may take the
+    sort path, no result may be an error, and the phase must end within
+    SERVE_PHASE_LIMIT_S. Returns the launch counts and the readings."""
+    from repro_torch.kernels import build
+
+    slo = serve_slo()
+    t_phase = time.perf_counter()
+    card = device_line()
+    flt = {"attr": "income", "op": "gt", "value": median_income}
+    trace = slo.build_serve_trace(net, SERVE_REQUESTS, flt, SERVE_SEED)
+    mix = collections.Counter(slo.trace_kind(r) for r in trace)
+    log(f"serving: trace of {len(trace)} requests (seed {SERVE_SEED}), "
+        f"{json.dumps(dict(sorted(mix.items())))}; getedge on {slo.EDGE_LAYER}, "
+        f"alters and khop on {' + '.join(slo.ALTER_LAYERS)}, walkbatch on "
+        f"{' + '.join(slo.WALK_LAYERS)}, filter income > {median_income}")
+    build.launch_counts.clear()
+    engine = serving_engine(net, trace, median_income, card, device)
+    counted = collections.Counter(build.launch_counts)
+    serving_oracle(net, trace, engine["values"], median_income, device)
+    build.launch_counts.clear()
+    build.launch_counts.update(counted)
+    wire = serving_wire(net, trace, engine["values"], card, device)
+    mutations = serving_mutations(net, trace, card)
+    sync()
+    launches = dict(build.launch_counts)
+    log(f"serving: launch counts {json.dumps(launches, sort_keys=True)}")
+    assert_launched("serving", launches, SERVE_KERNELS)
+    assert_no_sort_rows("serving", launches)
+    if launches.get("frontier_sort_rows", 0):
+        raise AssertionError("frontier rows took the plain path in the serving phase")
+    seconds = time.perf_counter() - t_phase
+    log(f"serving: phase {seconds:.3f} s (limit {SERVE_PHASE_LIMIT_S:g} s); {card}")
+    if seconds > SERVE_PHASE_LIMIT_S:
+        raise AssertionError(f"serving: the phase took {seconds:.1f} s, over its "
+                             f"{SERVE_PHASE_LIMIT_S:g} s")
+    return {"launches": launches, "engine": engine, "wire": wire,
+            "mutations": mutations, "seconds": seconds}
+
+
 class KernelInputs:
     """Within the block, keeps a copy of the inputs of the first launch of
     every distinct shape of each LM kernel, under ``label``, so the checks
@@ -3658,6 +4271,7 @@ def run() -> int:
     traversal = phase_traversal(net, median_income, SEED, device)
     sampling = phase_sampling(net, median_income, SEED, device)
     phase_storage(net, median_income, SEED, device)
+    phase_serving(net, median_income, device)
     lm = phase_lm(device, SEED)
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
                            panel, traversal, sampling, lm, device)

@@ -15,8 +15,8 @@ Functional like the JAX package: each mutation returns a new Network.
 the CUDA card, and raise when there is none; pass ``device="cpu"`` to
 run on the CPU. Every later call follows the network's device;
 ``loadfile`` and ``recovernet`` take ``device=`` as the builders do. The
-serving calls (``serve``, ``servenet``, ``pingnet``) are not ported yet
-and raise ``NotImplementedError``.
+serving calls (``serve``, ``servenet``, ``pingnet``) serve the network
+from its device: one background pump thread launches every query.
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ __all__ = [
     "khop", "egosample", "walkbatch", "componentsfast", "samplenodes",
     # typed query currency (core/request.py) + one-shot execution
     "QueryRequest", "runquery",
-    # serving (not ported yet: raise NotImplementedError)
+    # serving (serve/graph_engine.py, serve/frontend.py)
     "serve", "servenet", "pingnet",
     # container surface
     "listlayers", "deletelayer", "describenet", "exportlayer",
@@ -77,9 +77,6 @@ __all__ = [
     # durability: batched edge mutation + store save/recover/log
     "addedges", "deleteedges", "savestore", "recovernet", "wallog",
 ]
-
-UNPORTED = "ROADMAP Queue 1 item 11"
-
 
 def createnodeset(createnodes: int, device=None) -> Nodeset:
     return create_nodeset(createnodes, device=device)
@@ -335,20 +332,95 @@ def runquery(net: Network, request):
 
 
 # ---------------------------------------------------------------------------
-# Serving (serve/ of the JAX package): not ported yet
+# Serving (serve/graph_engine.py — the threadleR server side)
 # ---------------------------------------------------------------------------
 
 
-def serve(net: Network, trace, **kw):
-    raise NotImplementedError(f"serve is not ported yet ({UNPORTED})")
+def serve(
+    net: Network, trace, *, cache_size: int = 4096, queue_limit: int = 8192,
+    max_heavy_per_round: int = 1024,
+) -> tuple[list[dict], dict]:
+    """Replay a request trace through the micro-batching serve engine.
+
+    ``trace`` is a path to a JSONL trace file (see
+    ``serve.graph_engine.parse_trace``) or an iterable of request dicts.
+    Returns ``(records, stats)``: one ``{"id", "kind", "cached",
+    "result" | "error"}`` record per request, in request order, plus the
+    engine's cache/batch statistics.
+    """
+    import os
+
+    from repro_torch.serve.graph_engine import load_trace
+
+    requests = (
+        load_trace(str(trace)) if isinstance(trace, (str, os.PathLike))
+        else list(trace)
+    )
+    engine = net.serve_session(
+        cache_size=cache_size, queue_limit=queue_limit,
+        max_heavy_per_round=max_heavy_per_round,
+    )
+    results = engine.serve(requests)
+    return [r.to_record() for r in results], engine.stats
 
 
-def servenet(net: Network, **kw):
-    raise NotImplementedError(f"servenet is not ported yet ({UNPORTED})")
+def servenet(
+    net: Network, *, host: str = "127.0.0.1", port: int = 0,
+    cache_size: int = 4096, queue_limit: int = 8192,
+    max_heavy_per_round: int = 1024, deadline_ms: float | None = None,
+    **frontend_kw,
+):
+    """Start the network serve frontend over ``net`` (NDJSON over TCP).
+
+    Returns the started ``repro_torch.serve.GraphServeFrontend``; its
+    ``.address`` is the bound ``(host, port)`` (``port=0`` picks a free
+    one). Stop with ``.close()`` (or use it as a context manager) —
+    closing drains the engine queues and joins the pump thread.
+    ``deadline_ms`` sets a default per-request budget for clients that
+    send none. Extra keyword arguments reach the frontend (admission
+    ``policy=``, ``fault_plan=``, ``store=``, ...).
+    """
+    from repro_torch.serve.frontend import GraphServeFrontend
+
+    fe = GraphServeFrontend(
+        net=net, host=host, port=int(port),
+        default_deadline_ms=deadline_ms,
+        cache_size=int(cache_size), queue_limit=int(queue_limit),
+        max_heavy_per_round=int(max_heavy_per_round), **frontend_kw,
+    )
+    return fe.start()
 
 
-def pingnet(host: str, port: int, **kw):
-    raise NotImplementedError(f"pingnet is not ported yet ({UNPORTED})")
+def pingnet(
+    host: str, port: int, *, deadline_ms: float | None = 2000.0,
+) -> dict:
+    """Probe a running serve frontend: round-trip latency + readiness.
+
+    Returns ``{"ok", "latency_ms", "ready", "reasons"}``; ``ok`` is
+    False (never raises) when the server is unreachable.
+    """
+    import time as _time
+
+    from repro_torch.serve.client import GraphServeClient, ServeError
+
+    with GraphServeClient(
+        host, int(port), default_deadline_ms=deadline_ms
+    ) as client:
+        t0 = _time.perf_counter()
+        try:
+            client.ping(deadline_ms=deadline_ms)
+        except (ServeError, RuntimeError, OSError) as e:
+            return {
+                "ok": False, "latency_ms": None, "ready": False,
+                "reasons": [f"{type(e).__name__}: {e}"],
+            }
+        latency_ms = (_time.perf_counter() - t0) * 1000.0
+        ready = client.readyz()
+    return {
+        "ok": True, "latency_ms": latency_ms,
+        "ready": bool(ready.get("ready")),
+        "reasons": list(ready.get("reasons", [])),
+    }
 
 
 def samplenodes(

@@ -42,9 +42,6 @@ from .memory import memory_report
 from .nodeset import NodeSelection
 from .request import QueryRequest
 
-UNPORTED = api.UNPORTED
-
-
 class CLIError(ValueError):
     pass
 
@@ -420,19 +417,69 @@ class Session:
             filter=self._node_filter(filter),
         ), None
 
-    # -- serving (paper §3.1 threadleR deployment): not ported yet ----------
+    # -- serving (paper §3.1 threadleR deployment) ----------------------------
 
-    def _cmd_serve(self, net, **kw):
-        raise NotImplementedError(f"serve is not ported yet ({UNPORTED})")
+    def _cmd_serve(self, net, *, file, cache=4096, queuelimit=8192,
+                   maxheavy=1024):
+        """Replay a JSONL request-trace file through the serve engine."""
+        import time
 
-    def _cmd_servenet(self, net, **kw):
-        raise NotImplementedError(f"servenet is not ported yet ({UNPORTED})")
+        t0 = time.perf_counter()
+        records, stats = api.serve(
+            net, str(file), cache_size=int(cache),
+            queue_limit=int(queuelimit), max_heavy_per_round=int(maxheavy),
+        )
+        dt = time.perf_counter() - t0
+        qps = len(records) / dt if dt > 0 else float("inf")
+        if self.mode == "json":
+            return {
+                "served": len(records),
+                "seconds": dt,
+                "qps": qps,
+                "stats": stats,
+                "results": records,
+            }, None
+        c = stats["cache"]
+        shared = c["hits"] + stats["coalesced_dupes"]
+        return (
+            f"served {len(records)} requests in {dt:.3f}s ({qps:,.0f} qps); "
+            f"{shared}/{len(records)} shared ({c['hits']} cache hits, "
+            f"{stats['coalesced_dupes']} coalesced), "
+            f"evictions {c['evictions']}; batches "
+            + " ".join(
+                f"{k}={v}" for k, v in stats["batches"].items() if v
+            )
+        ), None
 
-    def _cmd_pingnet(self, **kw):
-        raise NotImplementedError(f"pingnet is not ported yet ({UNPORTED})")
+    def _cmd_servenet(self, net, *, host="127.0.0.1", port=0, cache=4096,
+                      queuelimit=8192, maxheavy=1024, deadline=None):
+        """Start the NDJSON/TCP serve frontend; bind the handle with
+        ``srv = servenet(net, ...)`` and stop it with ``stopserve(srv)``.
+        ``deadline`` is the default per-request budget in ms."""
+        fe = api.servenet(
+            net, host=str(host), port=int(port), cache_size=int(cache),
+            queue_limit=int(queuelimit), max_heavy_per_round=int(maxheavy),
+            deadline_ms=None if deadline is None else float(deadline),
+        )
+        h, p = fe.address
+        return {"host": h, "port": p, "serving": True}, fe
+
+    def _cmd_pingnet(self, *, host="127.0.0.1", port, deadline=2000):
+        """Probe a running serve frontend (latency + readiness)."""
+        return api.pingnet(str(host), int(port),
+                           deadline_ms=float(deadline)), None
 
     def _cmd_stopserve(self, frontend):
-        raise NotImplementedError(f"stopserve is not ported yet ({UNPORTED})")
+        """Close a frontend started by ``servenet`` (drains + joins)."""
+        if not hasattr(frontend, "close") or not hasattr(frontend, "stats"):
+            raise CLIError("stopserve needs a servenet() handle")
+        stats = frontend.stats
+        frontend.close()
+        return {
+            "stopped": True,
+            "served": stats["engine"]["served"],
+            "requests": stats["transport"].get("requests", 0),
+        }, None
 
     # -- container surface ----------------------------------------------------
 

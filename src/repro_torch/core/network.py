@@ -219,6 +219,21 @@ class Network:
             layer_names=layer_names, node_filter=node_filter,
         )
 
+    # -- serving (serve/graph_engine.py) --------------------------------------
+
+    def serve_session(self, **kw) -> "object":
+        """A resident query-serving session over this network.
+
+        Returns a ``repro_torch.serve.GraphServeEngine``: bounded request
+        queues, same-kind micro-batching through the bucketed dispatch,
+        and an LRU result cache invalidated on mutation — the threadleR
+        deployment model (§3.1). Keyword args forward to the engine
+        (``cache_size``, ``queue_limit``, ``max_heavy_per_round``, ...).
+        """
+        from repro_torch.serve.graph_engine import GraphServeEngine
+
+        return GraphServeEngine(self, **kw)
+
     # -- bookkeeping ----------------------------------------------------------
 
     def compacted(self) -> "Network":

@@ -244,11 +244,7 @@ class Nodeset:
         comparison, ``ne`` included (SQL NULL semantics). The predicate is
         evaluated over the column's k stored entries only.
         """
-        canon = _OP_ALIASES.get(op)
-        if canon is None:
-            raise ValueError(
-                f"unknown selection op {op!r}; use {sorted(set(_OP_ALIASES))}"
-            )
+        canon, want = self.check_select(name, op, value)
         col = self.attrs.column(name)
         ids = col.node_ids.cpu().numpy()
         mask = np.zeros(self.n_nodes, dtype=bool)
@@ -256,9 +252,25 @@ class Nodeset:
             mask[ids] = True
             return NodeSelection(mask)
         vals = col.values.cpu().numpy()
-        hit = _OPS[canon](vals, _coerce_value(col.kind, value))
+        hit = _OPS[canon](vals, want)
         mask[ids[hit]] = True
         return NodeSelection(mask)
+
+    def check_select(self, name: str, op: str, value=None) -> tuple:
+        """Validate a ``select`` predicate without touching the column's
+        buffers -> (canonical op, coerced value). Raises what ``select``
+        raises for the same arguments: an unknown op or a missing or
+        ill-typed comparison value (``ValueError``), an unknown attribute
+        (``KeyError``)."""
+        canon = _OP_ALIASES.get(op)
+        if canon is None:
+            raise ValueError(
+                f"unknown selection op {op!r}; use {sorted(set(_OP_ALIASES))}"
+            )
+        col = self.attrs.column(name)
+        if canon == "has":
+            return canon, None
+        return canon, _coerce_value(col.kind, value)
 
     def select_ids(self, name: str, op: str, value=None) -> np.ndarray:
         return self.select(name, op, value).ids()

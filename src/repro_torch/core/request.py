@@ -35,6 +35,7 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from .dispatch import device_mask
 from .nodeset import node_filter_mask
 
 __all__ = [
@@ -44,11 +45,13 @@ __all__ = [
     "canonical_request",
     "run_query",
     "run_queries",
+    "run_request",
     "assert_results_equal",
     "merge_filter_kwargs",
     "POINT_KINDS",
     "HEAVY_KINDS",
     "REQUEST_KINDS",
+    "ALL_LAYERS_SCOPE",
 ]
 
 POINT_KINDS = ("getedge", "alters", "degree")
@@ -161,6 +164,26 @@ class QueryRequest:
                 out[f.name] = val
         return out
 
+    def replace(self, **kw) -> "QueryRequest":
+        return dataclasses.replace(self, **kw)
+
+    def canonical(
+        self, net, *, _filter_memo: dict | None = None, _gen: int = 0,
+    ) -> "CanonicalRequest":
+        """Validate against ``net`` and produce the hashable canonical
+        form (dispatch group key + cache key + id payloads)."""
+        return canonical_request(
+            net, self, _filter_memo=_filter_memo, _gen=_gen
+        )
+
+    def cache_key(self, net) -> tuple:
+        """The serve engine's cache-key fingerprint for this request."""
+        return self.canonical(net).cache_key
+
+    def run(self, net):
+        """Execute against ``net``: the no-queue, no-cache reference path."""
+        return run_query(net, self)
+
 
 _FIELD_NAMES = frozenset(f.name for f in dataclasses.fields(QueryRequest))
 
@@ -241,18 +264,56 @@ def _filter_fingerprint(mask: np.ndarray | None) -> str | None:
     return hashlib.blake2b(mask.tobytes(), digest_size=16).hexdigest()
 
 
-def _resolve_filter(net, spec, memo: dict | None = None):
-    """Filter spec -> (host bool mask | None, fingerprint | None).
+def _spec_memo_key(spec, *, by_identity: bool = False) -> tuple | None:
+    """Hashable memo key for a filter spec; None = not memoizable.
 
-    Resolving walks the attribute store or copies the mask and hashes
-    O(n_nodes) bytes; ``memo`` (one per :func:`run_queries` batch, keyed
-    by the spec object's identity) makes a batch that shares one filter
-    object pay for that once.
+    A dict spec keys by its content. With ``by_identity`` any other
+    filter object (a mask, a NodeSelection) keys by its ``id``: the memo
+    entry pins the object, so the id stays unique while the entry lives.
+    """
+    if isinstance(spec, dict):
+        return (
+            "attrspec", str(spec.get("attr")), str(spec.get("op")),
+            spec.get("value"),
+        )
+    if by_identity:
+        return ("object", id(spec))
+    return None
+
+
+_FILTER_MEMO_MAX = 256
+
+
+def _resolve_filter(net, spec, memo: dict | None = None, gen: int = 0, *,
+                    by_identity: bool = False):
+    """Filter spec -> (mask | None, fingerprint | None).
+
+    The fingerprint hashes the host mask. The mask handed back is the one
+    the executors read: with a ``memo`` on a CUDA network it is the
+    device copy, uploaded once and kept with the memo entry, so every
+    dispatch under that entry reads it in place; otherwise the host mask.
+
+    Resolving a dict spec walks the attribute store and hashes an
+    O(n_nodes) mask, too much to repeat per request on the serve hot
+    path, so the serve engine passes a ``memo`` keyed on the spec's
+    content. Entries are tagged with the engine generation ``gen`` they
+    were resolved under: a mutation bumps the generation, so a mask
+    memoized before the mutation never satisfies a later lookup.
+    :func:`run_queries` passes a memo of its own with ``by_identity``, so
+    a batch sharing one mask object resolves it once.
     """
     if spec is None:
         return None, None
-    if memo is not None and id(spec) in memo:
-        return memo[id(spec)][1:]
+    key = (_spec_memo_key(spec, by_identity=by_identity)
+           if memo is not None else None)
+    if key is not None:
+        try:
+            hit = memo.get(key)
+        except TypeError:  # unhashable value in the spec: skip the memo
+            key = None
+        else:
+            if hit is not None and hit[0] == gen:
+                return hit[1], hit[2]
     if isinstance(spec, dict):
         mask = net.nodeset.select(
             str(spec["attr"]), str(spec["op"]), spec.get("value")
@@ -263,9 +324,25 @@ def _resolve_filter(net, spec, memo: dict | None = None):
             nf = nf.detach().cpu().numpy()
         mask = np.asarray(nf, dtype=bool)
     fp = _filter_fingerprint(mask)
-    if memo is not None:
-        memo[id(spec)] = (spec, mask, fp)  # pins spec: its id stays unique
+    if key is not None:
+        if net.device.type == "cuda":
+            mask = device_mask(mask, net.device)
+        if len(memo) >= _FILTER_MEMO_MAX:
+            memo.clear()
+        memo[key] = (gen, mask, fp, spec)  # spec pinned: its id stays unique
     return mask, fp
+
+
+#: scope token for results that read every layer (layers=None requests);
+#: any layer mutation invalidates these
+ALL_LAYERS_SCOPE = "layers*"
+
+
+def _layer_scopes(layers: tuple[str, ...] | None) -> frozenset[str]:
+    """Cache-dependency tokens for a request's layer selection."""
+    if layers is None:
+        return frozenset((ALL_LAYERS_SCOPE,))
+    return frozenset(f"layer:{n}" for n in layers)
 
 
 @dataclass(frozen=True)
@@ -277,7 +354,13 @@ class CanonicalRequest:
     cache_key: tuple        # group_key + per-request args
     ids: tuple[int, ...]    # the batchable id payload
     ids2: tuple[int, ...]   # second id payload (getedge v), else ()
-    mask: np.ndarray | None = field(compare=False, hash=False, default=None)
+    # the executors' filter: a host mask, or its device copy (see
+    # _resolve_filter)
+    mask: Any = field(compare=False, hash=False, default=None)
+    # layers this request's result is computed from (scoped invalidation);
+    # derived from group_key so it is excluded from equality/hash
+    scopes: frozenset = field(compare=False, hash=False,
+                              default=frozenset((ALL_LAYERS_SCOPE,)))
 
 
 def _need(val, name: str):
@@ -286,11 +369,16 @@ def _need(val, name: str):
     return val
 
 
-def canonical_request(net, req, *, _filter_memo: dict | None = None
-                      ) -> CanonicalRequest:
+def canonical_request(
+    net, req, *, _filter_memo: dict | None = None, _gen: int = 0,
+    _by_identity: bool = False,
+) -> CanonicalRequest:
     """Validate + canonicalize one request (dict or QueryRequest).
 
     Raises ``ValueError`` / ``KeyError`` on malformed requests.
+    ``_filter_memo`` / ``_gen`` are the serve engine's per-generation
+    filter memo (see ``_resolve_filter``); the per-call reference path
+    (``run_query``) leaves them unset.
     """
     q = QueryRequest.from_any(req)
     kind = str(q.kind)
@@ -298,14 +386,16 @@ def canonical_request(net, req, *, _filter_memo: dict | None = None
         raise ValueError(
             f"unknown request kind {kind!r}; have {REQUEST_KINDS}"
         )
-    mask, fp = _resolve_filter(net, q.filter, _filter_memo)
+    mask, fp = _resolve_filter(net, q.filter, _filter_memo, _gen,
+                               by_identity=_by_identity)
 
     if kind == "getedge":
         layer = str(_need(q.layer, "layer"))
         net.layer(layer)
         u, v = (int(_need(q.u, "u")),), (int(_need(q.v, "v")),)
         gk = (kind, layer, fp)
-        return CanonicalRequest(kind, gk, gk + (u, v), u, v, mask)
+        return CanonicalRequest(kind, gk, gk + (u, v), u, v, mask,
+                                scopes=frozenset((f"layer:{layer}",)))
 
     if kind == "alters":
         layers = _canon_layers(net, q.layers)
@@ -314,13 +404,15 @@ def canonical_request(net, req, *, _filter_memo: dict | None = None
             raise ValueError(f"max_alters must be >= 1, got {m}")
         u = (int(_need(q.u, "u")),)
         gk = (kind, layers, m, fp)
-        return CanonicalRequest(kind, gk, gk + (u,), u, (), mask)
+        return CanonicalRequest(kind, gk, gk + (u,), u, (), mask,
+                                scopes=_layer_scopes(layers))
 
     if kind == "degree":
         layers = _canon_layers(net, q.layers)
         u = _canon_ids(_need(q.u, "u"), what="u")
         gk = (kind, layers, fp)
-        return CanonicalRequest(kind, gk, gk + (u,), u, (), mask)
+        return CanonicalRequest(kind, gk, gk + (u,), u, (), mask,
+                                scopes=_layer_scopes(layers))
 
     if kind == "khop":
         layers = _canon_layers(net, q.layers)
@@ -330,7 +422,8 @@ def canonical_request(net, req, *, _filter_memo: dict | None = None
         mf = None if q.max_frontier is None else int(q.max_frontier)
         src = _canon_ids(_need(q.sources, "sources"), what="sources")
         gk = (kind, layers, k, mf, fp)
-        return CanonicalRequest(kind, gk, gk + (src,), src, (), mask)
+        return CanonicalRequest(kind, gk, gk + (src,), src, (), mask,
+                                scopes=_layer_scopes(layers))
 
     # walkbatch: the draws couple rows across a batch, so each distinct
     # request is its own dispatch group
@@ -347,7 +440,8 @@ def canonical_request(net, req, *, _filter_memo: dict | None = None
     )
     starts = _canon_ids(_need(q.starts, "starts"), what="starts")
     gk = (kind, layers, steps, walkers, seed, weights, fp, starts)
-    return CanonicalRequest(kind, gk, gk, starts, (), mask)
+    return CanonicalRequest(kind, gk, gk, starts, (), mask,
+                            scopes=_layer_scopes(layers))
 
 
 # ---------------------------------------------------------------------------
@@ -434,12 +528,17 @@ def run_query(net, req):
     return _EXECUTORS[c.kind](net, c.group_key, [c])[0]
 
 
+#: the serve module's name for :func:`run_query`
+run_request = run_query
+
+
 def run_queries(net, reqs: Iterable) -> list:
     """Execute a request batch; requests sharing a dispatch group key
     (kind + static args + filter fingerprint) run as ONE batched
     dispatch. Results return in request order."""
     memo: dict = {}
-    creqs = [canonical_request(net, r, _filter_memo=memo) for r in reqs]
+    creqs = [canonical_request(net, r, _filter_memo=memo, _by_identity=True)
+             for r in reqs]
     out: list = [None] * len(creqs)
     groups: dict[tuple, list[int]] = {}
     for i, c in enumerate(creqs):

@@ -43,6 +43,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -54,6 +55,8 @@ KERNEL_SOURCES = (
     "intersect", "segmented_union", "frontier",
     "rmsnorm", "flash_attention", "ssd_scan", "threefry",
 )
+#: the sources of the graph query kernels (what a serve engine launches)
+GRAPH_SOURCES = ("intersect", "segmented_union", "frontier", "threefry")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -61,6 +64,7 @@ NVCC_FLAGS = (
 
 launch_counts: collections.Counter = collections.Counter()
 _libs: dict[str, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -113,14 +117,18 @@ def build(names=KERNEL_SOURCES, *, verbose: bool = False) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+    Safe from several threads: one builds and loads, the others wait."""
     lib = _libs.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        _libs[name] = lib
+        with _libs_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build([name])
+                lib = ctypes.CDLL(str(path))
+                _libs[name] = lib
     return lib
 
 

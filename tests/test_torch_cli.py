@@ -6,11 +6,14 @@ and store scripts, and the repository's verification script run through
 both packages' ``Session`` in JSON mode and print equal lines. The one
 expected difference is the port's valued ``addlayer`` (a departure on
 purpose): there ``addedges(..., values = ...)`` works where the JAX
-package raises. The tokenizer is the JAX package's, case for case; the
-serving commands are not ported and raise ``NotImplementedError``.
+package raises. The tokenizer is the JAX package's, case for case. The
+serving commands replay a trace file to the JAX package's output (its
+timings aside), start, probe and stop a frontend, and treat a trace's
+partial last line as the JAX package does.
 """
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -166,14 +169,89 @@ def test_tokenizer_equals_jax(line):
     assert tcli._strip_comment(commented) == jcli._strip_comment(commented)
 
 
-@pytest.mark.parametrize("line", [
-    'serve(net, file = "t.jsonl")', "servenet(net, port = 0)",
-    "pingnet(port = 1)", "stopserve(net)"])
-def test_serving_commands_are_not_ported(line):
+SERVE_TRACE = [
+    {"kind": "getedge", "layer": "Workplaces", "u": 10, "v": 20},
+    {"kind": "degree", "u": [1, 2, 3]},
+    {"kind": "getedge", "layer": "Workplaces", "u": 10, "v": 20},
+    {"kind": "alters", "u": 10, "layers": ["Random"], "max_alters": 64},
+    {"kind": "khop", "sources": 7, "k": 2, "max_frontier": 64,
+     "layers": ["Random"]},
+    {"kind": "walkbatch", "starts": [0, 7], "steps": 4, "walkers": 2,
+     "seed": 1},
+    {"kind": "teleport", "u": 1},
+]
+
+
+def _write_trace(path: Path, reqs, tail: str = "") -> Path:
+    path.write_text("# trace\n" + "".join(json.dumps(r) + "\n" for r in reqs)
+                    + tail)
+    return path
+
+
+@pytest.mark.parametrize("mode", ["json", "text"])
+def test_serve_trace_equals_jax(tmp_path, mode):
+    """``serve`` on a trace file prints the JAX package's output, its
+    ``seconds`` and ``qps`` aside."""
+    trace = _write_trace(tmp_path / "t.jsonl", SERVE_TRACE)
+    script = LISTING2 + f'serve(net, file = "{trace}")\n'
+    got = tcli.Session(mode=mode, device="cpu").run_script(script)
+    want = jcli.Session(mode=mode).run_script(script)
+    assert len(got) == len(want) == 1
+    if mode == "json":
+        got, want = json.loads(got[0]), json.loads(want[0])
+        for rec in (got, want):
+            assert rec["result"].pop("seconds") >= 0
+            assert rec["result"].pop("qps") > 0
+        assert got == want
+        assert got["result"]["results"][2]["cached"] is True
+        assert "teleport" in got["result"]["results"][-1]["error"]
+    else:
+        timing = re.compile(r"in [0-9.]+s \([0-9,.]+ qps\)")
+        assert timing.sub("", got[0]) == timing.sub("", want[0])
+        assert got[0].startswith(f"served {len(SERVE_TRACE)} requests")
+
+
+def test_servenet_pingnet_stopserve_round_trip():
     s = tcli.Session(mode="json", device="cpu")
     s.run_script(LISTING2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        s.run_line(line)
+    started = json.loads(s.run_line("srv = servenet(net, port = 0)"))["result"]
+    assert started["serving"] is True and started["port"] > 0
+    probe = json.loads(s.run_line(
+        f'pingnet(host = "127.0.0.1", port = {started["port"]})'))["result"]
+    assert probe["ok"] is True and probe["ready"] is True
+    stopped = json.loads(s.run_line("stopserve(srv)"))["result"]
+    assert stopped == {"stopped": True, "served": 0, "requests": 2}
+    assert s.env["srv"].engine.closed
+    down = json.loads(s.run_line(
+        f'pingnet(host = "127.0.0.1", port = {started["port"]})'))["result"]
+    assert down["ok"] is False and down["reasons"]
+    with pytest.raises(tcli.CLIError, match="servenet"):
+        s.run_line("stopserve(net)")
+
+
+@pytest.mark.parametrize("tail", ["complete", "torn"])
+def test_serve_trace_with_a_partial_last_line(tmp_path, tail):
+    """A last line without its newline is served when it is complete JSON
+    and raises ``TruncatedFileError`` when it was torn mid-write, in both
+    packages."""
+    from repro.core.io import TruncatedFileError as JaxTruncated
+    from repro_torch.core.io import TruncatedFileError
+
+    last = ('{"kind": "degree", "u": 2}' if tail == "complete"
+            else '{"kind": "deg')
+    trace = _write_trace(tmp_path / "t.jsonl", SERVE_TRACE[:2], tail=last)
+    script = LISTING2 + f'serve(net, file = "{trace}")\n'
+    if tail == "torn":
+        with pytest.raises(TruncatedFileError, match="torn mid-write"):
+            tcli.Session(mode="json", device="cpu").run_script(script)
+        with pytest.raises(JaxTruncated, match="torn mid-write"):
+            jcli.Session(mode="json").run_script(script)
+        return
+    got = json.loads(tcli.Session(mode="json", device="cpu").run_script(script)[0])
+    want = json.loads(jcli.Session(mode="json").run_script(script)[0])
+    assert got["result"]["results"] == want["result"]["results"]
+    assert [r["id"] for r in got["result"]["results"]] == [0, 1, 2]
+    assert got["result"]["results"][-1]["result"] == want["result"]["results"][-1]["result"]
 
 
 def test_command_surface_equals_jax():

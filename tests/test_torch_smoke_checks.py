@@ -630,3 +630,141 @@ def test_storage_phase_runs_the_store_on_a_cut_network(storage_smoke, monkeypatc
     text = capsys.readouterr().out
     assert f"store network of {STORAGE_NODES // 2} nodes (cut)" in text
     assert f"store of {STORAGE_NODES // 2} nodes" in text
+
+
+SERVING_CUT = {"SERVE_REQUESTS": 800, "SERVE_CAPACITY_REQUESTS": 160,
+               "SERVE_MUTATIONS": 4, "SERVE_PHASE_LIMIT_S": 900.0}
+
+
+@pytest.fixture
+def serving_smoke(storage_smoke, monkeypatch):
+    """The storage rehearsal's stand-ins and network, the serving phase's
+    constants cut (a trace of 800 requests, 4 mutations)."""
+    smoke, net, median = storage_smoke
+    for name, value in SERVING_CUT.items():
+        monkeypatch.setattr(smoke, name, value)
+    return smoke, net, median
+
+
+def test_serving_phase_rehearsed_on_the_cpu(serving_smoke, capsys):
+    smoke, net, median = serving_smoke
+    out = smoke.phase_serving(net, median, torch.device("cpu"))
+    for key in smoke.SERVE_KERNELS:
+        assert out["launches"][key] > 0, key
+    text = capsys.readouterr().out
+    assert "800 served results, 0 errors; the 200 of the loop bit-identical" in text
+    assert "loop ms a request by kind: alters" in text
+    assert "bit-identical to the plain paths" in text
+    assert "800 wire results (JSON round trip) equal (a)'s" in text
+    assert "ran on the pump thread" in text
+    assert "bit-identical between scoped and global invalidation" in text
+    wire = out["wire"]
+    assert wire["faults_fired"] >= 1 and wire["idempotent_replays"] >= 1
+    assert out["mutations"]["scoped"]["misses"] <= out["mutations"]["global"]["misses"]
+
+
+@pytest.mark.parametrize("kind", ["getedge", "fgetedge", "alters", "degree",
+                                  "khop", "walkbatch"])
+def test_serving_oracle_rejects_a_changed_result(serving_smoke, kind):
+    from repro_torch.serve import run_request
+
+    smoke, net, median = serving_smoke
+    slo = smoke.serve_slo()
+    flt = {"attr": "income", "op": "gt", "value": median}
+    trace = slo.build_serve_trace(net, 400, flt)
+    values = [run_request(net, r) for r in trace]
+    smoke.serving_oracle(net, trace, values, median, torch.device("cpu"))
+    i = next(j for j, r in enumerate(trace) if slo.trace_kind(r) == kind)
+    v = values[i]
+    if isinstance(v, list):  # a k-hop record
+        v = [dict(v[0], count=v[0]["count"] + 1)]
+    elif isinstance(v, np.ndarray):
+        v = v.copy()
+        v.flat[-1] += 1
+    else:
+        v = v + 1
+    values[i] = v
+    with pytest.raises(AssertionError, match=kind):
+        smoke.serving_oracle(net, trace, values, median, torch.device("cpu"))
+
+
+def test_serving_wire_rejects_a_result_differing_from_the_engine(serving_smoke):
+    from repro_torch.serve import run_request
+
+    smoke, net, median = serving_smoke
+    slo = smoke.serve_slo()
+    trace = slo.build_serve_trace(net, 300, {
+        "attr": "income", "op": "gt", "value": median})
+    values = [run_request(net, r) for r in trace]
+    values[7] = values[8] if trace[7] != trace[8] else -1.0
+    with pytest.raises(AssertionError, match="differ from \\(a\\)'s, first at request 7"):
+        smoke.serving_wire(net, trace, values, "cpu (stand-in)", torch.device("cpu"))
+
+
+def test_serving_wire_rejects_a_mutation_off_the_pump_thread(serving_smoke,
+                                                            monkeypatch):
+    from repro_torch.serve import GraphServeEngine, run_request
+
+    smoke, net, median = serving_smoke
+    slo = smoke.serve_slo()
+    trace = slo.build_serve_trace(net, 300, {
+        "attr": "income", "op": "gt", "value": median})
+    values = [run_request(net, r) for r in trace]
+
+    def on_the_caller(self, apply, **commit):  # the wire's session thread
+        self._commit_mutation(apply(), **commit)
+        return self.net
+
+    monkeypatch.setattr(GraphServeEngine, "_mutate", on_the_caller)
+    with pytest.raises(AssertionError, match="mutation ran on threads"):
+        smoke.serving_wire(net, trace, values, "cpu (stand-in)", torch.device("cpu"))
+
+
+@pytest.mark.parametrize("lost", [0, 1])
+def test_serving_engine_reads_busy_only_from_a_whole_window(serving_smoke,
+                                                          monkeypatch, capsys,
+                                                          lost):
+    """The profiled engine run reports device busy only where the window
+    holds a graph-kernel event for every launch counted in it."""
+    import collections
+    import time
+
+    from repro_torch.kernels import build
+
+    smoke, net, median = serving_smoke
+    slo = smoke.serve_slo()
+    trace = slo.build_serve_trace(net, 300, {
+        "attr": "income", "op": "gt", "value": median})
+
+    def profiled(fn):  # one device event for each launch, less ``lost``
+        before = collections.Counter(build.launch_counts)
+        t0 = time.perf_counter()
+        out = fn()
+        wall = (time.perf_counter() - t0) * 1e3
+        n = smoke.graph_launches(build.launch_counts - before) - lost
+        return wall, {"void segmented_union_kernel<8, 4>(int const*)": [n, 1000.0],
+                      "Memcpy HtoD (Pageable -> Device)": [3, 500.0]}, out
+
+    monkeypatch.setattr(smoke, "profiled", profiled)
+    out = smoke.serving_engine(net, trace, median, "cpu (stand-in)",
+                               torch.device("cpu"))
+    text = capsys.readouterr().out
+    if lost:
+        assert "(window 3 of at most 3)" in text
+        assert "device busy not measured (every window lost events)" in text
+        assert out["busy_ms"] is None
+    else:
+        assert "(window 1 of at most 3)" in text
+        assert "device busy 1.500 ms" in text and "0.3333 of busy" in text
+        assert out["busy_ms"] == 1.5 and out["h2d_ms"] == 0.5
+
+
+def test_thread_ids_take_the_signed_low_bits_of_the_ident(smoke):
+    """Kineto filed the pump's runtime events under -1760565568, the low
+    32 bits of its ``threading.get_ident()`` (2534401728) read signed."""
+    import types
+
+    pump = types.SimpleNamespace(native_id=271, ident=(0x7F3A << 32) | 2534401728)
+    assert smoke.thread_ids(pump) == {271, 2534401728, -1760565568}
+    main = types.SimpleNamespace(native_id=129, ident=(0x7F3A << 32) | 764409536)
+    assert smoke.thread_ids(main) == {129, 764409536}
