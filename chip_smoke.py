@@ -5,8 +5,8 @@
 
 Drives the port's main paths — pseudo-projection point queries, batched
 traversal, sampling and analysis, files, mutation and durability, and the
-graph-serving engine and its wire on a population-scale mixed-mode
-network, and LM serving at full width — on the card, through the entry
+graph-serving engine and its wire, and the sharded network view, on a
+population-scale mixed-mode network, and LM serving at full width — on the card, through the entry
 points a user calls (``repro_torch.core.api``, ``repro_torch.core.cli``,
 ``repro_torch.serve``, ``repro_torch.models.lm_serve``), and
 fails (non-zero exit) if any phase fails:
@@ -141,7 +141,31 @@ fails (non-zero exit) if any phase fails:
               misses at most global. intersect_rows, segmented_union,
               frontier_compact and csr_row_sample must launch, no sort
               rows; at most 180 s;
-13. lm      — LM serving at full width, bf16, through
+13. sharded — the sharded network view (``core/sharded.py``) on the same
+              network, counts reset before and read after each part: (a)
+              ``shard_network`` at 2, 8 and 4 shards, one at a time (wall,
+              device bytes added, host-mirror bytes); (b) at 4 shards the
+              main path's getedge x8192 on each two-mode layer and on
+              Random, checkedge_any x8192, getnodealters x2048, getdegree
+              x8192 unfiltered and income > median, the k-hop over all
+              layers (512 sources, k 2, caps 256/128) and the component
+              labels, each equal to the unsharded port's bit for bit, with
+              its wall against the unsharded call's, device busy and idle
+              and launches a call (intersect_count, frontier_compact and
+              segmented_union must launch, no union row torch's sort); (c)
+              ``ShardedTwoMode`` on Households at 4 shards: the edge value
+              x8192 equal to the unsharded layer's, the walk step (65,536
+              walkers x 4 steps) equal to itself with the plain draws, each
+              move to a co-member; (d) ``GraphServeEngine(shards=4)`` on the
+              serving trace: every record equal to the unsharded engine's,
+              requests/s of both, a profiled run with the pump started
+              (every launch and copy under the pump's ids), one add_edges of
+              4 Random ties through the pump by ``reshard_deltas`` and a
+              getedge of them; (e) ``benchmarks/torch_sharded_perf.py`` at
+              its default (120,000 nodes, hub degree 800): k-hop walls at
+              1/2/4/8 shards, the 1-over-4 ratio and the candidate widths.
+              At most 150 s;
+14. lm      — LM serving at full width, bf16, through
               ``ServeEngine.generate``: qwen3-1.7b (28 layers, d_model
               2048) and mamba2-130m (24 layers, d_model 768), each with
               weights drawn from a seeded generator, serving 8 requests of
@@ -162,7 +186,7 @@ fails (non-zero exit) if any phase fails:
               against the argmax of ``Model.apply``, and, in an f32 copy
               of each model, prefill + 8 decode steps against
               ``Model.apply`` (2 requests, 256-token prompts);
-14. timing  — each kernel, its plain version and its bound at the heaviest
+15. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
               by CUDA events with the L2 flushed before each launch; the
@@ -181,7 +205,8 @@ fails (non-zero exit) if any phase fails:
               hidden and the q-norm shape. The threefry kernels at the
               sampling phase's heaviest launch of each, csr_row_sample
               cold with its sector count. A kernel or library time under
-              its bound fails the phase.
+              its bound fails the phase. The ``launches`` of each record add
+              the sharded phase's counts to its own phase's.
 
 Its last lines are the ``kernels`` JSON record and then
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -390,6 +415,19 @@ GRAPH_KERNEL_SYMBOLS = {
 # loop, on a column no request of the trace reads
 SERVE_PROBE_ATTR = "probe"
 SERVE_PROBE_NODES = (0, 1, 2, 3)
+
+# sharded: the sharded network view (core/sharded.py) on the same network
+SHARD_COUNTS = (2, 8, 4)  # built one at a time; the last one is kept
+SHARDS = 4
+SHARDED_REPEATS = 3
+SHARDED_WALKERS = 65_536
+SHARDED_WALK_STEPS = 4
+SHARDED_WALK_LAYER = "Households"
+SHARDED_PHASE_LIMIT_S = 150.0
+SHARDED_KERNELS = ("intersect_count", "frontier_compact", "segmented_union")
+SHARDED_BENCH_NODES = 120_000  # benchmarks/torch_sharded_perf.py's default
+SHARDED_BENCH_HUB = 800
+SHARDED_MUTATION_TIES = 4
 
 # LM phase: both configurations at full width in bf16 (depth not cut),
 # random weights from SEED. Traffic: LM_REQUESTS prompts of LM_PROMPT
@@ -3785,6 +3823,374 @@ def phase_serving(net, median_income: int, device) -> dict:
             "mutations": mutations, "seconds": seconds}
 
 
+def sharded_bench():
+    """``benchmarks/torch_sharded_perf.py``: the hub-skewed graph and its
+    k-hop and point queries at 1/2/4/8 shards."""
+    bench = str(ROOT / "benchmarks")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import torch_sharded_perf
+
+    return torch_sharded_perf
+
+
+def same_tensor(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+
+
+def sharded_host_bytes(snet) -> int:
+    """Bytes of the host mirrors the shards hold of their own: each sliced
+    CSR's ``indptr_host`` (the member directories are shared)."""
+    total = 0
+    for shard in snet.shards:
+        for layer in shard.layers:
+            csrs = ([layer.memb] if layer.mode == 2 else [layer.out, layer.in_])
+            ovs = ([layer.memb_ov] if layer.mode == 2 else [layer.out_ov, layer.in_ov])
+            csrs += [ov.delta for ov in ovs if ov is not None]
+            total += sum(c.indptr_host.nbytes for c in csrs if c is not None)
+    return total
+
+
+def sharded_build(net, card: str):
+    """(a) ``shard_network`` at each of SHARD_COUNTS, one at a time, each
+    freed before the next: wall, device bytes added, host-mirror bytes.
+    Returns the last (SHARDS) view."""
+    import torch
+
+    from repro_torch.core.sharded import shard_network
+
+    snet = None
+    for count in SHARD_COUNTS:
+        snet = None
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        snet = shard_network(net, count)
+        sync()
+        wall = time.perf_counter() - t0
+        added = torch.cuda.max_memory_allocated() - base
+        log(f"sharded: (a) shard_network at {count} shards: {wall * 1e3:.3f} ms, "
+            f"device bytes added {added} (max_memory_allocated), host mirrors "
+            f"{sharded_host_bytes(snet)} bytes, nbytes (views counted) "
+            f"{snet.nbytes}; {card}")
+    if snet.n_shards != SHARDS:
+        raise AssertionError(f"sharded: the kept view has {snet.n_shards} shards")
+    return snet
+
+
+def sharded_queries(net, snet, median_income: int, seed: int, card: str,
+                    device) -> dict:
+    """(b) the main path's point queries and traversal on the sharded view
+    against the unsharded network, bit for bit; each sharded call's median
+    wall, device busy and idle, and launches a call. The launch counts are
+    those of the sharded calls alone."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.traversal import components_batched
+    from repro_torch.kernels import build
+
+    rng = np.random.default_rng(seed + 30)
+    n = net.n_nodes
+    sel = api.selectnodes(net, "income", ">", median_income)
+    pairs = edge_pairs(net, rng, device)
+    pairs["Random"] = (rng.integers(0, n, POINT_PAIRS), rng.integers(0, n, POINT_PAIRS))
+    au, av = pairs["Workplaces"]
+    alters_u = rng.integers(0, n, ALTERS_NODES)
+    degree_u = rng.integers(0, n, DEGREE_NODES)
+    khop_src = rng.integers(0, n, KHOP_SOURCES)
+    khop_kw = dict(max_frontier=KHOP_MAX_FRONTIER, max_alters_per_node=KHOP_NODE_CAP)
+    calls = {}
+    for name, (u, v) in pairs.items():
+        calls[f"getedge {name} x{POINT_PAIRS}"] = (
+            lambda g, name=name, u=u, v=v: (g.edge_value(name, u, v),))
+    calls[f"checkedge_any x{POINT_PAIRS}"] = lambda g: (g.check_edge_any(au, av),)
+    calls[f"getnodealters x{ALTERS_NODES}, 4 layers"] = (
+        lambda g: g.node_alters(alters_u, MAX_ALTERS))
+    calls[f"getdegree x{DEGREE_NODES}"] = lambda g: (g.degree(degree_u),)
+    calls[f"getdegree x{DEGREE_NODES} income > {median_income}"] = (
+        lambda g: (g.degree(degree_u, node_filter=sel),))
+    calls[f"khop all layers x{KHOP_SOURCES} k={KHOP_K} caps "
+          f"{KHOP_MAX_FRONTIER}/{KHOP_NODE_CAP}"] = (
+        lambda g: g.khop(khop_src, KHOP_K, **khop_kw))
+    calls["countcomponents"] = lambda g: (
+        g.components() if hasattr(g, "components") else components_batched(g),)
+
+    plain = {}
+    for name, call in calls.items():  # the unsharded port, not counted
+        plain[name] = host_median_ms(lambda call=call: call(net), SHARDED_REPEATS)
+    build.launch_counts.clear()
+    outs = {}
+    for name, call in calls.items():
+        fn = lambda call=call: call(snet)  # noqa: E731
+        before = collections.Counter(build.launch_counts)
+        fn()
+        sync()
+        per_call = collections.Counter(build.launch_counts)
+        per_call.subtract(before)
+        ms, outs[name] = host_median_ms(fn, SHARDED_REPEATS)
+        busy = busy_share(fn, ms, top=3)
+        un_ms = plain[name][0]
+        log(f"sharded: (b) {name}: {SHARDS} shards median {ms:.3f} ms vs unsharded "
+            f"{un_ms:.3f} ms ({ms / un_ms:.3f}x), {busy}; launches a call "
+            f"{json.dumps({k: v for k, v in sorted(per_call.items()) if v})}; {card}")
+    sync()
+    launches = dict(build.launch_counts)
+    for name in calls:
+        got, want = outs[name], plain[name][1]
+        if not all(same_tensor(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"sharded: (b) {name} differs from the unsharded port")
+    labels = outs["countcomponents"][0]
+    log(f"sharded: (b) every result of the {len(calls)} calls equals the unsharded "
+        f"port's bit for bit (dtypes too); {int(torch.unique(labels).numel())} "
+        f"components; launch counts {json.dumps(launches, sort_keys=True)}")
+    assert_launched("sharded (b)", launches, SHARDED_KERNELS)
+    assert_no_sort_rows("sharded (b)", launches)
+    if launches.get("frontier_sort_rows", 0):
+        raise AssertionError("sharded: (b) frontier rows took the plain path")
+    return launches
+
+
+class PlainDraws:
+    """Within the block, ``ops.randint`` runs its plain torch version (on
+    the card's tensors)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+
+        self._real = ops.randint
+        ops.randint = ref.randint_ref
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.randint = self._real
+
+
+def sharded_two_mode(net, seed: int, card: str, device) -> dict:
+    """(c) ``ShardedTwoMode`` on SHARDED_WALK_LAYER at SHARDS shards: the
+    loop version of the shard_map edge value against the unsharded layer,
+    and the walk step against itself with the plain draws, exactly; every
+    move lands on a co-member. Launch counts of the kernel runs alone."""
+    import torch
+
+    from repro_torch.core.sharded import (
+        make_sharded_edge_value, make_sharded_walk_step, shard_two_mode,
+    )
+    from repro_torch.kernels import build
+
+    layer = net.layer(SHARDED_WALK_LAYER)
+    rng = np.random.default_rng(seed + 31)
+    t0 = time.perf_counter()
+    graph = shard_two_mode(layer, SHARDS)
+    sync()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    u, v = pair_ids(layer, net.n_nodes, POINT_PAIRS, rng, device)
+    starts = torch.from_numpy(
+        rng.integers(0, net.n_nodes, SHARDED_WALKERS).astype(np.int32)).to(device)
+    want_edge = net.edge_value(SHARDED_WALK_LAYER, u, v)
+    edge_value = make_sharded_edge_value(graph)
+    step = make_sharded_walk_step(graph)
+
+    def walk():
+        w, path = starts, [starts]
+        for t in range(SHARDED_WALK_STEPS):
+            w = step(w, t)
+            path.append(w)
+        return torch.stack(path)
+
+    with PlainDraws():
+        want_walk = walk()
+    sync()
+    build.launch_counts.clear()
+    edge_ms, got_edge = host_median_ms(lambda: edge_value(u, v), SHARDED_REPEATS)
+    walk_ms, got_walk = host_median_ms(walk, SHARDED_REPEATS)
+    launches = dict(build.launch_counts)
+    if not same_tensor(got_edge, want_edge):
+        raise AssertionError("sharded: (c) make_sharded_edge_value differs from the "
+                             "unsharded edge value")
+    if not same_tensor(got_walk, want_walk):
+        raise AssertionError("sharded: (c) the walk step's kernels differ from its "
+                             "plain draws")
+    moved = got_walk[1:] != got_walk[:-1]
+    hops = net.edge_value(SHARDED_WALK_LAYER, got_walk[:-1].reshape(-1),
+                          got_walk[1:].reshape(-1)).reshape(moved.shape)
+    if bool((moved & (hops == 0)).any()):
+        raise AssertionError("sharded: (c) a walker moved to a node it shares no "
+                             "group with")
+    log(f"sharded: (c) ShardedTwoMode on {SHARDED_WALK_LAYER} at {SHARDS} shards "
+        f"({graph.rows_per_shard} rows a shard, built in {build_ms:.3f} ms): edge "
+        f"value x{POINT_PAIRS} median {edge_ms:.3f} ms, equal to the unsharded "
+        f"layer's ({int((got_edge > 0).sum())} pairs share a group); walk step "
+        f"{SHARDED_WALKERS} walkers x {SHARDED_WALK_STEPS} steps median "
+        f"{walk_ms:.3f} ms, equal to the plain draws', {int(moved.sum())} moves, "
+        f"each to a co-member; launches {json.dumps(launches, sort_keys=True)}; {card}")
+    assert_launched("sharded (c)", launches, ("intersect_count", "randint"))
+    return launches
+
+
+def sharded_engine(net, median_income: int, card: str, device) -> dict:
+    """(d) ``GraphServeEngine(net, shards=SHARDS)`` on the serving trace:
+    every record equal to the unsharded engine's, requests/s of both, a
+    profiled run with the pump started (every launch and copy under the
+    pump's ids), then one add_edges through the pump, which must take the
+    ``reshard_deltas`` route, and a getedge of the new ties."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import sharded
+    from repro_torch.kernels import build
+    from repro_torch.serve import GraphServeEngine
+
+    slo = serve_slo()
+    flt = {"attr": "income", "op": "gt", "value": median_income}
+    trace = slo.build_serve_trace(net, SERVE_REQUESTS, flt, SERVE_SEED)
+    n = len(trace)
+    t0 = time.perf_counter()
+    want = [r.to_record() for r in GraphServeEngine(
+        net, cache_size=SERVE_CACHE).serve(trace)]
+    sync()
+    plain_qps = n / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    engine = GraphServeEngine(net, cache_size=SERVE_CACHE, shards=SHARDS)
+    sync()
+    view_ms = (time.perf_counter() - t0) * 1e3
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    got = [r.to_record() for r in engine.serve(trace)]
+    sync()
+    qps = n / (time.perf_counter() - t0)
+    wrong = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if wrong or len(got) != n:
+        raise AssertionError(f"sharded: (d) {len(wrong)} records differ from the "
+                             f"unsharded engine's, first at request {wrong[:1]}")
+    log(f"sharded: (d) GraphServeEngine(shards={SHARDS}) on the serving trace "
+        f"({n} requests, seed {SERVE_SEED}): {qps:.1f} requests/s vs unsharded "
+        f"{plain_qps:.1f} ({qps / plain_qps:.3f}x); every record equal; the view "
+        f"built in {view_ms:.3f} ms; launches "
+        f"{json.dumps(dict(sorted(build.launch_counts.items())))}; {card}")
+
+    engine = GraphServeEngine(net, cache_size=SERVE_CACHE, shards=SHARDS).start()
+    pump = engine.pump_thread
+    routes = []
+    real = sharded.reshard_deltas
+
+    def spy(snet, new_net):
+        view = real(snet, new_net)
+        routes.append(view is not None)
+        return view
+
+    try:
+        with ServeThreads() as watch:
+            before = collections.Counter(build.launch_counts)
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message=".*Profiler clears events")
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    served = engine.serve(trace)
+                    sync()
+                    wall = (time.perf_counter() - t0) * 1e3
+            launched = graph_launches(build.launch_counts - before)
+            rng = np.random.default_rng(SERVE_MUTATION_SEED + 1)
+            src = rng.integers(0, net.n_nodes, SHARDED_MUTATION_TIES)
+            dst = rng.integers(0, net.n_nodes, SHARDED_MUTATION_TIES)
+            sharded.reshard_deltas = spy
+            try:
+                t0 = time.perf_counter()
+                engine.add_edges("Random", src, dst)
+                add_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                sharded.reshard_deltas = real
+            after = engine.serve([{"kind": "getedge", "layer": "Random",
+                                   "u": int(a), "v": int(b)} for a, b in zip(src, dst)])
+        view = engine._sharded
+        served_net = engine.net
+    finally:
+        engine.close()
+    # with the pump started, rounds cut the trace elsewhere, so which
+    # requests read the cache differs; the results may not
+    uncached = [{k: v for k, v in rec.items() if k != "cached"} for rec in want]
+    if [{k: v for k, v in r.to_record().items() if k != "cached"}
+            for r in served] != uncached:
+        raise AssertionError("sharded: (d) the started engine's results differ")
+    acts = device_events(prof)
+    delivered = graph_kernel_events(acts)
+    tids = launch_threads(prof)
+    if set(tids) - thread_ids(pump) or not tids:
+        raise AssertionError(f"sharded: (d) CUDA launches or copies off the pump "
+                             f"thread (ids {sorted(thread_ids(pump))}): {dict(tids)}")
+    off_pump = {t: k for t, k in watch.threads.items() if t != pump.ident}
+    if off_pump or set(watch.mutations) != {pump.ident}:
+        raise AssertionError(f"sharded: (d) executors or the mutation off the pump: "
+                             f"{off_pump}, {dict(watch.mutations)}")
+    if routes != [True]:
+        raise AssertionError(f"sharded: (d) the add_edges re-shard took routes "
+                             f"{routes}, not reshard_deltas")
+    if view.source is not served_net or [r.value for r in after] != [1.0] * len(src):
+        raise AssertionError("sharded: (d) the view after add_edges is stale")
+    if delivered >= launched:
+        device_text = busy_line(acts, wall, top=4)
+    else:
+        device_text = (f"device busy not measured (the window lost events: "
+                       f"{delivered} graph-kernel events for {launched} launches)")
+    log(f"sharded: (d) started engine, profiled: wall {wall:.3f} ms, {device_text}; "
+        f"{sum(tids.values())} launches and copies, all under the pump's ids; "
+        f"add_edges of {len(src)} Random ties through the pump {add_ms:.3f} ms "
+        f"(reshard_deltas), getedge after it reads 1.0 for each; {card}")
+    return dict(build.launch_counts)
+
+
+def phase_sharded(net, median_income: int, seed: int, device) -> dict:
+    """The sharded network view (``core/sharded.py``) on the phase's
+    network: (a) shard building, (b) the main path's queries and traversal
+    at SHARDS shards against the unsharded port, (c) the ShardedTwoMode
+    loop, (d) the engine with ``shards=SHARDS``, (e) the sharded benchmark
+    at its default; counts reset before and read after each part. Returns
+    the launches of the sharded calls, summed over the parts."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    card = device_line()
+    snet = sharded_build(net, card)
+    total = collections.Counter()
+    total.update(sharded_queries(net, snet, median_income, seed, card, device))
+    del snet
+    total.update(sharded_two_mode(net, seed, card, device))
+    build.launch_counts.clear()
+    total.update(sharded_engine(net, median_income, card, device))
+    torch.cuda.empty_cache()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    out = sharded_bench().measure(SHARDED_BENCH_NODES, SHARDED_BENCH_HUB, False,
+                                  device, log=lambda m: log(f"sharded: (e) {m}"))
+    sync()
+    bench = dict(build.launch_counts)
+    total.update(bench)
+    log(f"sharded: (e) benchmarks/torch_sharded_perf.py in "
+        f"{time.perf_counter() - t0:.3f} s: khop ms " + ", ".join(
+            f"{s} shard(s) {out[f'sharded/khop_{s}shard_ms']:.3f}" for s in (1, 2, 4, 8))
+        + f"; 1-over-4 {out['sharded/khop_4shard_speedup_x']:.3f}x; candidate "
+        "entries " + ", ".join(
+            f"{s}: {out[f'sharded/khop_{s}shard_candidates']}" for s in (1, 2, 4, 8))
+        + f"; launches {json.dumps(bench, sort_keys=True)}; {card}")
+    assert_launched("sharded (e)", bench, ("frontier_compact",))
+    assert_no_sort_rows("sharded", total)
+    seconds = time.perf_counter() - t_phase
+    log(f"sharded: launch counts of the phase {json.dumps(dict(sorted(total.items())))}"
+        f"; phase {seconds:.3f} s (limit {SHARDED_PHASE_LIMIT_S:g} s); {card}")
+    assert_launched("sharded", total, SHARDED_KERNELS)
+    if seconds > SHARDED_PHASE_LIMIT_S:
+        raise AssertionError(f"sharded: the phase took {seconds:.1f} s, over its "
+                             f"{SHARDED_PHASE_LIMIT_S:g} s")
+    return {"launches": dict(total), "bench": out, "seconds": seconds}
+
+
+
 class KernelInputs:
     """Within the block, keeps a copy of the inputs of the first launch of
     every distinct shape of each LM kernel, under ``label``, so the checks
@@ -4272,9 +4678,14 @@ def run() -> int:
     sampling = phase_sampling(net, median_income, SEED, device)
     phase_storage(net, median_income, SEED, device)
     phase_serving(net, median_income, device)
+    sharded = phase_sharded(net, median_income, SEED, device)
     lm = phase_lm(device, SEED)
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
                            panel, traversal, sampling, lm, device)
+    for rec in records:  # the launch columns include the sharded phase's
+        rec["launches"] += sharded["launches"].get(rec["name"], 0)
+    log("timing: launches with the sharded phase's added: " + ", ".join(
+        f"{r['name']} {r['launches']}" for r in records))
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,7 @@ from .traversal import (
     khop_records,
     random_walk_batch,
 )
+from .sharded import ShardedNetwork, shard_network
 from .walks import ego_sample, neighborhood_sample, random_walk
 from .memory import memory_report, peak_rss, resident_rss
 from .temporal import TemporalNetwork

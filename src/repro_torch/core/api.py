@@ -275,7 +275,9 @@ def khop(
     Returns one record per source: ``{"source", "count", "nodes", "hops"}``
     with ``nodes`` the reached ids (source excluded) grouped by hop order
     and ``hops`` the matching hop index per id. Routed through
-    :class:`QueryRequest`. (``node_filter=`` is a deprecated alias.)
+    :class:`QueryRequest`; ``net`` may be a ``ShardedNetwork``
+    (``core/sharded.py``), with the same records. (``node_filter=`` is a
+    deprecated alias.)
     """
     filter = merge_filter_kwargs(filter, node_filter)
     src = np.atleast_1d(np.asarray(sources, dtype=np.int64))
@@ -327,7 +329,8 @@ def walkbatch(
 
 def runquery(net: Network, request):
     """Execute one :class:`QueryRequest` (or trace-schema dict) against
-    ``net`` -- the no-queue, no-cache reference path."""
+    ``net`` -- the no-queue, no-cache reference path. ``net`` may be a
+    ``ShardedNetwork`` (``core/sharded.py``): the result is the same."""
     return run_query(net, QueryRequest.from_any(request))
 
 

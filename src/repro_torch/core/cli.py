@@ -6,7 +6,8 @@ two output modes — human-readable ``text`` and machine-readable ``json``
 format. A session names its device (``Session(device=...)``; ``None`` is
 the CUDA card): the networks it creates, loads and recovers live there.
 The serving commands (``serve``, ``servenet``, ``pingnet``,
-``stopserve``) are not ported yet and raise ``NotImplementedError``.
+``stopserve``) run the port's serving engine and wire frontend
+(``repro_torch.serve``).
 Example script (paper Listing 2, mini):
 
     nodes = createnodeset(createnodes = 20000)

@@ -150,6 +150,8 @@ class Network:
             a, m = layer.node_alters(u, max_alters, node_filter=nf)
             parts.append(a)
             masks.append(m)
+        if not parts:  # the JAX package's jnp.concatenate text
+            raise ValueError("Need at least one array to concatenate.")
         vals = torch.cat(parts, dim=-1)
         mask = torch.cat(masks, dim=-1)
         return dispatch.union_rows(vals, mask, max_alters)

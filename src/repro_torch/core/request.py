@@ -505,8 +505,11 @@ def _exec_walkbatch(net, group_key, creqs):
     from .traversal import random_walk_batch
 
     _, layers, steps, walkers, seed, weights, _, starts = group_key
+    # a sharded view walks on its source: the draws couple rows across the
+    # batch, so fleets cannot shard bit-identically
     paths = random_walk_batch(
-        net, np.asarray(starts, np.int32), steps, prng.key(seed),
+        getattr(net, "source", net), np.asarray(starts, np.int32), steps,
+        prng.key(seed),
         walkers_per_start=walkers, layer_names=layers,
         layer_weights=weights, node_filter=creqs[0].mask,
     )

@@ -329,6 +329,55 @@ def random_walk_batch(
     return path.T.contiguous()
 
 
+def component_streams(layers) -> list[tuple]:
+    """Each layer's effective (row, col) streams as int64 scatter indices,
+    the input of ``propagate_labels``: ``(n_hyperedges, memb rows, memb
+    cols, member rows, member cols)`` for a two-mode layer, ``(None, rows,
+    cols, None, None)`` for a one-mode one; empty layers are left out.
+    Min-label scatters are order-independent, so overlay streams give the
+    labels of the rebuilt layer."""
+    prep = []
+    for layer in layers:
+        if isinstance(layer, LayerTwoMode):
+            if eff_nnz(layer.memb, layer.memb_ov):
+                mrows, mcols = eff_edge_stream(layer.memb, layer.memb_ov)
+                hrows, hcols = eff_edge_stream(layer.members, layer.members_ov)
+                prep.append((layer.n_hyperedges, mrows.long(), mcols.long(),
+                             hrows.long(), hcols.long()))
+        elif eff_nnz(layer.out, layer.out_ov):
+            rows, cols = eff_edge_stream(layer.out, layer.out_ov)
+            prep.append((None, rows.long(), cols.long(), None, None))
+    return prep
+
+
+def propagate_labels(prep: list[tuple], labels: torch.Tensor,
+                     nf: torch.Tensor | None) -> torch.Tensor:
+    """One min-label propagation pass over ``component_streams``' layers,
+    in place on ``labels`` (two-mode layers through hyperedge labels);
+    nodes failing ``nf`` neither send nor receive."""
+    for n_he, rows, cols, hrows, hcols in prep:
+        if n_he is None:
+            src_lab = labels[rows]
+            dst_lab = labels[cols]
+            if nf is not None:
+                live = nf[rows] & take_clip(nf, cols)
+                src_lab = torch.where(live, src_lab, _INF)
+                dst_lab = torch.where(live, dst_lab, _INF)
+            labels.scatter_reduce_(0, cols, src_lab, "amin")
+            labels.scatter_reduce_(0, rows, dst_lab, "amin")
+        else:
+            mem_lab = labels[hcols]
+            if nf is not None:
+                mem_lab = torch.where(take_clip(nf, hcols), mem_lab, _INF)
+            he = torch.full((n_he,), _INF, dtype=torch.int32, device=labels.device)
+            he.scatter_reduce_(0, hrows, mem_lab, "amin")
+            node_min = he[cols]
+            if nf is not None:
+                node_min = torch.where(take_clip(nf, rows), node_min, _INF)
+            labels.scatter_reduce_(0, rows, node_min, "amin")
+    return labels
+
+
 def components_batched(
     net,
     layer_names: Sequence[str] | None = None,
@@ -349,51 +398,17 @@ def components_batched(
     as undirected (weak components).
     """
     n = net.n_nodes
-    device = net.device
     nf = net._filter(node_filter)
-    # per-layer effective (row, col) streams as int64 scatter indices;
-    # min-label scatters are order-independent, so overlay streams give
-    # the labels of the rebuilt layer
-    prep = []
-    for layer in net._select(layer_names):
-        if isinstance(layer, LayerTwoMode):
-            if eff_nnz(layer.memb, layer.memb_ov):
-                mrows, mcols = eff_edge_stream(layer.memb, layer.memb_ov)
-                hrows, hcols = eff_edge_stream(layer.members, layer.members_ov)
-                prep.append((layer.n_hyperedges, mrows.long(), mcols.long(),
-                             hrows.long(), hcols.long()))
-        elif eff_nnz(layer.out, layer.out_ov):
-            rows, cols = eff_edge_stream(layer.out, layer.out_ov)
-            prep.append((None, rows.long(), cols.long(), None, None))
+    prep = component_streams(net._select(layer_names))
 
     def sweep(labels: torch.Tensor) -> torch.Tensor:
         launch_counts["components_sweeps"] += 1
-        labels = labels.clone()
-        for n_he, rows, cols, hrows, hcols in prep:
-            if n_he is None:
-                src_lab = labels[rows]
-                dst_lab = labels[cols]
-                if nf is not None:
-                    live = nf[rows] & take_clip(nf, cols)
-                    src_lab = torch.where(live, src_lab, _INF)
-                    dst_lab = torch.where(live, dst_lab, _INF)
-                labels.scatter_reduce_(0, cols, src_lab, "amin")
-                labels.scatter_reduce_(0, rows, dst_lab, "amin")
-            else:
-                mem_lab = labels[hcols]
-                if nf is not None:
-                    mem_lab = torch.where(take_clip(nf, hcols), mem_lab, _INF)
-                he = torch.full((n_he,), _INF, dtype=torch.int32, device=device)
-                he.scatter_reduce_(0, hrows, mem_lab, "amin")
-                node_min = he[cols]
-                if nf is not None:
-                    node_min = torch.where(take_clip(nf, rows), node_min, _INF)
-                labels.scatter_reduce_(0, rows, node_min, "amin")
+        labels = propagate_labels(prep, labels.clone(), nf)
         # pointer jumping: a label is itself a same-component node id, so
         # relabeling through it never leaves the component
         return torch.minimum(labels, labels[labels.long()])
 
-    labels0 = torch.arange(n, dtype=torch.int32, device=device)
+    labels0 = torch.arange(n, dtype=torch.int32, device=net.device)
     if not prep:
         return labels0
     limit = n if max_sweeps is None else max_sweeps

@@ -120,10 +120,6 @@ from repro_torch.core.request import (  # noqa: F401  (re-exported serving API)
     run_request,
 )
 
-#: what ``shards > 1`` needs: the sharded network view
-UNPORTED_SHARDS = "ROADMAP Queue 1 item 12"
-
-
 class QueueFull(RuntimeError):
     """Bounded-queue backpressure: the request's cost class is saturated."""
 
@@ -276,12 +272,11 @@ class GraphServeEngine:
         self.net = net
         if shards is not None and int(shards) < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
-        if shards is not None and int(shards) > 1:
-            raise NotImplementedError(
-                f"shards={shards}: the sharded network view is not ported "
-                f"yet ({UNPORTED_SHARDS}); serve with shards=None or 1"
-            )
         self._n_shards = int(shards) if shards else None
+        # shards > 1: executors dispatch against a ShardedNetwork view
+        # (owner-routed point queries, per-shard k-hop expansion), built
+        # here, before any pump starts, and rebuilt with every mutation
+        self._sharded = self._shard(net)
         # mutations go WAL-first through the DurableStore when present:
         # a mutation the store could not make durable is rejected before
         # the served network rebinds (fail closed)
@@ -502,13 +497,14 @@ class GraphServeEngine:
             for _ in range(min(self._max_heavy, len(self._heavy))):
                 popped.append(self._heavy.popleft())
             net, generation = self.net, self._generation
+            target = self._sharded if self._sharded is not None else net
         if not popped:
             return 0
 
         t0 = time.perf_counter()
         finished: list[QueryResult] = []
         try:
-            self._pump_round(popped, net, generation, finished)
+            self._pump_round(popped, net, generation, finished, target)
         except Exception as e:
             answered = {r.rid for r in finished}
             msg = f"pump fault: {type(e).__name__}: {e}"
@@ -546,9 +542,12 @@ class GraphServeEngine:
 
     def _pump_round(
         self, popped: list[_Pending], net, generation: int,
-        finished: list[QueryResult],
+        finished: list[QueryResult], target,
     ) -> None:
-        """The fallible middle of a pump round; appends to ``finished``."""
+        """The fallible middle of a pump round; appends to ``finished``.
+        Requests canonicalize against ``net``; executors dispatch against
+        ``target``, the sharded view picked with ``net`` when sharding is
+        on, else ``net``."""
         # deadline sweep first: a request that expired while queued gets
         # an error result, never a stale answer (checked once, at pop
         # time — an in-flight dispatch is never abandoned mid-compute)
@@ -618,7 +617,7 @@ class GraphServeEngine:
                 # the executors return host values: their copies off the
                 # card synchronize, so the deadline re-check below sees
                 # device time
-                values = _EXECUTORS[kind](net, group_key, creqs)
+                values = _EXECUTORS[kind](target, group_key, creqs)
                 if self._fault_plan:  # chaos: stall between exec + scatter
                     self._fault_plan.fire("pump.batch_delay")
                 errs = [None] * len(values)
@@ -894,8 +893,15 @@ class GraphServeEngine:
         ``set_attr`` exactly its own attribute's entries; survivors are
         re-tagged to the new generation, with their device copies.
         """
+        # the sharded view is rebuilt before the rebind, on this thread
+        # (the pump, while it runs), and rebinds with ``net`` under the
+        # lock ``pump`` picks both under, so no round pairs the new network
+        # with a stale view; an overlay-only mutation re-slices only the
+        # overlays (``reshard_deltas``), never the base CSRs
+        sharded = self._shard(net, self._sharded)
         with self._lock:
             self.net = net
+            self._sharded = sharded
             self._generation += 1
             gen = self._generation
             if everything or not self.scoped_invalidation:
@@ -909,6 +915,17 @@ class GraphServeEngine:
                     del self._filter_memo[key]
             for key, entry in list(self._filter_memo.items()):
                 self._filter_memo[key] = (gen,) + entry[1:]
+
+    def _shard(self, net, previous=None):
+        """The sharded view of ``net`` when ``shards > 1``, else None:
+        ``previous`` re-sliced by ``reshard_deltas`` when only overlays
+        changed, else a fresh ``shard_network``."""
+        if not self._n_shards or self._n_shards < 2:
+            return None
+        from repro_torch.core import sharded
+
+        view = None if previous is None else sharded.reshard_deltas(previous, net)
+        return view if view is not None else sharded.shard_network(net, self._n_shards)
 
     @staticmethod
     def _layer_mutation_scopes(name: str) -> frozenset:

@@ -1018,8 +1018,18 @@ def test_submit_defers_filter_resolution_to_the_pump(net, monkeypatch):
 
 
 def test_shards_above_one_name_the_sharded_item(net):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        GraphServeEngine(net, shards=2)
+    """``shards=2`` serves through the sharded view, with records equal to
+    ``shards=1``'s; None and 1 serve the network itself; 0 is refused."""
+    from repro_torch.core.sharded import ShardedNetwork
+
+    trace = _mixed_trace(net, 40, seed=4)
+    sharded = GraphServeEngine(net, shards=2)
+    assert isinstance(sharded._sharded, ShardedNetwork)
+    assert sharded.stats["shards"] == 2
+    want = _records(GraphServeEngine(net, shards=1).serve(trace))
+    got = _records(sharded.serve(trace))
+    assert all("error" not in r for r in got)
+    assert got == want
     for shards in (None, 1):
         engine = GraphServeEngine(net, shards=shards)
         assert engine.stats["shards"] == 1
@@ -1027,6 +1037,28 @@ def test_shards_above_one_name_the_sharded_item(net):
         _assert_same(res.value, run_request(net, {"kind": "degree", "u": 3}))
     with pytest.raises(ValueError, match="shards"):
         GraphServeEngine(net, shards=0)
+
+
+EMPTY_SELECTION = "Need at least one array to concatenate."
+
+
+@pytest.mark.parametrize("shards", [None, 2])
+def test_empty_layer_selection_raises_the_reference_text(net, shards):
+    """An empty layer list in getnodealters, khop and the served alters
+    and khop raises the JAX package's ValueError text, also through the
+    sharded view; getdegree's sum over no layer stays 0."""
+    with pytest.raises(ValueError, match=EMPTY_SELECTION):
+        api.getnodealters(net, 5, layernames=[])
+    with pytest.raises(ValueError, match=EMPTY_SELECTION):
+        api.khop(net, [3], 1, layernames=[])
+    engine = GraphServeEngine(net, shards=shards)
+    alters, khop, degree = engine.serve([
+        {"kind": "alters", "u": 5, "layers": []},
+        {"kind": "khop", "sources": [3], "k": 1, "layers": []},
+        {"kind": "degree", "u": 5, "layers": []},
+    ])
+    assert alters.error == khop.error == f"ValueError: {EMPTY_SELECTION}"
+    assert degree.error is None and degree.value == 0
 
 
 def test_round_stats_count_rounds(net):
@@ -1101,3 +1133,22 @@ def test_engine_parity_with_jax_package():
     assert ts["cache"]["hits"] == js["cache"]["hits"]
     assert ts["coalesced_dupes"] == js["coalesced_dupes"]
     assert ts["coalesced_dupes"] + ts["cache"]["hits"] >= 1
+
+
+def test_empty_layer_selection_records_equal_jax_package():
+    """The records of alters and khop over an empty layer list equal the
+    JAX package's engine's, error text included."""
+    from repro.core import api as japi
+    from repro.serve import GraphServeEngine as JaxEngine
+
+    nets = []
+    for mod, kw in ((japi, {}), (api, {"device": "cpu"})):
+        g = mod.createnetwork(mod.createnodeset(60, **kw))
+        nets.append(mod.generate(mod.addlayer(g, "er", 1), "er", type="er",
+                                 p=0.1, seed=1))
+    trace = [{"kind": "alters", "u": 5, "layers": []},
+             {"kind": "khop", "sources": [3], "k": 1, "layers": []},
+             {"kind": "degree", "u": [5, 6], "layers": []}]
+    want = _records(JaxEngine(nets[0]).serve(trace))
+    assert _records(GraphServeEngine(nets[1]).serve(trace)) == want
+    assert want[0]["error"] == "ValueError: Need at least one array to concatenate."

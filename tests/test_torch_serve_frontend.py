@@ -10,6 +10,7 @@ as the one thread that runs queries while six sessions submit."""
 import json
 import socket
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -121,6 +122,12 @@ def test_multiple_sessions_share_one_engine(net):
             assert vals == [int(r) for r in ref]
         st = fe.stats
         assert st["sessions"]["opened"] >= 6
+        # a session leaves the table when its server thread reads the
+        # client's EOF, which may come after the client's close returns
+        deadline = time.monotonic() + 5.0
+        while st["sessions"]["active"] and time.monotonic() < deadline:
+            time.sleep(0.01)
+            st = fe.stats
         assert st["sessions"]["active"] == 0  # all disconnected
 
 

@@ -768,3 +768,79 @@ def test_thread_ids_take_the_signed_low_bits_of_the_ident(smoke):
     assert smoke.thread_ids(pump) == {271, 2534401728, -1760565568}
     main = types.SimpleNamespace(native_id=129, ident=(0x7F3A << 32) | 764409536)
     assert smoke.thread_ids(main) == {129, 764409536}
+
+
+# ---------------------------------------------------------------------------
+# The sharded phase, rehearsed on the CPU: the serving rehearsal's stand-ins
+# and network, counting stand-ins for intersect_count and randint, the CUDA
+# memory readings and the profiler's thread ids stubbed, cut constants
+# ---------------------------------------------------------------------------
+
+SHARDED_CUT = {"SHARDED_WALKERS": 512, "SHARDED_BENCH_NODES": 24_000,
+               "SHARDED_BENCH_HUB": 400, "SHARDED_PHASE_LIMIT_S": 900.0,
+               "KHOP_SOURCES": 32}
+
+
+@pytest.fixture
+def sharded_smoke(serving_smoke, monkeypatch):
+    import collections
+
+    smoke, net, median = serving_smoke
+    for name, value in SHARDED_CUT.items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(ops, "intersect_count",
+                        _counting("intersect_count", ops.intersect_count))
+    monkeypatch.setattr(ops, "randint", _counting("randint", ops.randint))
+    for name in ("reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda: 0)
+    def no_events(fn, iters):
+        raise smoke.ProfilerLostEvents("no device on the CPU")
+
+    monkeypatch.setattr(smoke, "device_activity", no_events)
+    monkeypatch.setattr(smoke, "launch_threads", lambda prof: collections.Counter({7: 1}))
+    monkeypatch.setattr(smoke, "thread_ids", lambda thread: {7})
+    return smoke, net, median
+
+
+def test_sharded_phase_rehearsed_on_the_cpu(sharded_smoke, capsys):
+    smoke, net, median = sharded_smoke
+    out = smoke.phase_sharded(net, median, 0, torch.device("cpu"))
+    for key in smoke.SHARDED_KERNELS + ("randint",):
+        assert out["launches"][key] > 0, key
+    text = capsys.readouterr().out
+    for count in smoke.SHARD_COUNTS:
+        assert f"shard_network at {count} shards" in text
+    assert "calls equals the unsharded port's bit for bit" in text
+    assert "equal to the plain draws'" in text
+    assert "every record equal" in text
+    assert "(reshard_deltas), getedge after it reads 1.0 for each" in text
+    assert "1-over-4" in text
+
+
+def test_sharded_phase_rejects_a_result_differing_from_unsharded(sharded_smoke,
+                                                                monkeypatch):
+    from repro_torch.core import sharded
+
+    smoke, net, median = sharded_smoke
+    real = sharded.ShardedNetwork.degree
+
+    def degree(self, *args, **kw):
+        out = real(self, *args, **kw)
+        out[-1] += 1
+        return out
+
+    monkeypatch.setattr(sharded.ShardedNetwork, "degree", degree)
+    with pytest.raises(AssertionError, match="getdegree .* differs from the unsharded"):
+        smoke.phase_sharded(net, median, 0, torch.device("cpu"))
+
+
+def test_sharded_phase_rejects_a_full_reshard_after_add_edges(sharded_smoke,
+                                                             monkeypatch):
+    from repro_torch.core import sharded
+
+    smoke, net, median = sharded_smoke
+    monkeypatch.setattr(sharded, "reshard_deltas", lambda snet, new_net: None)
+    with pytest.raises(AssertionError, match="not reshard_deltas"):
+        smoke.phase_sharded(net, median, 0, torch.device("cpu"))
