@@ -6,7 +6,8 @@
 Drives the port's main paths — pseudo-projection point queries, batched
 traversal, sampling and analysis, files, mutation and durability, and the
 graph-serving engine and its wire, and the sharded network view, on a
-population-scale mixed-mode network, and LM serving at full width — on the card, through the entry
+population-scale mixed-mode network, and LM serving of every model family
+at full width — on the card, through the entry
 points a user calls (``repro_torch.core.api``, ``repro_torch.core.cli``,
 ``repro_torch.serve``, ``repro_torch.models.lm_serve``), and
 fails (non-zero exit) if any phase fails:
@@ -186,7 +187,35 @@ fails (non-zero exit) if any phase fails:
               against the argmax of ``Model.apply``, and, in an f32 copy
               of each model, prefill + 8 decode steps against
               ``Model.apply`` (2 requests, 256-token prompts);
-15. timing  — each kernel, its plain version and its bound at the heaviest
+15. lm_families — every other model family at full width, bf16, through
+              ``ServeEngine.generate``, each model freed before the next:
+              llama4-scout-17b-a16e (MoE, 16 experts top-1 and a shared
+              expert; 8 of its 48 layers, the cut printed), recurrentgemma-9b
+              (38 layers: 12 x (RG-LRU, RG-LRU, local attention) + 2 RG-LRU,
+              window 2,048, so decode wraps its ring from the first step),
+              internvl2-26b and musicgen-large (4 codebooks: prompts of
+              2,048 x 4 tokens), each 24 of its 48 layers for the phase's
+              time (the cut printed); the lm phase's traffic,
+              one warm-up and one timed call a kind; counts reset before and
+              read after (rmsnorm must launch for all four, flash_attention
+              for the three unwindowed ones and never for recurrentgemma,
+              rglru_scan once an RG-LRU layer a prefill, 26, and never in
+              decode; flash_attention_copies and flash_attention_fma stay 0).
+              Prints per config the wall, tokens/s, prefill ms and decode ms
+              a step, a profiled prefill's and decode step's idle share and
+              busiest activities, max_memory_allocated; for scout the tokens
+              each expert takes and the share dropped at prefill and decode;
+              for internvl2 one prefill with 256 seeded patch embeddings
+              ahead of the prompt and 8 decode steps at offset positions.
+              Checks each kernel against its plain version in f32 at every
+              launched shape with the lm phase's limits and planted faults
+              (rglru_scan also from a seeded nonzero state), the route each
+              rmsnorm width took, greedy first tokens against ``Model.apply``
+              (a choice a codebook for audio), and f32 copies 2 layers deep
+              (recurrentgemma: one group and the tail, 5; MoE at capacity
+              n_experts; internvl2 with its prefix): prefill 256 + 8 decode
+              steps against ``Model.apply``. At most 150 s;
+16. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
               by CUDA events with the L2 flushed before each launch; the
@@ -205,8 +234,11 @@ fails (non-zero exit) if any phase fails:
               hidden and the q-norm shape. The threefry kernels at the
               sampling phase's heaviest launch of each, csr_row_sample
               cold with its sector count. A kernel or library time under
-              its bound fails the phase. The ``launches`` of each record add
-              the sharded phase's counts to its own phase's.
+              its bound fails the phase. ``rglru_scan`` cold (CUDA events,
+              the L2 flushed) at the lm_families phase's heaviest launch,
+              bound by the bytes it moves, no library call. The ``launches``
+              of each record add the sharded and lm_families phases' counts
+              to its own phase's.
 
 Its last lines are the ``kernels`` JSON record and then
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -459,6 +491,29 @@ LM_FLOOR_TOL = 2.0**-12
 LM_FAULT_BITS = 5
 LM_REPEATS = 3  # timed generate calls per call kind, after one warm-up
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+
+# lm_families phase: the other families at full width in bf16, random
+# weights from SEED, the lm phase's traffic (audio: LM_PROMPT steps of its 4
+# codebooks). Depth cuts (LM_FAMILY_LAYERS, printed with the reason):
+# llama4-scout to 8 of its 48 layers, since all 48 take 215.5 GB in bf16,
+# past the card's 80 GB; internvl2 and musicgen to 24 of 48, since with all
+# 48 the phase took 150.6 s of its 150 s on the H100, twice (their decode
+# is host-bound, 93-120 ms a step). The f32 check copies are 2 layers deep,
+# recurrentgemma's one (R, R, A) group and the (R, R) tail.
+LM_FAMILY_ARCHS = ("llama4-scout-17b-a16e", "recurrentgemma-9b", "internvl2-26b",
+                   "musicgen-large")
+LM_FAMILY_LAYERS = {"llama4-scout-17b-a16e": 8, "internvl2-26b": 24,
+                    "musicgen-large": 24}
+LM_FAMILY_TIME_CUT = ("the phase's time: with all 48 layers of internvl2 and "
+                      "musicgen it took 150.6 s of its 150 s on the H100 "
+                      "(decode host-bound, 93-120 ms a step)")
+LM_CARD_BYTES = 80e9  # the H100's device memory
+LM_FAMILY_CHECK_LAYERS = {"recurrentgemma-9b": 5}
+LM_FAMILY_CHECK_DEFAULT_LAYERS = 2
+LM_FAMILY_REPEATS = 1  # timed generate calls per call kind, after one warm-up
+LM_FAMILY_PREFILLS = 1  # prefills timed apart, greedy kind only
+LM_FAMILY_PREFIX_STEPS = 8  # internvl2: decode steps after its patch prefix
+LM_FAMILY_PHASE_LIMIT_S = 150.0
 
 
 def log(msg: str) -> None:
@@ -4197,7 +4252,7 @@ class KernelInputs:
     and the timing phase run each kernel on the data the lm phase gave it.
     Wraps ``ops.<kernel>_cuda``; it counts nothing in ``launch_counts``."""
 
-    NAMES = ("flash_attention", "rmsnorm", "ssd_scan")
+    NAMES = ("flash_attention", "rmsnorm", "ssd_scan", "rglru_scan")
 
     def __init__(self, label: str):
         self.label = label
@@ -4242,6 +4297,7 @@ def lm_plain(name: str):
         "flash_attention": ref.attention_heads_ref,
         "rmsnorm": ref.rmsnorm_ref,
         "ssd_scan": ref.ssd_scan_heads_ref,
+        "rglru_scan": ref.rglru_scan_ref,
     }[name]
 
 
@@ -4270,7 +4326,7 @@ def round_bits(t, bits: int):
     return torch.ldexp(torch.round(m * 2.0**bits) / 2.0**bits, e)
 
 
-def lm_kernel_checks(seen: dict) -> dict:
+def lm_kernel_checks(seen: dict, phase: str = "lm") -> dict:
     """Each LM kernel against its plain version, evaluated in f32 on the
     same inputs, at every shape the lm phase launched it at -> {kernel: max
     abs error}. Every element must lie within its limit (``lm_excess``
@@ -4291,7 +4347,7 @@ def lm_kernel_checks(seen: dict) -> dict:
         ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
         caught = zero_ratio > 1.0 and coarse_ratio > 1.0
         rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
-        log(f"lm: {label} {name} at {[list(sh) for sh, _ in shapes]} "
+        log(f"{phase}: {label} {name} at {[list(sh) for sh, _ in shapes]} "
             f"{shapes[0][1]} against its plain version in f32: max_abs_err "
             f"{err:.3e} (reference max |y| {float(want.abs().max()):.3e}, "
             f"norm-relative error {rel:.3e}); worst ratio to the limit "
@@ -4313,16 +4369,16 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
 
 
-def lm_phases(model, engine, prompts, reqs, device) -> tuple:
+def lm_phases(model, engine, prompts, reqs, device, prefills: int = 3) -> tuple:
     """The phases of one generate call with a sync around each: median
-    prefill ms of 3 calls, median ms per decode step (sampling included),
-    and the caches, tokens and position of the last step."""
+    prefill ms of ``prefills`` calls, median ms per decode step (sampling
+    included), and the caches, tokens and position of the last step."""
     import torch
 
     tokens = torch.from_numpy(prompts).to(device)
-    B, P = prompts.shape
+    B, P = prompts.shape[:2]
     pre = []
-    for _ in range(3):
+    for _ in range(prefills):
         sync()
         t0 = time.perf_counter()
         logits, caches = model.prefill(tokens, LM_MAX_SEQ)
@@ -4341,10 +4397,30 @@ def lm_phases(model, engine, prompts, reqs, device) -> tuple:
     return statistics.median(pre), statistics.median(steps), caches, cur, pos
 
 
-def lm_serve(arch: str, cfg, device, seed: int) -> dict:
-    """One configuration in bf16 through ``ServeEngine.generate``, with the
-    launch counts set to 0 just before and read just after; then its
-    timing, profile and checks."""
+def lm_kernels(cfg) -> tuple[set, set]:
+    """(kernels the configuration's serving path must launch, kernels it
+    must not): rmsnorm always; flash_attention where an attention layer is
+    neither windowed nor soft-capped (such layers take the plain blocked
+    attention, as the reference sends them past its Pallas kernel), else
+    never; ssd_scan for Mamba2 layers, rglru_scan for RG-LRU layers."""
+    kinds = set(cfg.block_pattern)
+    flash = ("attn" in kinds and cfg.attn_window is None
+             and cfg.attn_logit_softcap is None)
+    must = {"rmsnorm"} | ({"flash_attention"} if flash else set())
+    must |= {"ssd_scan"} if "mamba" in kinds else set()
+    must |= {"rglru_scan"} if "rglru" in kinds else set()
+    return must, set() if flash else {"flash_attention"}
+
+
+def lm_serve(arch: str, cfg, device, seed: int, *, phase: str = "lm",
+             repeats: int = LM_REPEATS, prefills: int = 3,
+             phase_kinds: tuple | None = None) -> dict:
+    """One configuration in bf16 through ``ServeEngine.generate`` (one
+    warm-up and ``repeats`` timed calls a kind), with the launch counts set
+    to 0 just before and read just after; then its timing (prefill and
+    decode step timed apart for each call kind, or for ``phase_kinds``),
+    profile and checks. Audio models take prompts of their codebooks; a MoE model's
+    routing and a VLM's prefix get lines of their own."""
     import torch
 
     from repro_torch.kernels import build
@@ -4357,11 +4433,13 @@ def lm_serve(arch: str, cfg, device, seed: int) -> dict:
         torch.Generator(device=device).manual_seed(seed))
     sync()
     n_params = param_count(cfg)
-    log(f"lm: {arch}: {n_params} parameters in {cfg.dtype}, {cfg.n_layers} "
+    log(f"{phase}: {arch}: {n_params} parameters in {cfg.dtype}, {cfg.n_layers} "
         f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}; drawn on the "
         f"card in {time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(seed + 20)
-    prompts = rng.integers(2, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+    K = cfg.n_codebooks
+    prompts = rng.integers(2, cfg.vocab_size,
+                           (LM_REQUESTS, LM_PROMPT) + ((K,) if K else ()))
     calls = {
         "greedy": [Request(prompt=p, max_new_tokens=LM_NEW, rid=i)
                    for i, p in enumerate(prompts)],
@@ -4374,24 +4452,39 @@ def lm_serve(arch: str, cfg, device, seed: int) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     build.launch_counts.clear()
-    outputs, walls = {}, {}
+    outputs, walls = collections.defaultdict(list), {}
+
+    def generate(label, reqs):
+        out = engine.generate(reqs)
+        outputs[label].append(np.stack([c.tokens for c in out]))
+        return out
+
     with KernelInputs(arch) as rec:
         for label, reqs in calls.items():
-            ms, out = host_median_ms(lambda: engine.generate(reqs), LM_REPEATS)
-            outputs[label], walls[label] = out, ms
+            walls[label], _ = host_median_ms(lambda: generate(label, reqs), repeats)
     sync()
     launches = dict(build.launch_counts)
-    runs = len(calls) * (LM_REPEATS + 1)
-    log(f"lm: {arch}: launch counts {json.dumps(launches, sort_keys=True)} over "
+    runs = len(calls) * (repeats + 1)
+    log(f"{phase}: {arch}: launch counts {json.dumps(launches, sort_keys=True)} over "
         f"{runs} generate calls ({ {k: v / runs for k, v in launches.items()} } "
         f"per call); max_memory_allocated {torch.cuda.max_memory_allocated()}")
-    for k in ("rmsnorm", "flash_attention" if cfg.family != "ssm" else "ssd_scan"):
+    must, never = lm_kernels(cfg)
+    for k in sorted(must):
         if launches.get(k, 0) == 0:
             raise AssertionError(f"kernel {k} never launched on the {arch} path")
+    for k in sorted(never):
+        if launches.get(k, 0):
+            raise AssertionError(f"{k} launched {launches[k]} times on the {arch} "
+                                 "path, whose attention is windowed or soft-capped")
+    n_rglru = sum(layer.kind == "rglru" for layer in model.layers)
+    if n_rglru and launches.get("rglru_scan", 0) != n_rglru * runs:
+        raise AssertionError(
+            f"{arch}: rglru_scan launched {launches.get('rglru_scan', 0)} times in "
+            f"{runs} generate calls, want {n_rglru} a prefill and none in decode")
     # the bf16 path reads the layer's q, k, v on the tensor cores, uncopied,
     # and runs its SSD scan on the tensor cores
     if cfg.family == "ssm":
-        log(f"lm: {arch}: SSD routes: ssd_scan (tensor cores) "
+        log(f"{phase}: {arch}: SSD routes: ssd_scan (tensor cores) "
             f"{launches.get('ssd_scan', 0)}, ssd_scan_fma (CUDA cores) "
             f"{launches.get('ssd_scan_fma', 0)}")
     for k in ("flash_attention_copies", "flash_attention_fma", "ssd_scan_fma"):
@@ -4400,59 +4493,146 @@ def lm_serve(arch: str, cfg, device, seed: int) -> dict:
 
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     for label, reqs in calls.items():
+        if phase_kinds is not None and label not in phase_kinds:
+            log(f"{phase}: {arch} {label} x{LM_REQUESTS}, prompt {LM_PROMPT}, "
+                f"{LM_NEW} new: median {walls[label]:.3f} ms per generate call, "
+                f"{n_tokens / walls[label] * 1e3:.1f} tokens/s; {device_line()}")
+            continue
         pre_ms, step_ms, caches, cur, pos = lm_phases(model, engine, prompts, reqs,
-                                                     device)
-        log(f"lm: {arch} {label} x{LM_REQUESTS}, prompt {LM_PROMPT}, {LM_NEW} new: "
+                                                     device, prefills)
+        log(f"{phase}: {arch} {label} x{LM_REQUESTS}, prompt {LM_PROMPT}, {LM_NEW} new: "
             f"median {walls[label]:.3f} ms per generate call, "
             f"{n_tokens / walls[label] * 1e3:.1f} tokens/s; prefill {pre_ms:.3f} ms, "
             f"decode {step_ms:.3f} ms per step (weights {weight_bytes} bytes: "
             f">= {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms a step); "
             f"{device_line()}")
     tokens = torch.from_numpy(prompts).to(device)
-    log(f"lm: {arch} prefill: " + busy_share(
+    log(f"{phase}: {arch} prefill: " + busy_share(
         lambda: model.prefill(tokens, LM_MAX_SEQ), pre_ms, top=4))
-    log(f"lm: {arch} decode step: " + busy_share(
+    log(f"{phase}: {arch} decode step: " + busy_share(
         lambda: model.decode_step(cur[:, None], caches, pos), step_ms, top=4))
+    if cfg.n_experts:
+        moe_routing(arch, model, tokens, cur, caches, pos, phase)
     del caches
 
-    # checks: tokens in range, greedy deterministic and equal to the argmax
-    # of the full forward, temperature draws not all greedy
-    greedy = np.stack([c.tokens for c in outputs["greedy"]])
-    hot = np.stack([c.tokens for c in outputs[f"temperature {LM_TEMPERATURE}"]])
+    # checks: tokens in range, greedy deterministic (every greedy call,
+    # warm-up included, served the same tokens) and equal to the argmax of
+    # the full forward, temperature draws not all greedy
+    greedy = outputs["greedy"][-1]
+    hot = outputs[f"temperature {LM_TEMPERATURE}"][-1]
+    shape = (LM_REQUESTS, LM_NEW) + ((K,) if K else ())
     for name, toks in (("greedy", greedy), ("temperature", hot)):
-        if toks.shape != (LM_REQUESTS, LM_NEW) or toks.min() < 0 or \
-                toks.max() >= cfg.vocab_size:
+        if toks.shape != shape or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"{arch} {name} tokens out of range: {toks.shape}")
-    again = np.stack([c.tokens for c in engine.generate(calls["greedy"])])
-    if not np.array_equal(again, greedy):
+    if not all(np.array_equal(again, greedy) for again in outputs["greedy"]):
         raise AssertionError(f"{arch}: greedy generate is not deterministic")
-    if np.array_equal(hot, greedy):
-        raise AssertionError(f"{arch}: temperature sampling returned the greedy tokens")
-    last = model.apply(tokens)[0][:, -1].float()
+    # audio: one choice a codebook
+    last = model.apply(tokens)[0][:, -1].float().reshape(-1, cfg.vocab_size)
     if not bool(torch.isfinite(last).all()):
         raise AssertionError(f"{arch}: non-finite logits from Model.apply")
+    # the chance that correct draws at the temperature all take the greedy
+    # first tokens: a model whose logits peak far above the rest (tied
+    # embeddings scaled by sqrt(d_model) echo the input token) may draw the
+    # greedy tokens throughout, and then equal tokens prove nothing
+    p_same = float(torch.softmax(last / LM_TEMPERATURE, dim=-1).amax(dim=-1).prod())
+    if np.array_equal(hot, greedy) and p_same < 1e-6:
+        raise AssertionError(f"{arch}: temperature sampling returned the greedy tokens")
     want = last.argmax(dim=-1).cpu().numpy()
+    first = greedy[:, 0].reshape(-1)
     ties = 0
-    for i in np.nonzero(want != greedy[:, 0])[0]:
-        top, got = float(last[i, want[i]]), float(last[i, greedy[i, 0]])
+    for i in np.nonzero(want != first)[0]:
+        top, got = float(last[i, want[i]]), float(last[i, first[i]])
         if top - got > bf16_ulp(top):
             raise AssertionError(
-                f"{arch}: request {i} served token {greedy[i, 0]} (logit {got}) "
+                f"{arch}: choice {i} served token {first[i]} (logit {got}) "
                 f"where Model.apply's argmax is {want[i]} (logit {top})")
         ties += 1
-    log(f"lm: {arch}: greedy tokens deterministic; first tokens equal the argmax "
-        f"of Model.apply for {LM_REQUESTS - ties} of {LM_REQUESTS} requests "
+    log(f"{phase}: {arch}: greedy tokens deterministic over "
+        f"{len(outputs['greedy'])} calls; first tokens equal the argmax "
+        f"of Model.apply for {want.size - ties} of {want.size} "
+        f"{'codebook choices' if K else 'requests'} "
         f"({ties} within one bf16 ulp of a tie); temperature {LM_TEMPERATURE} "
-        f"differs from greedy in {int((hot != greedy).sum())} of {hot.size} tokens")
-    del model, engine, last
+        f"differs from greedy in {int((hot != greedy).sum())} of {hot.size} tokens "
+        f"(chance that correct draws take every greedy first token {p_same:.3g})")
+    del last
+    if cfg.n_prefix_embeds:
+        vlm_prefix_run(arch, model, tokens, seed, phase)
+    del model, engine
     torch.cuda.empty_cache()
     return {"launches": launches, "seen": rec.seen}
 
 
-def lm_decode_check(arch: str, cfg, device, seed: int) -> float:
-    """An f32 copy of the configuration at full width: prefill of
-    LM_CHECK_PROMPT tokens and LM_CHECK_STEPS teacher-forced decode steps
-    against ``Model.apply`` at the same positions -> max |Δ logit|."""
+def moe_routing(arch: str, model, tokens, cur, caches, pos, phase: str) -> None:
+    """Tokens a routed expert takes, summed over the MoE layers, and the
+    share dropped past the capacity, at one prefill and one decode step
+    (8 decode tokens over 16 experts: capacity 1, so the reference drops
+    too)."""
+    import torch
+
+    from repro_torch.models.layers import MoE
+
+    moes = [layer.ffn for layer in model.layers if isinstance(layer.ffn, MoE)]
+    for label, call in (
+        ("prefill", lambda: model.prefill(tokens, LM_MAX_SEQ)),
+        ("decode step", lambda: model.decode_step(cur[:, None], caches, pos)),
+    ):
+        stats = []
+        for m in moes:
+            m.route_stats = stats
+        call()
+        for m in moes:
+            m.route_stats = None
+        per_expert = torch.stack([c for c, _ in stats]).sum(dim=0).cpu().tolist()
+        dropped = int(sum(int(d) for _, d in stats))
+        routed = int(sum(per_expert))
+        log(f"{phase}: {arch} MoE routing at {label} over {len(moes)} layers: tokens "
+            f"per expert {per_expert}; dropped past the capacity {dropped} of "
+            f"{routed} ({dropped / max(routed, 1):.4f})")
+
+
+def vlm_prefix_run(arch: str, model, tokens, seed: int, phase: str) -> None:
+    """One ``Model.prefill`` with ``n_prefix_embeds`` seeded patch
+    embeddings ahead of the prompt, then LM_FAMILY_PREFIX_STEPS greedy
+    decode steps at positions offset by the prefix."""
+    import torch
+
+    cfg = model.cfg
+    n_pre = cfg.n_prefix_embeds
+    gen = torch.Generator(device=model.device).manual_seed(seed + 22)
+    prefix = torch.randn((tokens.shape[0], n_pre, cfg.d_model), generator=gen,
+                         device=model.device).to(model.embed.dtype)
+    max_seq = n_pre + LM_PROMPT + LM_FAMILY_PREFIX_STEPS
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(tokens, max_seq, prefix)
+    sync()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for t in range(LM_FAMILY_PREFIX_STEPS):
+        cur = logits[:, 0].argmax(dim=-1).to(torch.int32)
+        pos = torch.full((tokens.shape[0],), n_pre + LM_PROMPT + t, dtype=torch.int32,
+                         device=model.device)
+        logits, caches = model.decode_step(cur[:, None], caches, pos)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / LM_FAMILY_PREFIX_STEPS
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: non-finite logits after the prefix run")
+    log(f"{phase}: {arch} with {n_pre} patch embeddings ahead of {LM_PROMPT} tokens "
+        f"x{tokens.shape[0]}: prefill {pre_ms:.3f} ms, {LM_FAMILY_PREFIX_STEPS} decode "
+        f"steps at positions {n_pre + LM_PROMPT}.. {step_ms:.3f} ms per step; "
+        f"logits finite")
+    del caches, logits
+
+
+def lm_decode_check(arch: str, cfg, device, seed: int, *, phase: str = "lm",
+                    n_layers: int | None = None) -> float:
+    """An f32 copy of the configuration at full width (``n_layers`` deep
+    where given: the cut is printed): prefill of LM_CHECK_PROMPT tokens
+    (after n_prefix_embeds seeded patch embeddings for a VLM, the decode
+    positions offset by them) and LM_CHECK_STEPS teacher-forced decode
+    steps against ``Model.apply`` at the same positions -> max |Δ logit|.
+    MoE layers run at capacity factor n_experts, so no token is dropped and
+    prefill, decode and the full forward route alike."""
     import dataclasses
 
     import torch
@@ -4461,23 +4641,38 @@ def lm_decode_check(arch: str, cfg, device, seed: int) -> float:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cut = {}
+    if n_layers is not None and n_layers != cfg.n_layers:
+        cut["n_layers"] = n_layers
+    if cfg.n_experts:
+        cut["moe_capacity_factor"] = float(cfg.n_experts)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", **cut)
     model = Model(cfg32, device=device).init(
         torch.Generator(device=device).manual_seed(seed))
-    P, n = LM_CHECK_PROMPT, LM_CHECK_STEPS
+    P, n, K = LM_CHECK_PROMPT, LM_CHECK_STEPS, cfg.n_codebooks
     tokens = torch.from_numpy(np.random.default_rng(seed + 21).integers(
-        2, cfg.vocab_size, (LM_CHECK_REQUESTS, P + n))).to(device)
-    full = model.apply(tokens)[0]
-    last, caches = model.prefill(tokens[:, :P], P + n)
+        2, cfg.vocab_size, (LM_CHECK_REQUESTS, P + n) + ((K,) if K else ()))).to(device)
+    n_pre = cfg.n_prefix_embeds
+    prefix = None
+    if n_pre:
+        gen = torch.Generator(device=device).manual_seed(seed + 23)
+        prefix = torch.randn((LM_CHECK_REQUESTS, n_pre, cfg.d_model), generator=gen,
+                             device=device)
+    full = model.apply(tokens, prefix)[0][:, n_pre:]
+    last, caches = model.prefill(tokens[:, :P], n_pre + P + n, prefix)
     errs = [float((last[:, 0] - full[:, P - 1]).abs().max())]
     for t in range(P, P + n):
-        pos = torch.full((LM_CHECK_REQUESTS,), t, dtype=torch.int32, device=device)
+        pos = torch.full((LM_CHECK_REQUESTS,), n_pre + t, dtype=torch.int32,
+                         device=device)
         logits, caches = model.decode_step(tokens[:, t:t + 1], caches, pos)
         errs.append(float((logits[:, 0] - full[:, t]).abs().max()))
     err = max(errs)
     finite = bool(torch.isfinite(full).all())
-    log(f"lm: {arch} f32 (TF32 off): prefill {P} + {n} decode steps against "
-        f"Model.apply, {LM_CHECK_REQUESTS} requests: max |dlogit| {err:.3e} "
+    what = "".join(f"; {k}={v}" for k, v in cut.items())
+    if n_pre:
+        what += f"; {n_pre} patch embeddings ahead, positions offset by them"
+    log(f"{phase}: {arch} f32 (TF32 off{what}): prefill {P} + {n} decode steps "
+        f"against Model.apply, {LM_CHECK_REQUESTS} requests: max |dlogit| {err:.3e} "
         f"(per step {', '.join(f'{e:.2e}' for e in errs)}; logits std "
         f"{float(full.std()):.3f}; atol {LM_F32_ATOL:g})")
     del model, full, caches
@@ -4508,6 +4703,146 @@ def phase_lm(device, seed: int, configs: dict | None = None) -> dict:
         f"{json.dumps(worst, sort_keys=True)}; phase took "
         f"{time.perf_counter() - t0:.3f} s")
     return {"launches": dict(launches), "worst": worst, "seen": seen}
+
+
+def family_configs() -> dict:
+    """LM_FAMILY_ARCHS' published configurations, each cut to its
+    LM_FAMILY_LAYERS depth where it has one (the cut printed)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import param_count
+
+    configs = {}
+    for arch in LM_FAMILY_ARCHS:
+        cfg = get_config(arch)
+        depth = LM_FAMILY_LAYERS.get(arch)
+        if depth is not None and depth != cfg.n_layers:
+            cut = dataclasses.replace(cfg, n_layers=depth)
+            full_bytes = 2 * param_count(cfg)
+            why = (f"all {cfg.n_layers} take {full_bytes} bytes in bf16, past the "
+                   f"card's memory" if full_bytes > LM_CARD_BYTES else LM_FAMILY_TIME_CUT)
+            log(f"lm_families: {arch}: depth cut to {depth} of {cfg.n_layers} layers "
+                f"({why}; {depth} take {2 * param_count(cut)} bytes); widths, "
+                f"experts and vocabulary as published")
+            cfg = cut
+        configs[arch] = cfg
+    return configs
+
+
+def rmsnorm_routes(seen: dict) -> None:
+    """Prints which rmsnorm kernel each width launched (a profiled call of
+    the kernel on the recorded inputs): the register route
+    ``rmsnorm_kernel`` or the two-pass ``rmsnorm_any_kernel``."""
+    for (name, label, shapes), (args, kwargs) in seen.items():
+        if name != "rmsnorm":
+            continue
+        try:
+            acts = device_activity(lambda: lm_kernel(name)(*args, **kwargs), 20)
+            route = ", ".join(sorted(k for k in acts if "rmsnorm" in k)) or "none seen"
+        except ProfilerLostEvents:
+            route = "not measured (the profiler lost the window)"
+        log(f"lm_families: {label} rmsnorm at {list(shapes[0][0])} {shapes[0][1]}: "
+            f"route {route}")
+
+
+def seeded_state_inputs(seen: dict, seed: int) -> dict:
+    """For each recorded rglru_scan launch, the same a and b with a seeded
+    nonzero h0: every prefill on the main path starts from a zero state, so
+    a kernel that ignored h0 would pass there."""
+    import torch
+
+    out = {}
+    for (name, label, shapes), (args, kwargs) in seen.items():
+        if name != "rglru_scan":
+            continue
+        a, b = args[:2]
+        gen = torch.Generator(device=a.device).manual_seed(seed + 24)
+        h0 = torch.randn((a.shape[0], a.shape[2]), generator=gen, device=a.device)
+        out[(name, f"{label} (h0 seeded)", shapes[:2] + (
+            (tuple(h0.shape), str(h0.dtype)),))] = ([a, b, h0], dict(kwargs))
+    return out
+
+
+def phase_lm_families(device, seed: int, configs: dict | None = None) -> dict:
+    """LM serving at full width for each of LM_FAMILY_ARCHS (``configs`` maps
+    an arch to its config; the default is ``family_configs()``): MoE,
+    the RG-LRU hybrid with windowed attention, the VLM prefix and the audio
+    codebooks, each freed before the next is built; then the kernel checks
+    at the recorded shapes, rglru_scan among them (also from a seeded
+    nonzero state: ``seeded_state_inputs``). Fails past
+    LM_FAMILY_PHASE_LIMIT_S. Returns the launch counts summed over the
+    configurations, each kernel's worst error and the recorded inputs."""
+    t0 = time.perf_counter()
+    configs = configs or family_configs()
+    launches, seen = collections.Counter(), {}
+    for arch, cfg in configs.items():
+        t_arch = time.perf_counter()
+        out = lm_serve(arch, cfg, device, seed, phase="lm_families",
+                       repeats=LM_FAMILY_REPEATS, prefills=LM_FAMILY_PREFILLS,
+                       phase_kinds=("greedy",))
+        launches.update(out["launches"])
+        seen.update(out["seen"])
+        lm_decode_check(arch, cfg, device, seed, phase="lm_families",
+                        n_layers=LM_FAMILY_CHECK_LAYERS.get(
+                            arch, LM_FAMILY_CHECK_DEFAULT_LAYERS))
+        log(f"lm_families: {arch} took {time.perf_counter() - t_arch:.3f} s")
+    worst = lm_kernel_checks({**seen, **seeded_state_inputs(seen, seed)},
+                             phase="lm_families")
+    rmsnorm_routes(seen)
+    seconds = time.perf_counter() - t0
+    log(f"lm_families: launch counts over the {len(configs)} configurations "
+        f"{json.dumps(dict(launches), sort_keys=True)}; worst kernel errors "
+        f"{json.dumps(worst, sort_keys=True)}; phase {seconds:.3f} s (limit "
+        f"{LM_FAMILY_PHASE_LIMIT_S:g} s); {device_line()}")
+    if seconds > LM_FAMILY_PHASE_LIMIT_S:
+        raise AssertionError(f"lm_families: the phase took {seconds:.1f} s, over its "
+                             f"{LM_FAMILY_PHASE_LIMIT_S:g} s")
+    return {"launches": dict(launches), "worst": worst, "seen": seen,
+            "seconds": seconds}
+
+
+def rglru_timing(families: dict) -> dict:
+    """The rglru_scan record at the heaviest shape the lm_families phase
+    launched it at: the kernel cold (CUDA events, the L2 flushed before
+    each launch: a prefill's a and b are written just before, but 805 MB
+    at recurrentgemma's width pass through the 50 MB L2), the plain loop by
+    CUDA events, the bound the bytes it must move (a and b read, h
+    written, h0 read where given)."""
+    heaviest = None
+    for (name, label, _), (args, kwargs) in families["seen"].items():
+        if name == "rglru_scan" and (heaviest is None
+                                     or args[0].numel() > heaviest[1][0].numel()):
+            heaviest = (label, args, kwargs)
+    label, args, kwargs = heaviest
+    a, _, h0 = (list(args) + [None])[:3]
+    kernel_fn, plain_fn = lm_kernel("rglru_scan"), lm_plain("rglru_scan")
+    ms = cold_ms(lambda: kernel_fn(*args, **kwargs), 20)
+    plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), 2)
+    nbytes = 4 * (3 * a.numel() + (0 if h0 is None else h0.numel()))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * a.numel() / SCALAR_OPS_PER_S * 1e3
+    B, S, dr = a.shape
+    rec = {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "none: no TPU kernel (jax.lax.associative_scan, "
+                    "src/repro/models/layers.py:689)",
+        "launches": int(families["launches"].get("rglru_scan", 0)),
+        "max_abs_err": families["worst"]["rglru_scan"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "shape": f"a, b [{B},{S},{dr}] float32, h0 "
+                 f"{'none' if h0 is None else list(h0.shape)} ({label})",
+        "ms_from": "cuda events, cold: L2 flushed before each launch",
+    }
+    log(f"timing: rglru_scan at {rec['shape']}: kernel {ms:.4f} ms cold, "
+        f"{ms / rec['bound_ms']:.2f}x its bound {rec['bound_ms']:.4f} ms ({nbytes} "
+        f"bytes; operations {ops_ms:.4f} ms); plain {plain_ms:.4f} ms; no library "
+        f"call (no torch call computes a linear recurrence); {rec['launches']} "
+        f"launches in its phase; {device_line(CLOCK_FIELDS)}")
+    return check_readings(rec)
 
 
 def lm_timing(lm: dict) -> list:
@@ -4680,12 +5015,15 @@ def run() -> int:
     phase_serving(net, median_income, device)
     sharded = phase_sharded(net, median_income, SEED, device)
     lm = phase_lm(device, SEED)
+    families = phase_lm_families(device, SEED)
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
                            panel, traversal, sampling, lm, device)
     for rec in records:  # the launch columns include the sharded phase's
         rec["launches"] += sharded["launches"].get(rec["name"], 0)
-    log("timing: launches with the sharded phase's added: " + ", ".join(
+        rec["launches"] += families["launches"].get(rec["name"], 0)
+    log("timing: launches with the sharded and lm_families phases' added: " + ", ".join(
         f"{r['name']} {r['launches']}" for r in records))
+    records.append(rglru_timing(families))
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

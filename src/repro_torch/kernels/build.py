@@ -25,7 +25,8 @@ traversal). Union rows never take torch's sort on the card:
 dims 32 and 256), ``"ssd_scan"`` (the bf16 tensor-core route) and
 ``"ssd_scan_fma"`` (the CUDA-core route: f32, and the shapes the first
 cannot take); operands flash's tensor-core route had to copy for TMA count
-under ``"flash_attention_copies"``. The sampling path's threefry kernels
+under ``"flash_attention_copies"``; the RG-LRU recurrence counts under
+``"rglru_scan"``. The sampling path's threefry kernels
 count under ``"threefry_bits"``, ``"randint"`` and ``"csr_row_sample"``.
 
 No source needs a flag of its own: ``flash_attention.cu`` and
@@ -53,7 +54,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNEL_SOURCES = (
     "intersect", "segmented_union", "frontier",
-    "rmsnorm", "flash_attention", "ssd_scan", "threefry",
+    "rmsnorm", "flash_attention", "ssd_scan", "threefry", "rglru_scan",
 )
 #: the sources of the graph query kernels (what a serve engine launches)
 GRAPH_SOURCES = ("intersect", "segmented_union", "frontier", "threefry")

@@ -3,7 +3,8 @@
 On a CUDA tensor each op launches its kernel (``kernels/intersect.py``,
 ``kernels/segmented_union.py``, ``kernels/frontier.py``, the sampling
 path's ``kernels/threefry.py``, and for the LM stack ``kernels/rmsnorm.py``,
-``kernels/flash_attention.py``, ``kernels/ssd_scan.py``); on a CPU tensor
+``kernels/flash_attention.py``, ``kernels/ssd_scan.py``,
+``kernels/rglru_scan.py``); on a CPU tensor
 (or, for the draws, a CPU device) it runs the plain torch version
 from ``kernels/ref.py``. The choice is made by the device of the
 tensors given, never by catching a failure: a CUDA tensor that the kernel
@@ -21,6 +22,7 @@ from . import ref
 from .flash_attention import flash_attention_cuda
 from .frontier import frontier_compact_cuda
 from .intersect import intersect_count_cuda, intersect_rows_cuda
+from .rglru_scan import rglru_scan_cuda
 from .rmsnorm import rmsnorm_cuda
 from .segmented_union import (
     MAX_FLAT,
@@ -333,6 +335,23 @@ def ssd_scan(
     if x.is_cuda:
         return ssd_scan_cuda(x, dt, a_log, bmat, cmat, chunk=chunk)
     return ref.ssd_scan_heads_ref(x, dt, a_log, bmat, cmat, chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+
+def rglru_scan(
+    a: torch.Tensor,  # (B, S, dr) f32
+    b: torch.Tensor,  # (B, S, dr) f32
+    h0: torch.Tensor | None = None,  # (B, dr) f32, or None for 0
+) -> torch.Tensor:
+    """The RG-LRU recurrence ``h_t = a_t h_(t-1) + b_t`` -> every h_t
+    (B, S, dr) f32; on the CPU ``ref.rglru_scan_ref``."""
+    if a.is_cuda:
+        return rglru_scan_cuda(a, b, h0)
+    return ref.rglru_scan_ref(a, b, h0)
 
 
 # ---------------------------------------------------------------------------

@@ -427,3 +427,19 @@ def rmsnorm_ref(
     wf = w.float()
     scale = (wf + 1.0 if plus_one else wf).to(x.dtype)
     return x * mult * scale
+
+
+def rglru_scan_ref(
+    a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
+) -> torch.Tensor:
+    """The RG-LRU recurrence ``h_t = a_t h_(t-1) + b_t`` over axis 1 of f32
+    a, b (B, S, dr), from h0 (B, dr) or 0 -> every h_t (B, S, dr) f32: a
+    sequential loop (the reference's ``jax.lax.associative_scan``,
+    ``src/repro/models/layers.py:689``, associates in another order)."""
+    a, b = a.float(), b.float()
+    h = (torch.zeros_like(a[:, 0]) if h0 is None else h0.float())
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

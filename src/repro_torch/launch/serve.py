@@ -2,9 +2,10 @@
 
 Random-inits a reduced config of the architecture (the JAX launcher's
 own reduction, ``src/repro/launch/serve.py``) from ``--seed`` and serves
-a batch of demo prompts through the prefill + decode engine. Runs on the
-CUDA card; ``--device cpu`` runs on the CPU. Checkpoint restore
-(``--ckpt-dir``) is not ported yet.
+a batch of demo prompts (of ``n_codebooks`` streams for an audio model)
+through the prefill + decode engine. Every ``--arch`` of the registry
+serves. Runs on the CUDA card; ``--device cpu`` runs on the CPU.
+Checkpoint restore (``--ckpt-dir``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models.layers import UNPORTED
 from repro_torch.models.lm_serve import Request, ServeEngine
 from repro_torch.models.model import Model
 
@@ -34,7 +34,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.ckpt_dir:
         raise NotImplementedError(
-            f"checkpoint restore (--ckpt-dir) is not ported yet ({UNPORTED})"
+            "checkpoint restore (--ckpt-dir) is not ported yet (ROADMAP Queue 1 "
+            "item 13.7)"
         )
 
     cfg = get_config(args.arch).reduced(
@@ -46,9 +47,11 @@ def main(argv=None) -> None:
     model.init(torch.Generator(device=model.device).manual_seed(args.seed))
 
     rng = np.random.default_rng(args.seed)
+    shape = ((args.prompt_len, cfg.n_codebooks) if cfg.n_codebooks
+             else (args.prompt_len,))
     reqs = [
         Request(
-            prompt=rng.integers(2, cfg.vocab_size, size=(args.prompt_len,)),
+            prompt=rng.integers(2, cfg.vocab_size, size=shape),
             max_new_tokens=args.max_new_tokens,
             temperature=args.temperature,
             rid=i,

@@ -1,20 +1,25 @@
 """Decoder building blocks of the LM serving path, as ``nn.Module``s.
 
-Ported from ``src/repro/models/layers.py`` for what the dense (qwen3) and
-SSM (mamba2) configurations need: RMSNorm, rope, grouped-query attention
-with qk-norm (prefill through ``ops.flash_attention``, decode in plain
-torch against the cache), the SwiGLU/GeGLU MLP and the Mamba2 block.
-Parameter names and layouts are the JAX package's, so
-``convert.params_from_jax`` copies its tree across unchanged. Numerics
-as there: parameters and activations in ``cfg.dtype``, norms, softmax,
-convolution and scan states in f32.
+Ported from ``src/repro/models/layers.py`` for every family the JAX
+package serves: RMSNorm, rope, grouped-query attention with qk-norm,
+sliding windows (ring caches) and logit soft-capping, the SwiGLU/GeGLU
+MLP, the capacity-dispatched MoE with its aux terms, the Mamba2 block and
+the RG-LRU (Griffin) block. Parameter names and layouts are the JAX
+package's, so ``convert.params_from_jax`` copies its tree across
+unchanged. Numerics as there: parameters and activations in
+``cfg.dtype``; norms, softmax, router, convolution and scan states in f32.
+
+Kernels: RMSNorm through ``ops.rmsnorm``; unwindowed, uncapped prefill
+attention through ``ops.flash_attention`` (windowed or soft-capped layers
+take ``attention_blocked``, plain torch, as the reference sends them past
+its Pallas kernel); the Mamba2 scan through ``ops.ssd_scan``; the RG-LRU
+recurrence through ``ops.rglru_scan`` (the reference's
+``jax.lax.associative_scan``). Decode attention, the MoE dispatch and
+expert products, and the S = 1 recurrent steps are plain torch, as they
+are XLA ops in the reference.
 
 Caches are dicts of tensors, one per layer, updated in place (the JAX
 package returns new caches instead).
-
-A layer kind or family the port does not build yet (MoE, RG-LRU, VLM
-prefix embeddings, audio codebooks, sliding-window or soft-capped
-attention) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,29 +32,6 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from .config import ModelConfig
-
-UNPORTED = "ROADMAP Queue 1 item 13"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the serving slice lacks."""
-    unported = []
-    if cfg.family == "moe" or cfg.n_experts:
-        unported.append("MoE layers")
-    if "rglru" in cfg.block_pattern:
-        unported.append("RG-LRU layers")
-    if cfg.n_prefix_embeds:
-        unported.append("VLM prefix embeddings (n_prefix_embeds)")
-    if cfg.n_codebooks:
-        unported.append("audio codebooks (n_codebooks)")
-    if cfg.attn_window is not None:
-        unported.append("sliding-window attention (attn_window)")
-    if cfg.attn_logit_softcap is not None:
-        unported.append("attention logit soft-capping (attn_logit_softcap)")
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported yet ({UNPORTED})"
-        )
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -108,25 +90,74 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA + optional qk-norm)
+# Attention (GQA + optional qk-norm + optional sliding window / soft-cap)
 # ---------------------------------------------------------------------------
 
+ATTN_CHUNK = 1024  # query rows a step of ``attention_blocked``
 
-def attention_decode(q, k_cache, v_cache, pos) -> torch.Tensor:
+
+def _softcap(s: torch.Tensor, cap: float | None) -> torch.Tensor:
+    return s if not cap else torch.tanh(s / cap) * cap
+
+
+def attention_blocked(q, k, v, cfg: ModelConfig, *, chunk: int = ATTN_CHUNK):
+    """Causal (optionally windowed, soft-capped) attention over query
+    chunks in plain torch, f32 scores: the reference's
+    ``attention_blocked``. q (B, S, H, Dh), k/v (B, S, Hkv, Dh) -> (B, S,
+    H, Dh) in q's dtype. A chunk reads every key (O(chunk * S)), or for a
+    windowed layer with ``window + chunk <= S`` a span of window + chunk
+    keys; masked scores are -1e30."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(Dh)
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"seq {S} not divisible by q-chunk {chunk}")
+    win = cfg.attn_window
+    use_window = win is not None and win + chunk <= S
+    kspan = win + chunk if use_window else S
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(q)
+    ar_q = torch.arange(chunk, device=q.device)
+    ar_k = torch.arange(kspan, device=q.device)
+    for q0 in range(0, S, chunk):
+        start = min(max(q0 - win, 0), S - kspan) if use_window else 0
+        kc, vc = kf[:, start:start + kspan], vf[:, start:start + kspan]
+        q_pos, k_pos = q0 + ar_q, start + ar_k
+        qc = q[:, q0:q0 + chunk].float().reshape(B, chunk, Hkv, G, Dh)
+        s = torch.einsum("bcngd,bsnd->bngcs", qc, kc) * scale
+        s = _softcap(s, cfg.attn_logit_softcap)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        if win is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - win
+        s = torch.where(mask, s, -1e30)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.einsum("bngcs,bsnd->bcngd", e, vc)
+        o = o / e.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
+        out[:, q0:q0 + chunk] = o.reshape(B, chunk, H, Dh).to(q.dtype)
+    return out
+
+
+def attention_decode(q, k_cache, v_cache, pos, cfg: ModelConfig) -> torch.Tensor:
     """Single-token attention against a cache, grouped GQA einsum, f32.
 
-    q (B, 1, H, Dh); caches (B, S, Hkv, Dh); pos (B,) current lengths. A
-    slot counts when its absolute position ``pos - ((pos - j) mod S)`` lies
-    in [0, pos]."""
+    q (B, 1, H, Dh); caches (B, S, Hkv, Dh); pos (B,) current lengths. Slot
+    j was last written at absolute position ``pos - ((pos - j) mod S)``
+    (the ring of a windowed cache); it counts when that lies in [0, pos]
+    and, for a windowed layer, after ``pos - window``."""
     B, _, H, Dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Hkv, G, Dh).float() * (1.0 / math.sqrt(Dh))
     s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float())
+    s = _softcap(s, cfg.attn_logit_softcap)
     j = torch.arange(S, device=q.device)
     p = pos.long()[:, None]
     abs_j = p - torch.remainder(p - j[None, :], S)
     mask = (abs_j >= 0) & (abs_j <= p)
+    if cfg.attn_window is not None:
+        mask &= abs_j > p - cfg.attn_window
     s = torch.where(mask[:, None, None], s, -1e30)
     probs = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", probs, v_cache.float())
@@ -179,8 +210,13 @@ class Attention(nn.Module):
         theta = self.cfg.rope_theta
         return rope(q, positions, theta), rope(k, positions, theta), v
 
-    @staticmethod
-    def _flash(q, k, v):
+    def _attend(self, q, k, v):
+        """Prefill attention: the flash kernel, or for a windowed or
+        soft-capped layer ``attention_blocked`` (the reference's
+        ``_maybe_flash``)."""
+        cfg = self.cfg
+        if cfg.attn_window is not None or cfg.attn_logit_softcap is not None:
+            return attention_blocked(q, k, v, cfg)
         o = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True
         )
@@ -188,12 +224,14 @@ class Attention(nn.Module):
 
     def forward(self, x, positions, cache=None):
         """Returns (out, cache). ``cache`` None -> no cache kept; a dict
-        {'k', 'v'} -> prefill (S > 1) fills it, decode (S == 1) writes step
-        ``pos[0]`` for the whole batch and attends over the cache."""
+        {'k', 'v'} -> prefill (S > 1) fills it (its last S_cache steps when
+        longer: a windowed ring), decode (S == 1) writes step ``pos[0]`` at
+        slot ``pos[0] mod S_cache`` for the whole batch and attends over the
+        cache."""
         B, S, _ = x.shape
         q, k, v = self._qkv(self.ln(x), positions)
         if cache is None or S > 1:
-            o = self._flash(q, k, v)
+            o = self._attend(q, k, v)
             if cache is not None:
                 S_cache = cache["k"].shape[1]
                 if S > S_cache and S % S_cache:
@@ -208,14 +246,17 @@ class Attention(nn.Module):
             write_at = torch.remainder(pos[:1].long(), cache["k"].shape[1])
             cache["k"].index_copy_(1, write_at, k.to(cache["k"].dtype))
             cache["v"].index_copy_(1, write_at, v.to(cache["v"].dtype))
-            o = attention_decode(q, cache["k"], cache["v"], pos)
+            o = attention_decode(q, cache["k"], cache["v"], pos, self.cfg)
         h, dh, d = self.wo.shape
         out = o.reshape(B, S, h * dh) @ self.wo.reshape(h * dh, d)
         return out, cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device):
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    """{'k', 'v'} of max_seq steps, or of min(window, max_seq) for a
+    windowed layer (a ring)."""
+    S = max_seq if cfg.attn_window is None else min(cfg.attn_window, max_seq)
+    shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -252,6 +293,117 @@ class MLP(nn.Module):
         h = self.ln(x)
         z = _act(self.cfg.mlp_act)(h @ self.w_gate) * (h @ self.w_up)
         return z @ self.w_down
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based top-k dispatch)
+# ---------------------------------------------------------------------------
+
+MOE_CHUNK_TOKENS = 16_384  # tokens a dispatch: bounds the (E, C, D) buffers
+
+
+class MoE(nn.Module):
+    """Routed experts with a capacity per expert, top-k by repeated argmax,
+    and an optional shared expert: the reference's ``apply_moe``.
+
+    ``route_stats``: None, or a list to which each dispatch appends, per
+    k, (tokens routed to each expert int64[E], tokens dropped past the
+    capacity) as tensors on the card; for the caller's accounting."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        dt = model_dtype(cfg)
+        self.cfg = cfg
+        self.ln = RMSNorm(d, cfg, device)
+        self.router = _param((d, e), torch.float32, device)
+        self.experts_gate = _param((e, d, f), dt, device)
+        self.experts_up = _param((e, d, f), dt, device)
+        self.experts_down = _param((e, f, d), dt, device)
+        if cfg.moe_shared_expert:
+            self.shared_gate = _param((d, f), dt, device)
+            self.shared_up = _param((d, f), dt, device)
+            self.shared_down = _param((f, d), dt, device)
+        self.route_stats = None
+
+    def init(self, generator) -> None:
+        down_std = 0.02 / math.sqrt(2 * self.cfg.n_layers)
+        normal_(self.router, 0.02, generator)
+        for name in ("experts", "shared"):
+            if hasattr(self, f"{name}_gate"):
+                normal_(getattr(self, f"{name}_gate"), 0.02, generator)
+                normal_(getattr(self, f"{name}_up"), 0.02, generator)
+                normal_(getattr(self, f"{name}_down"), down_std, generator)
+        self.ln.init(generator)
+
+    def forward(self, x):
+        """x (B, S, D) -> (out, aux). More than ``MOE_CHUNK_TOKENS`` tokens
+        (and S > 1) route in chunks of the sequence, each on its own; the
+        aux terms are the chunks' means."""
+        B, S, D = x.shape
+        T = B * S
+        if T <= MOE_CHUNK_TOKENS or S == 1:
+            return self._dispatch(x)
+        n_chunks = max(1, -(-T // MOE_CHUNK_TOKENS))
+        while S % n_chunks:
+            n_chunks += 1
+        sc = S // n_chunks
+        outs, lbs, zs = [], [], []
+        for c in range(n_chunks):
+            out, aux = self._dispatch(x[:, c * sc:(c + 1) * sc])
+            outs.append(out)
+            lbs.append(aux["moe_load_balance"])
+            zs.append(aux["moe_z_loss"])
+        return torch.cat(outs, dim=1), {
+            "moe_load_balance": torch.stack(lbs).mean(),
+            "moe_z_loss": torch.stack(zs).mean(),
+        }
+
+    def _dispatch(self, x):
+        cfg = self.cfg
+        B, S, D = x.shape
+        T, E, K = B * S, cfg.n_experts, cfg.n_experts_per_token
+        C = min(max(int(cfg.moe_capacity_factor * T * K / E), 1), T)
+        act = _act(cfg.mlp_act)
+
+        h = self.ln(x).reshape(T, D)
+        logits = h.float() @ self.router  # (T, E) f32
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+        masked = probs
+        f_frac = torch.zeros((E,), dtype=torch.float32, device=x.device)
+        tok = torch.arange(T, device=x.device)
+        for _ in range(K):
+            eidx = torch.argmax(masked, dim=-1)  # the first maximum
+            gate = masked[tok, eidx]
+            onehot = F.one_hot(eidx, E)
+            pos_t = (torch.cumsum(onehot, dim=0) - 1)[tok, eidx]  # token order
+            keep = pos_t < C
+            slot = torch.where(keep, pos_t, C)  # slot C: dropped
+            buf = torch.zeros((E, C + 1, D), dtype=h.dtype, device=x.device)
+            buf[eidx, slot] = h
+            buf = buf[:, :C]
+            g = act(torch.bmm(buf, self.experts_gate))
+            u = torch.bmm(buf, self.experts_up)
+            eo = F.pad(torch.bmm(g * u, self.experts_down), (0, 0, 0, 1))
+            out = out + eo[eidx, slot].float() * (gate * keep)[:, None]
+            f_frac = f_frac + onehot.float().mean(dim=0)
+            masked = masked * (1.0 - onehot)  # the chosen expert is out for the next k
+            if self.route_stats is not None:
+                self.route_stats.append((onehot.sum(dim=0), (~keep).sum()))
+
+        # aux: load balance (Switch) and router z-loss
+        p_frac = probs.mean(dim=0)
+        aux = {
+            "moe_load_balance": E * torch.sum(f_frac / K * p_frac),
+            "moe_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+        }
+        routed = out.reshape(B, S, D).to(x.dtype)
+        if cfg.moe_shared_expert:
+            hs = h.reshape(B, S, D)
+            routed = routed + (act(hs @ self.shared_gate) * (hs @ self.shared_up)
+                               ) @ self.shared_down
+        return routed, aux
 
 
 # ---------------------------------------------------------------------------
@@ -378,4 +530,80 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device):
                             device=device),
         "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
                            dtype=f32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma / Griffin) block
+# ---------------------------------------------------------------------------
+
+RGLRU_C = 8.0
+
+
+class RGLRU(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, dr, w = cfg.d_model, cfg.rnn_dim, cfg.ssm_conv_width
+        dt = model_dtype(cfg)
+        f32 = torch.float32
+        self.cfg = cfg
+        self.ln = RMSNorm(d, cfg, device)
+        self.w_in = _param((d, dr), dt, device)
+        self.w_gate_branch = _param((d, dr), dt, device)
+        self.conv_w = _param((w, dr), f32, device)
+        self.conv_b = _param((dr,), f32, device)
+        self.w_a = _param((dr, dr), f32, device)
+        self.b_a = _param((dr,), f32, device)
+        self.w_x = _param((dr, dr), f32, device)
+        self.b_x = _param((dr,), f32, device)
+        self.lam = _param((dr,), f32, device)
+        self.w_rnn_out = _param((dr, d), dt, device)
+
+    @torch.no_grad()
+    def init(self, generator) -> None:
+        for p in (self.w_in, self.w_gate_branch, self.conv_w, self.w_a, self.w_x):
+            normal_(p, 0.02, generator)
+        for p in (self.conv_b, self.b_a, self.b_x):
+            p.zero_()
+        # Λ so that a^c lies near 0.9..0.999 (long memory)
+        lin = torch.linspace(0.3, 1.5, self.cfg.rnn_dim, dtype=torch.float32)
+        self.lam.copy_(torch.log(torch.expm1(lin)))
+        normal_(self.w_rnn_out, 0.02 / math.sqrt(2 * self.cfg.n_layers), generator)
+        self.ln.init(generator)
+
+    def forward(self, x, positions=None, cache=None):
+        """Returns (out, cache); cache = {'conv': (B, W-1, dr), 'h': (B, dr)}
+        f32, updated in place. More than one step runs the recurrence
+        ``h_t = a_t h_(t-1) + b_t`` through ``ops.rglru_scan`` from the
+        cache's h (or 0); a decode step is ``a h + b`` in plain torch."""
+        S = x.shape[1]
+        hin = self.ln(x)
+        u = hin @ self.w_in
+        gate = _act("gelu")(hin @ self.w_gate_branch)
+        uc, new_conv = _causal_conv(
+            u.float(), self.conv_w, self.conv_b, None if cache is None else cache["conv"]
+        )
+        r = torch.sigmoid(uc @ self.w_a + self.b_a)  # (B, S, dr) f32
+        i = torch.sigmoid(uc @ self.w_x + self.b_x)
+        a = torch.exp(-RGLRU_C * F.softplus(self.lam)[None, None, :] * r)
+        b = torch.sqrt(torch.clamp_min(1.0 - a**2, 1e-12)) * (i * uc)
+        if cache is None or S > 1:
+            h = ops.rglru_scan(a, b, None if cache is None else cache["h"])
+            new_h = h[:, -1]
+        else:
+            new_h = a[:, 0] * cache["h"] + b[:, 0]
+            h = new_h[:, None]
+        out = (h.to(x.dtype) * gate) @ self.w_rnn_out
+        if cache is not None:
+            cache["conv"].copy_(new_conv)
+            cache["h"].copy_(new_h)
+        return out, cache
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, device):
+    f32 = torch.float32
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, cfg.rnn_dim), dtype=f32,
+                            device=device),
+        "h": torch.zeros((batch, cfg.rnn_dim), dtype=f32, device=device),
     }

@@ -3,7 +3,8 @@ temperature sampling.
 
 Ported from ``src/repro/models/lm_serve.py`` for one device (the JAX
 engine's ``MeshPolicy`` sharding is not ported). Prompts of one batch must
-have one length; the cache holds ``max_seq`` steps. Greedy decoding is
+have one length; the cache holds ``max_seq`` steps. An audio model takes
+prompts (P, K) of its K codebooks and decodes K tokens a step. Greedy decoding is
 ``argmax``, which picks the first of equal maxima as ``jnp.argmax`` does.
 Temperature sampling draws from ``softmax(logits / max(t, 1e-4))`` with a
 ``torch.Generator`` seeded from ``seed`` on the model's device: seeded and
@@ -22,7 +23,7 @@ from .model import Model
 
 @dataclass
 class Request:
-    prompt: np.ndarray  # (P,)
+    prompt: np.ndarray  # (P,) or (P, K)
     max_new_tokens: int = 32
     temperature: float = 0.0
     rid: int = 0
@@ -41,7 +42,8 @@ class ServeEngine:
         self.generator = torch.Generator(device=model.device).manual_seed(seed)
 
     def generate(self, requests: list[Request]) -> list[Completion]:
-        """Serve a batch of requests whose prompts have one length."""
+        """Serve a batch of requests whose prompts have one length ->
+        completions of tokens (n,) or, for audio, (n, K)."""
         if not requests:
             raise ValueError("empty batch")
         P = len(requests[0].prompt)
@@ -68,11 +70,13 @@ class ServeEngine:
         ]
 
     def _sample(self, logits: torch.Tensor, requests) -> torch.Tensor:
-        """logits (B, V) -> int32 (B,)."""
+        """logits (B, V) or (B, K, V) -> int32 (B,) or (B, K)."""
         temps = np.array([r.temperature for r in requests], dtype=np.float32)
         if (temps == 0).all():
             return torch.argmax(logits, dim=-1).to(torch.int32)
         t = torch.from_numpy(np.maximum(temps, 1e-4)).to(logits.device)
-        probs = torch.softmax(logits.float() / t[:, None], dim=-1)
-        draw = torch.multinomial(probs, 1, generator=self.generator)[:, 0]
-        return draw.to(torch.int32)
+        t = t.reshape((-1,) + (1,) * (logits.dim() - 1))
+        probs = torch.softmax(logits.float() / t, dim=-1)
+        draw = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                 generator=self.generator)
+        return draw.reshape(logits.shape[:-1]).to(torch.int32)

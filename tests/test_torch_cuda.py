@@ -11,7 +11,8 @@ package, so it runs where only torch is installed:
 Tolerance of the graph kernels and api: none — int32 and float32 outputs
 must be bit-identical. The LM kernels (rmsnorm, flash attention, SSD
 scan) are float and sum in another order than their plain versions; each
-test states its tolerance and why. Inputs come from
+test states its tolerance and why. The RG-LRU scan rounds as its plain
+loop does and must be bit-identical. Inputs come from
 ``np.random.default_rng`` with the seed named in each test.
 """
 
@@ -904,6 +905,102 @@ def test_model_on_cuda_matches_cpu(cuda_device, arch):
     want = ServeEngine(cpu, max_seq=32).generate(reqs)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "recurrentgemma-9b",
+                                  "internvl2-26b", "musicgen-large"])
+def test_family_on_cuda_matches_cpu(cuda_device, arch):
+    """The MoE, RG-LRU hybrid, VLM-prefix and audio families at their reduced
+    size in f32: the card's apply, prefill and decode against the CPU's;
+    the RG-LRU prefill launches ``rglru_scan`` (never the plain loop)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm_serve import Request, ServeEngine
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    if cfg.n_experts:  # no drops: prefill and decode route as the full forward
+        cfg = cfg.reduced(moe_capacity_factor=float(cfg.n_experts))
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1230)  # seed 1230
+    shape = (2, 40, cfg.n_codebooks) if cfg.n_codebooks else (2, 40)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+    n_pre = cfg.n_prefix_embeds
+    prefix = (torch.from_numpy(rng.standard_normal((2, n_pre, cfg.d_model)).astype(
+        np.float32)) if n_pre else None)
+    before = dict(launch_counts)
+    lc, aux_c = cpu.apply(tokens, prefix)
+    lg, aux_g = gpu.apply(tokens, prefix)
+    # f32 throughout; kernels and cuBLAS sum in another order (1e-4, the
+    # JAX package's own prefill/decode tolerance)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for k in aux_c:
+        torch.testing.assert_close(aux_g[k].cpu(), aux_c[k], rtol=1e-4, atol=1e-4)
+    last, caches = gpu.prefill(tokens[:, :32], 48 + n_pre, prefix)
+    torch.testing.assert_close(last[:, 0].cpu(), lc[:, n_pre + 31], rtol=1e-4,
+                               atol=1e-4)
+    after_prefill = dict(launch_counts)
+    for t in range(32, 40):
+        pos = torch.full((2,), n_pre + t, dtype=torch.int32)
+        logits, caches = gpu.decode_step(tokens[:, t:t + 1], caches, pos)
+        torch.testing.assert_close(logits[:, 0].cpu(), lc[:, n_pre + t], rtol=1e-4,
+                                   atol=1e-4)
+    assert launch_counts["rmsnorm"] > before.get("rmsnorm", 0)
+    n_rglru = sum(layer.kind == "rglru" for layer in gpu.layers)
+    # two prefills (apply, prefill) launch the scan once a layer; decode never
+    assert launch_counts["rglru_scan"] - before.get("rglru_scan", 0) == 2 * n_rglru
+    assert launch_counts["rglru_scan"] == after_prefill.get("rglru_scan", 0)
+    if n_pre == 0:
+        reqs = [Request(prompt=tokens[i, :16].numpy(), max_new_tokens=6, rid=i)
+                for i in range(2)]
+        got = ServeEngine(gpu, max_seq=32).generate(reqs)
+        want = ServeEngine(cpu, max_seq=32).generate(reqs)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,dr", [(1, 1, 1), (2, 100, 64), (3, 37, 1000),
+                                    (8, 2048, 4096)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_kernel_matches_plain(cuda_device, B, S, dr, with_h0):
+    """The kernel rounds each step as the plain loop does (a product, then
+    a sum): bit-identical."""
+    rng = np.random.default_rng(1240 + S)  # seed 1240+S
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, dr)).astype(np.float32)
+                         ).to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal((B, S, dr)).astype(np.float32)
+                         ).to(cuda_device)
+    h0 = (torch.from_numpy(rng.standard_normal((B, dr)).astype(np.float32)
+                           ).to(cuda_device) if with_h0 else None)
+    before = launch_counts["rglru_scan"]
+    got = ops.rglru_scan(a, b, h0)
+    assert launch_counts["rglru_scan"] == before + 1
+    torch.cuda.synchronize()
+    want = ref.rglru_scan_ref(a, b, h0)
+    assert got.shape == (B, S, dr) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_wrapper_refuses_bad_operands(cuda_device):
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+
+    a = torch.zeros((2, 8, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        rglru_scan_cuda(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError):
+        rglru_scan_cuda(a.cpu(), a.cpu())
+    with pytest.raises(ValueError):
+        rglru_scan_cuda(a, a[:, :4])
+    with pytest.raises(ValueError):
+        rglru_scan_cuda(a, a, torch.zeros((2, 8), device=cuda_device))
+    with pytest.raises(ValueError):
+        rglru_scan_cuda(a[0], a[0])
 
 
 # ---------------------------------------------------------------------------

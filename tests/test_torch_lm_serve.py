@@ -198,18 +198,19 @@ def test_configs_and_param_counts_match_jax():
     assert param_count(get_config("mamba2-130m")) == 128_941_248
 
 
-@pytest.mark.parametrize("arch,overrides,what", [
-    ("llama4-scout-17b-a16e", {}, "MoE"),
-    ("recurrentgemma-9b", {}, "RG-LRU"),
-    ("internvl2-26b", {}, "prefix"),
-    ("musicgen-large", {}, "codebooks"),
-    ("qwen3-1.7b", {"attn_window": 16}, "attn_window"),
-    ("qwen3-1.7b", {"attn_logit_softcap": 30.0}, "softcap"),
-])
-def test_unported_layer_kinds_raise(arch, overrides, what):
-    cfg = get_config(arch).reduced(**overrides)
-    with pytest.raises(NotImplementedError, match=f"(?s){what}.*ROADMAP"):
-        Model(cfg, device="cpu")
+@pytest.mark.parametrize("arch", all_arch_names())
+def test_every_arch_builds_and_serves(arch):
+    """Every configuration of the registry builds and serves greedy tokens
+    on the CPU at its reduced size (the families' parity with the JAX
+    package is in tests/test_torch_lm_moe.py, test_torch_lm_hybrid.py and
+    test_torch_lm_frontends.py)."""
+    cfg = get_config(arch).reduced()
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    shape = (5, cfg.n_codebooks) if cfg.n_codebooks else (5,)
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, shape)  # seed 9
+    out = ServeEngine(model, max_seq=16).generate([Request(prompt=prompt, max_new_tokens=3)])
+    assert out[0].tokens.shape == (3,) + shape[1:]
+    assert 0 <= out[0].tokens.min() and out[0].tokens.max() < cfg.vocab_size
 
 
 def test_init_draws_the_jax_distributions():
@@ -267,7 +268,11 @@ def test_serving_modules_import_neither_jax_nor_the_reference():
     src = Path(__file__).resolve().parents[1] / "src"
     code = (
         "import sys, repro_torch.models.lm_serve, repro_torch.models.convert, "
-        "repro_torch.launch.serve, repro_torch.configs.qwen3_1_7b; "
+        "repro_torch.models.layers, repro_torch.models.model, "
+        "repro_torch.kernels.rglru_scan, repro_torch.launch.serve, "
+        "repro_torch.configs.qwen3_1_7b, repro_torch.configs.llama4_scout_17b_a16e, "
+        "repro_torch.configs.recurrentgemma_9b, repro_torch.configs.internvl2_26b, "
+        "repro_torch.configs.musicgen_large; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)"
     )

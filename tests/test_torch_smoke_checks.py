@@ -48,6 +48,11 @@ def _inputs(name: str, scale: float):
     if name == "rmsnorm":
         w = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(np.float32))
         return [_bf16(rng, (16, 64), scale), w], dict(eps=1e-6, plus_one=True)
+    if name == "rglru_scan":  # f32 in and out, the carried state given
+        a = torch.from_numpy(rng.uniform(0.5, 1.0, (2, 48, 32)).astype(np.float32))
+        b = torch.from_numpy((rng.standard_normal((2, 48, 32)) * scale).astype(np.float32))
+        h0 = torch.from_numpy((rng.standard_normal((2, 32)) * scale).astype(np.float32))
+        return [a, b, h0], {}
     B, H, S, P, N = 2, 3, 64, 16, 16
     dt = torch.from_numpy(rng.uniform(0.01, 0.1, (B, H, S)).astype(np.float32))
     a_log = -dt * torch.from_numpy(rng.uniform(1.0, 16.0, (B, H, S)).astype(np.float32))
@@ -57,8 +62,8 @@ def _inputs(name: str, scale: float):
 
 def _plain32(name, args, kwargs):
     plain = {"flash_attention": ref.attention_heads_ref, "rmsnorm": ref.rmsnorm_ref,
-             "ssd_scan": ref.ssd_scan_heads_ref}[name]
-    return plain(*[a.float() for a in args], **kwargs)
+             "ssd_scan": ref.ssd_scan_heads_ref, "rglru_scan": ref.rglru_scan_ref}[name]
+    return plain(*[a if a is None else a.float() for a in args], **kwargs)
 
 
 def _standin(name: str, fault: str):
@@ -74,6 +79,10 @@ def _standin(name: str, fault: str):
         elif fault == "nan":
             y = y.clone()
             y.view(-1)[7] = float("nan")
+        elif fault == "no_h0":  # the RG-LRU scan started from 0, not h0
+            y = _plain32(name, args[:2], kwargs)
+        elif fault == "no_recurrence":  # h_t = b_t: a_t h_(t-1) dropped
+            y = args[1].clone()
         elif fault == "carry":  # the state carried between chunks dropped
             q = kwargs["chunk"]
             x, dt, a_log, bm, cm = args
@@ -106,7 +115,7 @@ def test_lm_kernel_check_passes_a_kernel_that_rounds_once(smoke, monkeypatch, na
 
 @pytest.mark.parametrize("scale", [1.0, 1e-4])
 @pytest.mark.parametrize("fault", ["zeros", "coarse", "nan"])
-@pytest.mark.parametrize("name", ["flash_attention", "rmsnorm", "ssd_scan"])
+@pytest.mark.parametrize("name", ["flash_attention", "rmsnorm", "ssd_scan", "rglru_scan"])
 def test_lm_kernel_check_rejects_planted_faults(smoke, monkeypatch, name, fault, scale):
     monkeypatch.setattr(ops, f"{name}_cuda", _standin(name, fault))
     with pytest.raises(AssertionError, match="LM kernel checks failed"):
@@ -119,6 +128,22 @@ def test_lm_kernel_check_rejects_an_ssd_scan_without_its_carried_state(
     monkeypatch.setattr(ops, "ssd_scan_cuda", _standin("ssd_scan", "carry"))
     with pytest.raises(AssertionError, match="LM kernel checks failed"):
         smoke.lm_kernel_checks(_seen("ssd_scan", scale))
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-4])
+def test_lm_kernel_check_passes_an_rglru_scan_equal_to_its_loop(smoke, monkeypatch,
+                                                                  scale):
+    monkeypatch.setattr(ops, "rglru_scan_cuda", _standin("rglru_scan", "none"))
+    assert smoke.lm_kernel_checks(_seen("rglru_scan", scale)) == {"rglru_scan": 0.0}
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-4])
+@pytest.mark.parametrize("fault", ["no_h0", "no_recurrence"])
+def test_lm_kernel_check_rejects_an_rglru_scan_without_its_state(smoke, monkeypatch,
+                                                                 fault, scale):
+    monkeypatch.setattr(ops, "rglru_scan_cuda", _standin("rglru_scan", fault))
+    with pytest.raises(AssertionError, match="LM kernel checks failed"):
+        smoke.lm_kernel_checks(_seen("rglru_scan", scale))
 
 
 def test_lm_excess_scales_with_the_reference(smoke):
@@ -844,3 +869,133 @@ def test_sharded_phase_rejects_a_full_reshard_after_add_edges(sharded_smoke,
     monkeypatch.setattr(sharded, "reshard_deltas", lambda snet, new_net: None)
     with pytest.raises(AssertionError, match="not reshard_deltas"):
         smoke.phase_sharded(net, median, 0, torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# The lm_families phase, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+FAMILY_CUT = {"LM_REQUESTS": 2, "LM_PROMPT": 64, "LM_NEW": 4, "LM_MAX_SEQ": 68,
+              "LM_CHECK_REQUESTS": 2, "LM_CHECK_PROMPT": 16, "LM_CHECK_STEPS": 2,
+              "LM_FAMILY_PREFIX_STEPS": 2}
+
+
+def _kernel_standin(name: str, fault: str = "none"):
+    """``ops.<name>_cuda`` stood in by its plain version in f32, rounded
+    once (``_standin``), counted under the kernel's own key."""
+    return _counting(name, _standin(name, fault))
+
+
+@pytest.fixture
+def families_smoke(smoke, monkeypatch):
+    """``chip_smoke`` with its LM constants cut, its device probes stubbed
+    and the LM ops routed on the CPU to counting stand-ins of their CUDA
+    wrappers, which ``KernelInputs`` records as it records the kernels."""
+    for name, value in FAMILY_CUT.items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "sync", lambda: None)
+    monkeypatch.setattr(smoke, "device_line", lambda fields="": "cpu (stand-in)")
+    monkeypatch.setattr(smoke, "device_activity", lambda fn, iters: (
+        fn(), {"void rmsnorm_any_kernel<__nv_bfloat16>": [1, 2.0]})[1])
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "cold_ms", lambda fn, iters: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    for name in ("flash_attention", "rmsnorm", "rglru_scan"):
+        monkeypatch.setattr(ops, f"{name}_cuda", _kernel_standin(name))
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, *, causal=True: (
+        ops.flash_attention_cuda(q, k, v, scale=q.shape[-1] ** -0.5, causal=causal)))
+    monkeypatch.setattr(ops, "rmsnorm", lambda x, w, *, eps, plus_one: (
+        ops.rmsnorm_cuda(x, w, eps=eps, plus_one=plus_one)))
+    monkeypatch.setattr(ops, "rglru_scan", lambda a, b, h0=None: (
+        ops.rglru_scan_cuda(a, b, h0)))
+    from repro_torch.configs import get_config
+
+    configs = {arch: get_config(arch).reduced(dtype="bfloat16")
+               for arch in smoke.LM_FAMILY_ARCHS}
+    return smoke, configs
+
+
+def test_lm_families_phase_rehearsed_on_the_cpu(families_smoke, capsys):
+    smoke, configs = families_smoke
+    out = smoke.phase_lm_families(torch.device("cpu"), 0, configs)
+    text = capsys.readouterr().out
+    runs = 2 * (smoke.LM_FAMILY_REPEATS + 1)  # generate calls, both kinds
+    hybrid = configs["recurrentgemma-9b"]
+    n_rglru = (list(hybrid.block_pattern) * hybrid.n_groups
+               + list(hybrid.tail_pattern)).count("rglru")
+    assert out["launches"]["rglru_scan"] == n_rglru * runs
+    assert out["launches"]["flash_attention"] > 0 and out["launches"]["rmsnorm"] > 0
+    assert set(out["worst"]) == {"flash_attention", "rmsnorm", "rglru_scan"}
+    assert out["worst"]["rglru_scan"] == 0.0
+    for arch in configs:
+        assert f"lm_families: {arch} f32 (TF32 off" in text
+        assert f"lm_families: {arch}: greedy tokens deterministic" in text
+    assert "MoE routing at prefill" in text and "MoE routing at decode step" in text
+    assert "patch embeddings ahead of 64 tokens" in text
+    assert "codebook choices" in text
+    assert "route void rmsnorm_any_kernel" in text
+    rec = smoke.rglru_timing(out)
+    assert rec["name"] == "rglru_scan" and rec["library_ms"] is None
+    assert rec["launches"] == n_rglru * runs and rec["bound_by"] == "bytes"
+    assert rec["source"] == "src/repro_torch/csrc/rglru_scan.cu"
+    assert {"route", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms"} <= set(rec)
+
+
+def test_lm_families_phase_refuses_flash_on_a_windowed_model(families_smoke,
+                                                              monkeypatch):
+    """recurrentgemma's windowed attention must never take the flash
+    kernel; a path that sent it there fails the phase."""
+    smoke, configs = families_smoke
+    from repro_torch.models import layers
+
+    monkeypatch.setattr(layers, "attention_blocked", lambda q, k, v, cfg: (
+        ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2)).transpose(1, 2)))
+    with pytest.raises(AssertionError, match="flash_attention launched"):
+        smoke.phase_lm_families(torch.device("cpu"), 0,
+                                {"recurrentgemma-9b": configs["recurrentgemma-9b"]})
+
+
+@pytest.mark.parametrize("fault", ["zeros", "no_h0", "no_recurrence"])
+def test_lm_families_phase_rejects_a_faulty_rglru_scan(families_smoke, monkeypatch,
+                                                       fault):
+    smoke, configs = families_smoke
+    monkeypatch.setattr(ops, "rglru_scan_cuda", _kernel_standin("rglru_scan", fault))
+    with pytest.raises(AssertionError, match="LM kernel checks failed|f32 decode"):
+        smoke.phase_lm_families(torch.device("cpu"), 0,
+                                {"recurrentgemma-9b": configs["recurrentgemma-9b"]})
+
+
+def test_lm_phase_rehearsed_on_the_cpu(families_smoke, capsys):
+    """The lm phase's shared serving code on a reduced bf16 qwen3: flash
+    attention and rmsnorm launch, greedy tokens are equal over every
+    greedy call and the f32 copy decodes as the full forward."""
+    smoke, _ = families_smoke
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-1.7b").reduced(dtype="bfloat16")
+    out = smoke.phase_lm(torch.device("cpu"), 0, {"qwen3-1.7b": cfg})
+    text = capsys.readouterr().out
+    assert out["launches"]["flash_attention"] > 0 and out["launches"]["rmsnorm"] > 0
+    calls = smoke.LM_REPEATS + 1
+    assert f"greedy tokens deterministic over {calls} calls" in text
+    assert "lm: qwen3-1.7b f32 (TF32 off): prefill 16 + 2 decode steps" in text
+
+
+def test_family_configs_cut_depth_only(smoke, capsys):
+    from repro_torch.configs import get_config
+
+    configs = smoke.family_configs()
+    text = capsys.readouterr().out
+    assert list(configs) == list(smoke.LM_FAMILY_ARCHS)
+    for arch, cfg in configs.items():
+        full = get_config(arch)
+        assert cfg.n_layers == smoke.LM_FAMILY_LAYERS.get(arch, full.n_layers)
+        assert (cfg.d_model, cfg.n_heads, cfg.vocab_size, cfg.n_experts) == (
+            full.d_model, full.n_heads, full.vocab_size, full.n_experts)
+    assert "llama4-scout-17b-a16e: depth cut to 8 of 48 layers (all 48 take " \
+           "215540224000 bytes in bf16, past the card's memory" in text
+    assert "internvl2-26b: depth cut to 24 of 48 layers (the phase's time" in text
+    assert "recurrentgemma-9b: depth cut" not in text
