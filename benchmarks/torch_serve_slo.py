@@ -139,7 +139,12 @@ def _drive(address, trace, *, n_threads: int, deadline_ms: float,
     lat_s = np.full(n, np.nan)
     outcomes: list = [None] * n
     errors: list = []
-    retry = RetryPolicy(max_attempts=8, base=0.002, cap=0.05)
+    # 32 attempts, not 8: the fault burst tears every other response, and
+    # a session whose retries keep landing on torn writes is torn several
+    # times running (8 attempts were once spent so on an H100). 32 attempts
+    # wait 1.55 s at most (31 waits of at most 0.05 s), inside the 2 s
+    # deadline, which stays each request's bound.
+    retry = RetryPolicy(max_attempts=32, base=0.002, cap=0.05)
     start_at = time.monotonic() + 0.05  # let every worker get ready
 
     def worker(wid: int):

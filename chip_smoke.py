@@ -6,10 +6,11 @@
 Drives the port's main paths — pseudo-projection point queries, batched
 traversal, sampling and analysis, files, mutation and durability, and the
 graph-serving engine and its wire, and the sharded network view, on a
-population-scale mixed-mode network, and LM serving of every model family
-at full width — on the card, through the entry
+population-scale mixed-mode network, LM serving of every model family
+at full width, and LM training at full width — on the card, through the entry
 points a user calls (``repro_torch.core.api``, ``repro_torch.core.cli``,
-``repro_torch.serve``, ``repro_torch.models.lm_serve``), and
+``repro_torch.serve``, ``repro_torch.models.lm_serve``,
+``repro_torch.train``), and
 fails (non-zero exit) if any phase fails:
 
 1. device   — the card's name and power limit (nvidia-smi);
@@ -194,7 +195,7 @@ fails (non-zero exit) if any phase fails:
               (38 layers: 12 x (RG-LRU, RG-LRU, local attention) + 2 RG-LRU,
               window 2,048, so decode wraps its ring from the first step),
               internvl2-26b and musicgen-large (4 codebooks: prompts of
-              2,048 x 4 tokens), each 24 of its 48 layers for the phase's
+              2,048 x 4 tokens), each 16 of its 48 layers for the smoke's
               time (the cut printed); the lm phase's traffic,
               one warm-up and one timed call a kind; counts reset before and
               read after (rmsnorm must launch for all four, flash_attention
@@ -215,7 +216,30 @@ fails (non-zero exit) if any phase fails:
               (recurrentgemma: one group and the tail, 5; MoE at capacity
               n_experts; internvl2 with its prefix): prefill 256 + 8 decode
               steps against ``Model.apply``. At most 150 s;
-16. timing  — each kernel, its plain version and its bound at the heaviest
+16. train   — training on the card through ``repro_torch.train``:
+              qwen3-1.7b at full width and depth (28 layers, bf16, remat by
+              layer), 6 AdamW steps of ``Trainer.train_step`` on walk-corpus
+              batches (``repro_torch.data.pipeline.WalkCorpus``) of this
+              network, 4 walks of 2,048 nodes over its four layers, drawn
+              before the steps; counts reset before and read after
+              (rmsnorm, flash_attention and their backward kernels
+              rmsnorm_bwd and flash_attention_bwd must launch; the copy and
+              FMA-route counts stay 0); each step's loss (finite, the last
+              below the first), ms and tokens/s, one more step timed in parts
+              (forward, backward, optimizer), max_memory_allocated. Then at 2
+              of the 28 layers (full width and vocabulary) 4 steps without a
+              break against 2 through ``Trainer.fit`` (a checkpoint), a new
+              trainer that restores it and takes 2 more: parameters and master
+              weights equal bit for bit; ``launch/serve.py``'s
+              ``restore_params`` serves 8 greedy tokens from that checkpoint,
+              the first equal to ``Model.apply``'s argmax. The backward
+              kernels against their plain versions (f32 autograd) on the
+              inputs the main path gave them, each element within 2^-6 of its
+              reference plus 2^-10 of the reference's largest (planted faults
+              rejected), and in f32 at a small shape within 1e-4; a loss
+              through ``ssd_scan`` (mamba2) or ``rglru_scan`` (recurrentgemma)
+              on the card must raise ``NotImplementedError``. At most 150 s;
+17. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
               by CUDA events with the L2 flushed before each launch; the
@@ -236,8 +260,13 @@ fails (non-zero exit) if any phase fails:
               cold with its sector count. A kernel or library time under
               its bound fails the phase. ``rglru_scan`` cold (CUDA events,
               the L2 flushed) at the lm_families phase's heaviest launch,
-              bound by the bytes it moves, no library call. The ``launches``
-              of each record add the sharded and lm_families phases' counts
+              bound by the bytes it moves, no library call. The backward
+              kernels cold at the train phase's heaviest recorded shape,
+              with the library's backward (SDPA's, ``F.rms_norm``'s autograd)
+              cold beside them; flash's bound is 2.5 times the forward's
+              causal flops at the bf16 tensor-core peak, rmsnorm's the bytes
+              of x, w and dy read and dx written. The ``launches`` of each
+              record add the sharded, lm_families and train phases' counts
               to its own phase's.
 
 Its last lines are the ``kernels`` JSON record and then
@@ -412,9 +441,11 @@ CLI_QUERIES = 8
 SERVE_REQUESTS = 10_000
 SERVE_SEED = 17
 SERVE_CACHE = 4096
-# the loop of single calls runs every 4th request (cut): all 10,000 took
-# 169.4 s on an NVIDIA H100 80GB HBM3 at 700 W, past the phase's 180 s
-SERVE_LOOP_STRIDE = 4
+# the loop of single calls runs every 8th request (cut): all 10,000 took
+# 169.4 s on an NVIDIA H100 80GB HBM3 at 700 W, past the phase's 180 s;
+# every 4th until the train phase brought the smoke to 1,111 s of its
+# 1,200 on a slow host (this phase 171.0 s there, its loop 41.6 s of it)
+SERVE_LOOP_STRIDE = 8
 SERVE_CLIENTS = 8
 SERVE_CAPACITY_REQUESTS = 2_000
 SERVE_LOAD = 0.8
@@ -489,24 +520,29 @@ LM_FLOOR_TOL = 2.0**-12
 # planted faults the same check must reject at every launched shape: a
 # zeroed output, and the reference rounded to LM_FAULT_BITS significant bits
 LM_FAULT_BITS = 5
-LM_REPEATS = 3  # timed generate calls per call kind, after one warm-up
+# timed generate calls per call kind, after one warm-up: 1 since the train
+# phase brought the smoke to 1,059-1,111 s of its 1,200 (3 before)
+LM_REPEATS = 1
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 # lm_families phase: the other families at full width in bf16, random
 # weights from SEED, the lm phase's traffic (audio: LM_PROMPT steps of its 4
 # codebooks). Depth cuts (LM_FAMILY_LAYERS, printed with the reason):
 # llama4-scout to 8 of its 48 layers, since all 48 take 215.5 GB in bf16,
-# past the card's 80 GB; internvl2 and musicgen to 24 of 48, since with all
-# 48 the phase took 150.6 s of its 150 s on the H100, twice (their decode
-# is host-bound, 93-120 ms a step). The f32 check copies are 2 layers deep,
+# past the card's 80 GB; internvl2 and musicgen to 16 of 48 for the smoke's
+# time: with all 48 the phase took 150.6 s of its 150 s on the H100, twice
+# (their decode is host-bound, 93-120 ms a step), and with 24 the whole
+# smoke took 1,059 s of its 1,200 once the train phase came. The
+# f32 check copies are 2 layers deep,
 # recurrentgemma's one (R, R, A) group and the (R, R) tail.
 LM_FAMILY_ARCHS = ("llama4-scout-17b-a16e", "recurrentgemma-9b", "internvl2-26b",
                    "musicgen-large")
-LM_FAMILY_LAYERS = {"llama4-scout-17b-a16e": 8, "internvl2-26b": 24,
-                    "musicgen-large": 24}
-LM_FAMILY_TIME_CUT = ("the phase's time: with all 48 layers of internvl2 and "
-                      "musicgen it took 150.6 s of its 150 s on the H100 "
-                      "(decode host-bound, 93-120 ms a step)")
+LM_FAMILY_LAYERS = {"llama4-scout-17b-a16e": 8, "internvl2-26b": 16,
+                    "musicgen-large": 16}
+LM_FAMILY_TIME_CUT = ("the smoke's time: with all 48 layers of internvl2 and "
+                      "musicgen the phase took 150.6 s of its 150 s on the H100 "
+                      "(decode host-bound, 93-120 ms a step), and with 24 the "
+                      "smoke 1,059 s of its 1,200 once training came")
 LM_CARD_BYTES = 80e9  # the H100's device memory
 LM_FAMILY_CHECK_LAYERS = {"recurrentgemma-9b": 5}
 LM_FAMILY_CHECK_DEFAULT_LAYERS = 2
@@ -3713,8 +3749,10 @@ def serving_wire(net, trace, values: list, card: str, device) -> dict:
         f"{rs['rounds']} rounds, host {rs['round_s']:.3f} s in rounds, waited "
         f"{rs['pump_wait_s']:.3f} s for work; {card}")
     if res["errors"] or cap_errors or engine_stats["pump_faults"]:
-        raise AssertionError(f"serving: (b) errors on the wire: {res['error_kinds']}, "
-                             f"{cap_errors[:1]}, pump faults {engine_stats['pump_faults']}")
+        first = next((o[1] for o in res["outcomes"] if o[0] != "ok"), None)
+        raise AssertionError(f"serving: (b) errors on the wire: {res['error_kinds']} "
+                             f"(first: {first}), {cap_errors[:1]}, pump faults "
+                             f"{engine_stats['pump_faults']}")
     if res["faults_fired"] < 1 or res["idempotent_replays"] < 1:
         raise AssertionError("serving: (b) the fault burst never fired or no torn "
                              "ack was replayed")
@@ -4254,8 +4292,9 @@ class KernelInputs:
 
     NAMES = ("flash_attention", "rmsnorm", "ssd_scan", "rglru_scan")
 
-    def __init__(self, label: str):
+    def __init__(self, label: str, names: tuple | None = None):
         self.label = label
+        self.names = self.NAMES if names is None else names
         self.seen = {}  # (kernel, label, shapes) -> (args, kwargs)
 
     def __enter__(self):
@@ -4263,7 +4302,7 @@ class KernelInputs:
 
         from repro_torch.kernels import ops
 
-        self._inner = {n: getattr(ops, f"{n}_cuda") for n in self.NAMES}
+        self._inner = {n: getattr(ops, f"{n}_cuda") for n in self.names}
 
         def recorder(name, inner):
             def record(*args, **kwargs):
@@ -4307,13 +4346,14 @@ def lm_kernel(name: str):
     return getattr(ops, f"{name}_cuda")
 
 
-def lm_excess(got, want) -> tuple[float, float]:
+def lm_excess(got, want, rel: float = LM_REL_TOL, floor: float = LM_FLOOR_TOL
+              ) -> tuple[float, float]:
     """(max |got - want|, largest ratio of |got - want| to its limit
-    LM_REL_TOL |want| + LM_FLOOR_TOL max |want|); NaN in ``got`` gives NaN."""
+    rel |want| + floor max |want|); NaN in ``got`` gives NaN."""
     import torch
 
     diff = (got - want).abs()
-    limit = (LM_REL_TOL * want.abs() + LM_FLOOR_TOL * float(want.abs().max())
+    limit = (rel * want.abs() + floor * float(want.abs().max())
              ).clamp_min(torch.finfo(torch.float32).tiny)
     return float(diff.max()), float((diff / limit).max())
 
@@ -4527,7 +4567,8 @@ def lm_serve(arch: str, cfg, device, seed: int, *, phase: str = "lm",
     if not all(np.array_equal(again, greedy) for again in outputs["greedy"]):
         raise AssertionError(f"{arch}: greedy generate is not deterministic")
     # audio: one choice a codebook
-    last = model.apply(tokens)[0][:, -1].float().reshape(-1, cfg.vocab_size)
+    with torch.no_grad():  # evaluation only
+        last = model.apply(tokens)[0][:, -1].float().reshape(-1, cfg.vocab_size)
     if not bool(torch.isfinite(last).all()):
         raise AssertionError(f"{arch}: non-finite logits from Model.apply")
     # the chance that correct draws at the temperature all take the greedy
@@ -4658,7 +4699,8 @@ def lm_decode_check(arch: str, cfg, device, seed: int, *, phase: str = "lm",
         gen = torch.Generator(device=device).manual_seed(seed + 23)
         prefix = torch.randn((LM_CHECK_REQUESTS, n_pre, cfg.d_model), generator=gen,
                              device=device)
-    full = model.apply(tokens, prefix)[0][:, n_pre:]
+    with torch.no_grad():  # evaluation only
+        full = model.apply(tokens, prefix)[0][:, n_pre:]
     last, caches = model.prefill(tokens[:, :P], n_pre + P + n, prefix)
     errs = [float((last[:, 0] - full[:, P - 1]).abs().max())]
     for t in range(P, P + n):
@@ -4956,6 +4998,432 @@ def rmsnorm_timing(args, kw, label: str, lm: dict) -> dict:
     )
 
 
+# ---------------------------------------------------------------------------
+# Training: the train: phase
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"  # launch/train.py's default --arch, published config
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 6
+# AdamW's peak lr, 2 warmup steps, cosine to a tenth: a sweep at full width
+# on an NVIDIA H100 80GB HBM3 at 700 W fell 0.105 nats over 6 steps at 1e-3
+# and 0.055 at 3e-4 (both also on a held-out batch); launch/train.py's 3e-3
+# with its 5-step warmup, meant for its reduced model, rose 0.257
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 2
+TRAIN_RESUME_LAYERS = 2  # a state of all 28 layers is 27.5 GB of npz
+TRAIN_RESUME_STEPS = 4  # without a break, then half, restore, half
+TRAIN_SERVE_REQUESTS = 2
+TRAIN_SERVE_PROMPT = 64
+TRAIN_SERVE_NEW = 8
+TRAIN_REL_TOL = 2.0**-6  # a backward kernel against its plain version in f32
+TRAIN_FLOOR_TOL = 2.0**-10
+TRAIN_F32_TOL = 1e-4  # the same in f32 at a small shape
+TRAIN_F32_SHAPES = {"flash": (2, 4, 2, 256, 128), "rmsnorm": (512, 2048)}
+TRAIN_PHASE_LIMIT_S = 150.0
+TRAIN_RECORDED = ("rmsnorm_bwd", "flash_attention_bwd")
+TRAIN_KERNELS = ("rmsnorm", "flash_attention") + TRAIN_RECORDED
+TRAIN_SCAN_ARCHS = ("mamba2-130m", "recurrentgemma-9b")
+
+
+def train_opt_config(steps: int):
+    """The phase's AdamW schedule for ``steps`` steps."""
+    from repro_torch.train.optimizer import AdamWConfig
+
+    return AdamWConfig(lr_peak=TRAIN_LR, lr_min=TRAIN_LR / 10,
+                       warmup_steps=TRAIN_WARMUP, decay_steps=steps)
+
+
+def check_losses(label: str, losses: list) -> None:
+    """Every step's loss finite, and the last below the first."""
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: {label}: a non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: {label}: the loss did not fall: {losses}")
+
+
+def check_phase_time(phase: str, seconds: float, limit: float) -> None:
+    if seconds > limit:
+        raise AssertionError(f"{phase}: the phase took {seconds:.1f} s, over its "
+                             f"{limit:g} s")
+
+
+def bwd_plain(name: str, args, kwargs) -> list:
+    """The plain version (f32 autograd) of a backward kernel's call ->
+    [(output name, reference f32)]."""
+    from repro_torch.kernels import ref
+
+    if name == "rmsnorm_bwd":
+        x, w, dy = args
+        return list(zip(("dx", "dw"), ref.rmsnorm_bwd_ref(x, w, dy, **kwargs)))
+    return list(zip(("dq", "dk", "dv"), ref.attention_bwd_ref(*args, **kwargs)))
+
+
+def bwd_kernel_checks(seen: dict) -> dict:
+    """Each backward kernel against its plain version in f32, on the inputs
+    the main path gave it (``KernelInputs``): every element of every output
+    within TRAIN_REL_TOL of its reference value plus TRAIN_FLOOR_TOL of the
+    reference's largest, and the same limit must reject a zeroed output and
+    the reference rounded to LM_FAULT_BITS bits -> {kernel: max abs
+    error}."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst, bad = {}, []
+    for (name, label, shapes), (args, kwargs) in seen.items():
+        got = lm_kernel(name)(*args, **kwargs)
+        for (out, want), g in zip(bwd_plain(name, args, kwargs), got):
+            g = g.float()
+            err, ratio = lm_excess(g, want, TRAIN_REL_TOL, TRAIN_FLOOR_TOL)
+            _, zero_ratio = lm_excess(torch.zeros_like(want), want, TRAIN_REL_TOL,
+                                      TRAIN_FLOOR_TOL)
+            _, coarse_ratio = lm_excess(round_bits(want, LM_FAULT_BITS), want,
+                                        TRAIN_REL_TOL, TRAIN_FLOOR_TOL)
+            ok = bool(torch.isfinite(g).all()) and ratio <= 1.0
+            caught = zero_ratio > 1.0 and coarse_ratio > 1.0
+            worst[name] = max(worst.get(name, 0.0), err)
+            log(f"train: {name} {out} at {[list(sh) for sh, _ in shapes]} "
+                f"{shapes[0][1]} against its plain version in f32: max_abs_err "
+                f"{err:.3e} (reference max {float(want.abs().max()):.3e}); worst ratio "
+                f"to the limit {ratio:.3f} ({'ok' if ok else 'FAILS'}; limit "
+                f"{TRAIN_REL_TOL:g} |ref| + {TRAIN_FLOOR_TOL:g} max |ref|); planted "
+                f"faults: zeroed {zero_ratio:.3g}, rounded to {LM_FAULT_BITS} bits "
+                f"{coarse_ratio:.3g} ({'both rejected' if caught else 'NOT REJECTED'})")
+            if not ok or not caught:
+                bad.append(f"{name}/{out}{[list(sh) for sh, _ in shapes]}")
+        del got
+    if bad:
+        raise AssertionError(f"train: backward kernel checks failed: {bad}")
+    return worst
+
+
+def bwd_f32_checks(device, seed: int) -> None:
+    """Both backward kernels in f32 at a small shape against their plain
+    versions, within TRAIN_F32_TOL (rtol and atol)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 31)
+    B, Hq, Hkv, S, D = TRAIN_F32_SHAPES["flash"]
+    q, do = (torch.randn((B, Hq, S, D), generator=gen, device=device) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=device) for _ in range(2))
+    R, W = TRAIN_F32_SHAPES["rmsnorm"]
+    x, dy = (torch.randn((R, W), generator=gen, device=device) * 3 for _ in range(2))
+    w = torch.randn((W,), generator=gen, device=device) * 0.1
+    calls = {"flash_attention_bwd": ((q, k, v, do), {"scale": D**-0.5, "causal": True}),
+             "rmsnorm_bwd": ((x, w, dy), {"eps": 1e-6, "plus_one": True})}
+    for name, (args, kwargs) in calls.items():
+        got = lm_kernel(name)(*args, **kwargs)
+        for (out, want), g in zip(bwd_plain(name, args, kwargs), got):
+            err = float((g - want).abs().max())
+            log(f"train: {name} {out} f32 at {[list(a.shape) for a in args]}: max_abs_err "
+                f"{err:.3e} (reference max {float(want.abs().max()):.3e}; limit "
+                f"{TRAIN_F32_TOL:g} rtol and atol)")
+            torch.testing.assert_close(g, want, rtol=TRAIN_F32_TOL, atol=TRAIN_F32_TOL)
+
+
+def scan_gradients_refused(device, seed: int) -> None:
+    """A loss through ``ssd_scan`` or ``rglru_scan`` on the card must raise
+    the NotImplementedError naming ROADMAP item 13.6b: no plain-version
+    fallback stands in for a missing backward kernel."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch_at
+    from repro_torch.models.model import Model
+
+    for arch in TRAIN_SCAN_ARCHS:
+        cfg = get_config(arch).reduced()
+        model = Model(cfg, device=device).init(
+            torch.Generator(device=device).manual_seed(seed))
+        batch = synthetic_batch_at(0, seed=seed, batch_size=1, seq_len=32,
+                                   vocab_size=cfg.vocab_size, device=device)
+        try:
+            model.loss(batch)
+        except NotImplementedError as exc:
+            if "13.6b" not in str(exc):
+                raise
+            log(f"train: a gradient through {arch}'s scan on the card raises: {exc}")
+        else:
+            raise AssertionError(f"train: {arch}'s loss took a gradient through its "
+                                 "scan on the card without a backward kernel")
+        del model
+
+
+def train_full(batch_at, cfg, device, seed: int) -> dict:
+    """TRAIN_STEPS AdamW steps of ``cfg`` at full width through
+    ``Trainer.train_step`` on the walk batches ``batch_at(step)``, launch counts set to 0 just
+    before and read just after, the backward kernels' inputs recorded; then
+    one more step timed in parts (forward, backward, optimizer)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device)
+    trainer = Trainer(model, train_opt_config(TRAIN_STEPS),
+                      TrainerConfig(steps=TRAIN_STEPS, seed=seed))
+    state = trainer.init_state(seed)
+    sync()
+    n_params = sum(p.numel() for p in state["params"].values())
+    log(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}): {n_params} parameters, "
+        f"built and drawn in {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    losses, step_ms = [], []
+    with KernelInputs("train", TRAIN_RECORDED) as rec:
+        for step in range(TRAIN_STEPS):
+            batch = batch_at(step)
+            sync()
+            t1 = time.perf_counter()
+            state, metrics = trainer.train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            log(f"train: step {step + 1}: loss {losses[-1]:.6f}, {step_ms[-1]:.1f} ms")
+    launches = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(step_ms[1:] if len(step_ms) > 1 else step_ms)
+    log(f"train: launch counts {json.dumps(launches, sort_keys=True)}")
+    log(f"train: {TRAIN_STEPS} steps of {tokens} tokens: median {med:.1f} ms a step "
+        f"after the first ({step_ms[0]:.1f} ms), {tokens / med * 1e3:.1f} tokens/s; "
+        f"max_memory_allocated {peak} ({peak / 1e9:.2f} GB); {device_line()}")
+    check_losses(cfg.name, losses)
+    assert_launched("train", launches, TRAIN_KERNELS)
+    for key in ("flash_attention_fma", "flash_attention_copies",
+                "flash_attention_bwd_copies"):
+        if launches.get(key, 0):
+            raise AssertionError(f"train: {key} read {launches[key]}: bf16 attention at "
+                                 "head dim 128 must read the layer's layout uncopied")
+
+    # one more step, timed in parts
+    params = state["params"]
+    batch = batch_at(0)
+    sync()
+    t1 = time.perf_counter()
+    loss, _ = model.loss(batch)
+    sync()
+    t2 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    sync()
+    t3 = time.perf_counter()
+    master, _ = adamw_update(dict(zip(params, grads)), state["opt"], trainer.opt_cfg)
+    del grads
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(master[name])
+    sync()
+    t4 = time.perf_counter()
+    split = {"forward": (t2 - t1) * 1e3, "backward": (t3 - t2) * 1e3,
+             "optimizer": (t4 - t3) * 1e3}
+    log(f"train: one step in parts (ms): {json.dumps(split)}")
+    del model, trainer, state, params, master, loss
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "launches": launches, "peak": peak,
+            "seen": rec.seen, "split": split}
+
+
+def train_resume(batch_at, cfg, device, seed: int) -> None:
+    """TRAIN_RESUME_STEPS steps at TRAIN_RESUME_LAYERS layers (full width and
+    vocabulary) without a break, then half of them through ``Trainer.fit``,
+    a new trainer that restores the committed checkpoint and runs the rest:
+    the parameters and master weights must be equal bit for bit. Then
+    ``launch/serve.py``'s restore path serves TRAIN_SERVE_NEW greedy tokens
+    from that checkpoint; the first must be ``Model.apply``'s argmax."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.serve import restore_params
+    from repro_torch.models.lm_serve import Request, ServeEngine
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_RESUME_LAYERS)
+    opt_cfg = train_opt_config(TRAIN_RESUME_STEPS)
+    half = TRAIN_RESUME_STEPS // 2
+
+    def trainer_at(steps: int, ckpt_dir: str) -> Trainer:
+        return Trainer(Model(cut, device=device), opt_cfg, TrainerConfig(
+            steps=steps, ckpt_dir=ckpt_dir, ckpt_every=half, log_every=1,
+            keep_ckpts=1, seed=seed))
+
+    with tempfile.TemporaryDirectory(prefix="train_resume_") as tmp:
+        t0 = time.perf_counter()
+        tr = trainer_at(TRAIN_RESUME_STEPS, tmp)
+        state = tr.init_state(seed)
+        for step in range(TRAIN_RESUME_STEPS):
+            state, _ = tr.train_step(state, batch_at(step))
+        want = {k: {n: t.detach().cpu() for n, t in tree.items()} for k, tree in
+                (("params", state["params"]), ("master", state["opt"]["master"]))}
+        del tr, state
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        trainer_at(half, tmp).fit(None, batch_at)
+        t2 = time.perf_counter()
+        tr = trainer_at(TRAIN_RESUME_STEPS, tmp)
+        state, _ = tr.fit(None, batch_at)
+        t3 = time.perf_counter()
+        differ = [f"{k}/{n}" for k, tree in (("params", state["params"]),
+                                              ("master", state["opt"]["master"]))
+                  for n, t in tree.items() if not torch.equal(t.detach().cpu(), want[k][n])]
+        files = sorted(p.name for p in Path(tmp).iterdir())
+        nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        log(f"train: resume at {TRAIN_RESUME_LAYERS} of {cfg.n_layers} layers: "
+            f"{TRAIN_RESUME_STEPS} steps unbroken {t1 - t0:.3f} s; {half} steps and a "
+            f"checkpoint {t2 - t1:.3f} s; restore, {TRAIN_RESUME_STEPS - half} steps and "
+            f"a checkpoint {t3 - t2:.3f} s; checkpoint directory {files}, {nbytes} "
+            f"bytes; {len(differ)} of {2 * len(want['params'])} tensors differ")
+        if differ:
+            raise AssertionError(f"train: the resumed run differs from the unbroken "
+                                 f"one: {differ[:8]}")
+        del tr, state
+        torch.cuda.empty_cache()
+
+        model = Model(cut, device=device)
+        step = restore_params(model, tmp)
+        bad = [n for n, p in model.named_parameters()
+               if not torch.equal(p.detach().cpu(), want["params"][n])]
+        if step != TRAIN_RESUME_STEPS or bad:
+            raise AssertionError(f"train: serving restored step {step}, params "
+                                 f"differing: {bad[:8]}")
+    prompts = np.random.default_rng(seed + 33).integers(
+        2, cfg.vocab_size, (TRAIN_SERVE_REQUESTS, TRAIN_SERVE_PROMPT))
+    reqs = [Request(prompt=p, max_new_tokens=TRAIN_SERVE_NEW, rid=i)
+            for i, p in enumerate(prompts)]
+    outs = ServeEngine(model, max_seq=TRAIN_SERVE_PROMPT + TRAIN_SERVE_NEW,
+                       seed=seed).generate(reqs)
+    with torch.no_grad():
+        logits = model.apply(torch.from_numpy(prompts).to(device))[0][:, -1]
+    first = torch.argmax(logits.float(), dim=-1).cpu().numpy()
+    served = np.array([o.tokens[0] for o in outs])
+    log(f"train: served {TRAIN_SERVE_NEW} greedy tokens a request from the step "
+        f"{step} checkpoint: {[o.tokens.tolist() for o in outs]}; Model.apply's "
+        f"argmax {first.tolist()}")
+    if not np.array_equal(served, first):
+        raise AssertionError("train: the first served token is not Model.apply's argmax")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_train(net, device, seed: int, cfg=None) -> dict:
+    """Training on the card (``cfg``: TRAIN_ARCH's published config by
+    default): ``train_full`` on walk-corpus batches of the phase's network
+    (all its layers, TRAIN_BATCH x TRAIN_SEQ tokens), ``train_resume``, the
+    backward kernels against their plain versions on the recorded inputs
+    and in f32, and a gradient through the scans refused. Fails past
+    TRAIN_PHASE_LIMIT_S."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import WalkCorpus, WalkCorpusConfig
+
+    t0 = time.perf_counter()
+    cfg = cfg or get_config(TRAIN_ARCH)
+    corpus = WalkCorpus(net, WalkCorpusConfig(seed=seed, batch_size=TRAIN_BATCH,
+                                              seq_len=TRAIN_SEQ),
+                        vocab_size=cfg.vocab_size)
+    # drawn before the steps: a walk's host loop beside a step would hold
+    # the interpreter lock that the step's autograd Functions wait for
+    batches = []
+    for step in range(max(TRAIN_STEPS, TRAIN_RESUME_STEPS)):
+        t1 = time.perf_counter()
+        batches.append(corpus.batch_at(step))
+        sync()
+        log(f"train: walk-corpus batch {step} ({TRAIN_BATCH} walks of {TRAIN_SEQ} "
+            f"nodes over the {len(net.layer_names)} layers) drawn in "
+            f"{time.perf_counter() - t1:.3f} s")
+    full = train_full(batches.__getitem__, cfg, device, seed)
+    train_resume(batches.__getitem__, cfg, device, seed)
+    worst = bwd_kernel_checks(full["seen"])
+    bwd_f32_checks(device, seed)
+    scan_gradients_refused(device, seed)
+    seconds = time.perf_counter() - t0
+    log(f"train: worst backward errors {json.dumps(worst, sort_keys=True)}; phase "
+        f"{seconds:.3f} s (limit {TRAIN_PHASE_LIMIT_S:g} s); {device_line()}")
+    check_phase_time("train", seconds, TRAIN_PHASE_LIMIT_S)
+    return {**full, "worst": worst, "seconds": seconds}
+
+
+def train_timing(train: dict) -> list:
+    """The rmsnorm_bwd and flash_attention_bwd records at the heaviest shape
+    the train phase recorded (by elements of the first operand, then its
+    width): the kernel and the library call cold (CUDA events, the L2
+    flushed before each launch), the plain version by CUDA events. Bounds:
+    flash's operations, 2.5 times the forward's causal flops at the bf16
+    tensor-core peak; rmsnorm's bytes, x, w and dy read and dx written."""
+    import torch
+    import torch.nn.functional as F
+
+    heaviest = {}
+    for (name, label, _), (args, kwargs) in train["seen"].items():
+        size = (args[0].numel(), args[0].shape[-1])
+        if name not in heaviest or size > heaviest[name][0]:
+            heaviest[name] = (size, label, args, kwargs)
+    records = []
+    for name in TRAIN_RECORDED:
+        _, label, args, kw = heaviest[name]
+        kernel_fn = lm_kernel(name)
+        el = args[0].element_size()
+        if name == "flash_attention_bwd":
+            q, k, v, do = args
+            B, Hq, S, D = q.shape
+            qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=kw["causal"],
+                                                 scale=kw["scale"], enable_gqa=True)
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                out, (qr, kr, vr), do, retain_graph=True)
+            nbytes = el * 3 * (q.numel() + k.numel())  # q, dO, dq; k, v, dk, dv
+            ops_count = 2.5 * 4 * B * Hq * D * S * (S + 1) / 2
+            rate = BF16_TENSOR_OPS_PER_S
+            shape = (f"q [{B},{Hq},{S},{D}], kv [{B},{k.shape[1]},{S},{D}] {q.dtype}, "
+                     f"strides {q.stride()} ({label})")
+            replaces = ("none: no TPU kernel (the JAX package differentiates its plain "
+                        "path; forward src/repro/kernels/flash_attention.py:92)")
+        else:
+            x, w, dy = args
+            R, D = x.numel() // x.shape[-1], x.shape[-1]
+            xr = x.detach().requires_grad_(True)
+            w1 = ((w.float() + 1.0) if kw["plus_one"] else w.float()).to(x.dtype)
+            w1 = w1.requires_grad_(True)
+            out = F.rms_norm(xr, (D,), weight=w1, eps=kw["eps"])
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                out, (xr, w1), dy, retain_graph=True)
+            nbytes = el * 3 * x.numel() + 4 * D
+            ops_count = 8 * R * D
+            rate = SCALAR_OPS_PER_S
+            shape = f"[{R},{D}] {x.dtype}, cold ({label})"
+            replaces = ("none: no TPU kernel (the JAX package differentiates its plain "
+                        "path; forward src/repro/kernels/rmsnorm.py:33)")
+        ms = cold_ms(lambda: kernel_fn(*args, **kw), 10)
+        library_ms = cold_ms(library, 10)
+        plain_ms = cuda_ms(lambda: bwd_plain(name, args, kw), 2)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_count / rate * 1e3
+        rec = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{'rmsnorm' if name == 'rmsnorm_bwd' else 'flash_attention_bwd'}.cu",
+            "replaces": replaces, "launches": int(train["launches"].get(name, 0)),
+            "max_abs_err": train["worst"][name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "shape": shape,
+            "ms_from": "cuda events, cold: L2 flushed before each launch",
+        }
+        log(f"timing: {name} at {shape}: kernel {ms:.4f} ms cold, "
+            f"{ms / rec['bound_ms']:.2f}x its bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}: bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); plain "
+            f"{plain_ms:.4f} ms; library {library_ms:.4f} ms cold; {rec['launches']} "
+            f"launches in the train phase; {device_line(CLOCK_FIELDS)}")
+        records.append(check_readings(rec))
+        del out, library
+        torch.cuda.empty_cache()
+    return records
+
+
 def run() -> int:
     import torch
 
@@ -5016,14 +5484,16 @@ def run() -> int:
     sharded = phase_sharded(net, median_income, SEED, device)
     lm = phase_lm(device, SEED)
     families = phase_lm_families(device, SEED)
+    train = phase_train(net, device, SEED)
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
                            panel, traversal, sampling, lm, device)
-    for rec in records:  # the launch columns include the sharded phase's
-        rec["launches"] += sharded["launches"].get(rec["name"], 0)
-        rec["launches"] += families["launches"].get(rec["name"], 0)
-    log("timing: launches with the sharded and lm_families phases' added: " + ", ".join(
-        f"{r['name']} {r['launches']}" for r in records))
+    for rec in records:  # the launch columns include the later phases'
+        for later in (sharded, families, train):
+            rec["launches"] += later["launches"].get(rec["name"], 0)
+    log("timing: launches with the sharded, lm_families and train phases' added: "
+        + ", ".join(f"{r['name']} {r['launches']}" for r in records))
     records.append(rglru_timing(families))
+    records.extend(train_timing(train))
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

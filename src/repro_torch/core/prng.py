@@ -46,6 +46,7 @@ __all__ = [
     "random_bits",
     "randint",
     "uniform",
+    "normal",
     "categorical",
 ]
 
@@ -151,6 +152,19 @@ def uniform(k: Key, shape, device, minval: float = 0.0, maxval: float = 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# the low end of ``normal``'s uniform: the float32 after -1 towards 0
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal(k: Key, shape, device) -> torch.Tensor:
+    """``jax.random.normal(k, shape, float32)``: a uniform draw in
+    (-1, 1) from the bits, then ``sqrt(2) * erfinv``. The bits and the
+    uniform equal JAX's exactly; ``torch.erfinv`` may differ from XLA's in
+    the last bits."""
+    u = uniform(k, shape, device, minval=_NORMAL_LO, maxval=1.0)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2)))
 
 
 def categorical(k: Key, logits: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

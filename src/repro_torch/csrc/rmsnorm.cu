@@ -24,6 +24,22 @@
 // of it idle. Other widths, and rows whose base is not 16-byte aligned,
 // take rmsnorm_any_kernel: a warp per row and a second pass over the row,
 // from cache. 8 warps a block either way.
+//
+// Backward (rmsnorm_bwd_kernel, rmsnorm_dw_kernel). Replaces no TPU kernel:
+// the JAX package trains through its plain path (no custom_vjp on the
+// Pallas kernel), so this gradient is new. For y = x * r * (w + plus),
+// r = rsqrt(mean(x^2) + eps):
+//   dx = r * (dy * (w + plus)) - x * r^3 * mean(dy * (w + plus) * x)
+//   dw = sum over rows of dy * x * r
+// with f32 statistics; dx is rounded once to x's dtype, dw stays f32.
+// Bound on this card: memory (read x, w, dy; write dx). One warp per row,
+// two passes over the row (the second from cache): the first reduces the
+// sum of squares and the dot, the second writes dx and adds dy * x * r
+// into the warp's own f32 row of dw partials in shared memory (each lane
+// owns fixed columns, so no atomics). A fixed number of blocks walks the
+// rows in a fixed order; each block then sums its warps' partials in warp
+// order into one row of a [blocks, D] buffer, which rmsnorm_dw_kernel sums
+// over the blocks in block order. The result is the same run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -235,7 +251,182 @@ int launch(const void* xv, const float* w, void* outv, int64_t rows, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+// blocks of the backward: a constant, so the order of dw's sums depends
+// on the shape alone and not on the card
+constexpr int kBwdMaxBlocks = 528;
+constexpr int kBwdSmemBytes = 200 * 1024;  // the warps' dw partials
+
+// Rows of x, dy and dx are [rows, d] contiguous. kVecPath: d is a multiple
+// of the 16-byte vector and the bases are 16-byte aligned.
+template <typename T, bool kVecPath>
+__global__ void rmsnorm_bwd_kernel(const T* __restrict__ x,
+                                   const float* __restrict__ w,
+                                   const T* __restrict__ dy, T* __restrict__ dx,
+                                   float* __restrict__ partial, int64_t rows,
+                                   int d, float eps, float plus) {
+  extern __shared__ float4 smem4[];
+  float* acc_all = reinterpret_cast<float*>(smem4);  // [warps][d]
+  constexpr int kN = Vec<T>::kN;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < warps * d; i += blockDim.x) acc_all[i] = 0.f;
+  __syncthreads();
+  float* acc = acc_all + static_cast<int64_t>(warp) * d;
+  const float inv_d = 1.f / static_cast<float>(d);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * warps;
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * warps + warp; row < rows;
+       row += stride) {
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    T* dr = dx + row * d;
+    float ss = 0.f, dot = 0.f;
+    if constexpr (kVecPath) {
+      for (int i = lane * kN; i < d; i += 32 * kN) {
+        const uint4 xa = *reinterpret_cast<const uint4*>(xr + i);
+        const uint4 ga = *reinterpret_cast<const uint4*>(gr + i);
+        const T* xv = reinterpret_cast<const T*>(&xa);
+        const T* gv = reinterpret_cast<const T*>(&ga);
+#pragma unroll
+        for (int e = 0; e < kN; ++e) {
+          const float xf = to_f32(xv[e]);
+          ss += xf * xf;
+          dot += to_f32(gv[e]) * (__ldg(w + i + e) + plus) * xf;
+        }
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) {
+        const float xf = to_f32(xr[i]);
+        ss += xf * xf;
+        dot += to_f32(gr[i]) * (__ldg(w + i) + plus) * xf;
+      }
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    const float r = rsqrtf(ss * inv_d + eps);
+    const float c = r * r * r * dot * inv_d;
+    if constexpr (kVecPath) {
+      for (int i = lane * kN; i < d; i += 32 * kN) {
+        const uint4 xa = *reinterpret_cast<const uint4*>(xr + i);
+        const uint4 ga = *reinterpret_cast<const uint4*>(gr + i);
+        const T* xv = reinterpret_cast<const T*>(&xa);
+        const T* gv = reinterpret_cast<const T*>(&ga);
+        uint4 res;
+        T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+        for (int e = 0; e < kN; ++e) {
+          const float xf = to_f32(xv[e]);
+          const float gf = to_f32(gv[e]);
+          o[e] = from_f32<T>(r * (gf * (__ldg(w + i + e) + plus)) - c * xf);
+          acc[i + e] += gf * xf * r;
+        }
+        *reinterpret_cast<uint4*>(dr + i) = res;
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) {
+        const float xf = to_f32(xr[i]);
+        const float gf = to_f32(gr[i]);
+        dr[i] = from_f32<T>(r * (gf * (__ldg(w + i) + plus)) - c * xf);
+        acc[i] += gf * xf * r;
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < warps; ++k) s += acc_all[static_cast<int64_t>(k) * d + j];
+    partial[static_cast<int64_t>(blockIdx.x) * d + j] = s;
+  }
+}
+
+// dw[j] = sum over the blocks, in block order, of partial[b][j].
+__global__ void rmsnorm_dw_kernel(const float* __restrict__ partial,
+                                  float* __restrict__ dw, int blocks, int d) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d) return;
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += partial[static_cast<int64_t>(b) * d + j];
+  dw[j] = s;
+}
+
+template <typename T, bool kVecPath>
+int launch_bwd_rows(const T* x, const float* w, const T* dy, T* dx,
+                    float* partial, int64_t rows, int d, int warps, int blocks,
+                    float eps, float plus, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(warps) * d * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      rmsnorm_bwd_kernel<T, kVecPath>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_bwd_kernel<T, kVecPath><<<blocks, 32 * warps, smem, stream>>>(
+      x, w, dy, dx, partial, rows, d, eps, plus);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* xv, const float* w, const void* dyv, void* dxv,
+               float* partial, float* dw, int64_t rows, int d, int warps,
+               int blocks, float eps, float plus, cudaStream_t stream) {
+  constexpr int kN = Vec<T>::kN;
+  const T* x = static_cast<const T*>(xv);
+  const T* dy = static_cast<const T*>(dyv);
+  T* dx = static_cast<T*>(dxv);
+  const bool vec = d % kN == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  const int err = vec ? launch_bwd_rows<T, true>(x, w, dy, dx, partial, rows, d,
+                                                 warps, blocks, eps, plus, stream)
+                      : launch_bwd_rows<T, false>(x, w, dy, dx, partial, rows, d,
+                                                  warps, blocks, eps, plus, stream);
+  if (err != 0) return err;
+  rmsnorm_dw_kernel<<<(d + 255) / 256, 256, 0, stream>>>(partial, dw, blocks, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The backward's launch shape for rows of width d: the blocks (the rows of
+// the [blocks, d] f32 partial buffer the caller allocates) and the warps a
+// block. Returns 0, or cudaErrorInvalidValue for a width whose partials do
+// not fit in shared memory.
+extern "C" int rmsnorm_bwd_shape(int64_t rows, int d, int* blocks, int* warps) {
+  if (rows < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t fit = kBwdSmemBytes / (static_cast<int64_t>(d) * 4);
+  if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+  *warps = static_cast<int>(fit < kWarpsPerBlock ? fit : kWarpsPerBlock);
+  const int64_t need = (rows + *warps - 1) / *warps;
+  *blocks = static_cast<int>(need < kBwdMaxBlocks ? need : kBwdMaxBlocks);
+  return 0;
+}
+
+// x, dy, dx: [rows, d] contiguous, bf16 (dtype 1) or f32 (dtype 0); w:
+// f32[d]; partial: f32[blocks, d] scratch; dw: f32[d]. blocks and warps
+// as rmsnorm_bwd_shape gives them. Launches two kernels on `stream`;
+// returns cudaGetLastError().
+extern "C" int rmsnorm_bwd_launch(const void* x, const float* w, const void* dy,
+                                  void* dx, float* partial, float* dw,
+                                  int64_t rows, int d, int blocks, int warps,
+                                  float eps, int plus_one, int dtype,
+                                  cudaStream_t stream) {
+  if (rows < 1 || d < 1 || blocks < 1 || warps < 1 || warps > kWarpsPerBlock ||
+      static_cast<int64_t>(warps) * d * 4 > kBwdSmemBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float plus = plus_one ? 1.f : 0.f;
+  if (dtype == 1) {
+    return launch_bwd<__nv_bfloat16>(x, w, dy, dx, partial, dw, rows, d, warps,
+                                     blocks, eps, plus, stream);
+  }
+  if (dtype == 0) {
+    return launch_bwd<float>(x, w, dy, dx, partial, dw, rows, d, warps, blocks,
+                             eps, plus, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // x, out: [rows, d] contiguous, bf16 (dtype 1) or f32 (dtype 0); w: f32[d];
 // plus_one adds 1 to every weight. Launches on `stream`; returns

@@ -26,7 +26,10 @@ dims 32 and 256), ``"ssd_scan"`` (the bf16 tensor-core route) and
 ``"ssd_scan_fma"`` (the CUDA-core route: f32, and the shapes the first
 cannot take); operands flash's tensor-core route had to copy for TMA count
 under ``"flash_attention_copies"``; the RG-LRU recurrence counts under
-``"rglru_scan"``. The sampling path's threefry kernels
+``"rglru_scan"``. The gradients count under ``"rmsnorm_bwd"`` and
+``"flash_attention_bwd"`` (one a call, each call two and three launches),
+operands the flash backward had to copy under
+``"flash_attention_bwd_copies"``. The sampling path's threefry kernels
 count under ``"threefry_bits"``, ``"randint"`` and ``"csr_row_sample"``.
 
 No source needs a flag of its own: ``flash_attention.cu`` and
@@ -55,6 +58,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNEL_SOURCES = (
     "intersect", "segmented_union", "frontier",
     "rmsnorm", "flash_attention", "ssd_scan", "threefry", "rglru_scan",
+    "flash_attention_bwd",
 )
 #: the sources of the graph query kernels (what a serve engine launches)
 GRAPH_SOURCES = ("intersect", "segmented_union", "frontier", "threefry")

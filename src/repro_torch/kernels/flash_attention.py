@@ -19,6 +19,16 @@ The route is picked from the dtype and the head dim, explicitly:
 - f32, and bf16 with D in {32, 256}: ``flash_fma_kernel``, f32 FMAs on the
   CUDA cores on contiguous [B·H, S, D] copies. Launches count under
   ``"flash_attention_fma"``.
+
+``flash_attention_bwd_cuda`` is the gradient (``csrc/flash_attention_bwd.cu``:
+a pass for each query row's log-sum-exp and rowsum(dO * O), both from the
+recomputed scores, a dK/dV kernel and a dQ kernel, f32 FMAs, no atomics),
+new with no TPU counterpart (the JAX package differentiates its plain
+path). It needs no o. It reads q, k, v and dO at their strides where
+their rows are D contiguous elements on 16-byte boundaries, else copies
+the operand, counted under
+``launch_counts["flash_attention_bwd_copies"]``; launches count under
+``"flash_attention_bwd"``. Its plain version is ``ref.attention_bwd_ref``.
 """
 
 from __future__ import annotations
@@ -48,8 +58,13 @@ _WGMMA_ARGTYPES = [
 ]
 
 
-def _launcher(symbol: str, argtypes):
-    fn = getattr(library("flash_attention"), symbol)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [_I64P] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _launcher(symbol: str, argtypes, source: str = "flash_attention"):
+    fn = getattr(library(source), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -70,10 +85,13 @@ def _tma_ready(t: torch.Tensor) -> bool:
         for n, st in zip(t.shape[:-1], t.stride()[:-1])))
 
 
-def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+def _tma_operand(t: torch.Tensor, copies: str = "flash_attention_copies"
+                 ) -> torch.Tensor:
+    """``t`` as it lies where ``_tma_ready``, else a copy counted under
+    ``launch_counts[copies]``."""
     if _tma_ready(t):
         return t
-    launch_counts["flash_attention_copies"] += 1
+    launch_counts[copies] += 1
     return aligned16(t)
 
 
@@ -158,3 +176,58 @@ def _flash_fma(q, k, v, scale, causal):
     check_launch(err, "flash_attention_fma")
     launch_counts["flash_attention_fma"] += 1
     return out.view(B, Hq, S, D)
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    scale: float, causal: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention_cuda(q, k, v)`` for an output
+    gradient ``do`` -> (dq, dk, dv), contiguous, in q's dtype. q, do (B,
+    Hq, S, D) and k, v (B, Hkv, S, D) at any strides."""
+    ts = (("q", q), ("k", k), ("v", v), ("do", do))
+    for name, t in ts:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != q.dtype or t.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16 like q, got {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got shape {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError("q, k, v, do must lie on one device")
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"q heads {Hq} are not a multiple of kv heads {Hkv}")
+    if tuple(k.shape) != (B, Hkv, S, D) or tuple(v.shape) != (B, Hkv, S, D):
+        raise ValueError(
+            f"k {tuple(k.shape)} / v {tuple(v.shape)} must be {(B, Hkv, S, D)} "
+            f"for q {tuple(q.shape)}")
+    if tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"do {tuple(do.shape)} must be q's {tuple(q.shape)}")
+    dq = torch.empty((B, Hq, S, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Hkv, S, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if B == 0 or S == 0 or Hq == 0:
+        return dq, dk, dv
+    # the backward kernels read rows of D contiguous elements on 16-byte
+    # boundaries: the condition TMA sets
+    q, k, v, do = (_tma_operand(t, "flash_attention_bwd_copies") for _, t in ts)
+    lse = torch.empty((B * Hq, S), dtype=torch.float32, device=q.device)
+    dd = torch.empty_like(lse)
+    launch = _launcher("flash_attention_bwd_launch", _BWD_ARGTYPES,
+                       "flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), B, Hq, Hkv, S, D, _strides(q), _strides(k),
+            _strides(v), _strides(do), float(scale),
+            int(bool(causal)), float_code(q.dtype), stream,
+        )
+    check_launch(err, "flash_attention_bwd")
+    launch_counts["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -19,11 +19,11 @@ import torch
 
 from repro_torch.core.csr import SENTINEL, take_clip
 from . import ref
-from .flash_attention import flash_attention_cuda
+from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from .frontier import frontier_compact_cuda
 from .intersect import intersect_count_cuda, intersect_rows_cuda
 from .rglru_scan import rglru_scan_cuda
-from .rmsnorm import rmsnorm_cuda
+from .rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from .segmented_union import (
     MAX_FLAT,
     segmented_union_count_cuda,
@@ -310,8 +310,40 @@ def flash_attention(
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, scale=scale, causal=causal)
+        return _FlashAttention.apply(q, k, v, scale, causal)
     return ref.attention_heads_ref(q, k, v, scale=scale, causal=causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel with the hand-written backward. Saves q, k and v as
+    they lie (the layer's transposed views of [B, S, H, D]): the backward
+    kernels read them, and dO, at their strides, and recompute what they
+    need of o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.causal = scale, causal
+        return flash_attention_cuda(q, k, v, scale=scale, causal=causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, do.to(q.dtype), scale=ctx.scale, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def _no_backward_kernel(name: str, tensors) -> None:
+    """Refuses a CUDA call that autograd would have to differentiate: the
+    kernel has no backward yet, and the plain version never stands in for
+    it on the card."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: no backward kernel on the card yet (ROADMAP Queue 1 item "
+            f"13.6b); train this layer kind on the CPU, or call it under "
+            f"torch.no_grad()")
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +365,7 @@ def ssd_scan(
     ``ssd_scan.uses_tensor_cores``'s: bf16 at mamba2's widths on the tensor
     cores, f32 and other shapes on the CUDA cores."""
     if x.is_cuda:
+        _no_backward_kernel("ssd_scan", (x, dt, a_log, bmat, cmat))
         return ssd_scan_cuda(x, dt, a_log, bmat, cmat, chunk=chunk)
     return ref.ssd_scan_heads_ref(x, dt, a_log, bmat, cmat, chunk=chunk)
 
@@ -350,6 +383,7 @@ def rglru_scan(
     """The RG-LRU recurrence ``h_t = a_t h_(t-1) + b_t`` -> every h_t
     (B, S, dr) f32; on the CPU ``ref.rglru_scan_ref``."""
     if a.is_cuda:
+        _no_backward_kernel("rglru_scan", (a, b, h0))
         return rglru_scan_cuda(a, b, h0)
     return ref.rglru_scan_ref(a, b, h0)
 
@@ -368,5 +402,23 @@ def rmsnorm(
 ) -> torch.Tensor:
     """x·rsqrt(mean(x²)+eps)·(w [+1]) over the last axis, in x's dtype."""
     if x.is_cuda:
-        return rmsnorm_cuda(x, w, eps=eps, plus_one=plus_one)
+        return _RMSNorm.apply(x, w, eps, plus_one)
     return ref.rmsnorm_ref(x, w, eps=eps, plus_one=plus_one)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The RMSNorm kernel with the hand-written backward: dx in x's dtype,
+    dw in f32 (cast to w's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, plus_one):
+        ctx.save_for_backward(x, w)
+        ctx.eps, ctx.plus_one = eps, plus_one
+        return rmsnorm_cuda(x, w, eps=eps, plus_one=plus_one)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd_cuda(x, w, dy.to(x.dtype), eps=ctx.eps,
+                                  plus_one=ctx.plus_one)
+        return dx, dw.to(w.dtype), None, None

@@ -429,6 +429,34 @@ def rmsnorm_ref(
     return x * mult * scale
 
 
+def rmsnorm_bwd_ref(
+    x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-6,
+    plus_one: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``rmsnorm_ref`` in f32 by ``torch.autograd.grad``:
+    (dx, dw) for an output gradient ``dy``, both f32 (the plain version of
+    the backward kernel, which rounds dx to x's dtype)."""
+    with torch.enable_grad():
+        xf = x.detach().float().requires_grad_(True)
+        wf = w.detach().float().requires_grad_(True)
+        y = rmsnorm_ref(xf, wf, eps=eps, plus_one=plus_one)
+        dx, dw = torch.autograd.grad(y, (xf, wf), dy.float())
+    return dx, dw
+
+
+def attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    scale: float, causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``attention_heads_ref`` in f32 by
+    ``torch.autograd.grad``: (dq, dk, dv) for an output gradient ``do``, all
+    f32 (the plain version of the flash backward kernels)."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+        o = attention_heads_ref(qf, kf, vf, scale=scale, causal=causal)
+        return torch.autograd.grad(o, (qf, kf, vf), do.float())
+
+
 def rglru_scan_ref(
     a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
 ) -> torch.Tensor:

@@ -1,2 +1,2 @@
-"""repro_torch.models — the LM serving stack (config, layers, model,
-conversion from the JAX parameter tree, serving engine)."""
+"""repro_torch.models — the LM stack (config, layers, model and its loss,
+conversion to and from the JAX parameter tree, serving engine)."""

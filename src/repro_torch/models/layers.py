@@ -1,7 +1,8 @@
-"""Decoder building blocks of the LM serving path, as ``nn.Module``s.
+"""Decoder building blocks of the LM serving and training paths, as
+``nn.Module``s.
 
 Ported from ``src/repro/models/layers.py`` for every family the JAX
-package serves: RMSNorm, rope, grouped-query attention with qk-norm,
+package serves and trains: RMSNorm, rope, grouped-query attention with qk-norm,
 sliding windows (ring caches) and logit soft-capping, the SwiGLU/GeGLU
 MLP, the capacity-dispatched MoE with its aux terms, the Mamba2 block and
 the RG-LRU (Griffin) block. Parameter names and layouts are the JAX
@@ -20,6 +21,17 @@ are XLA ops in the reference.
 
 Caches are dicts of tensors, one per layer, updated in place (the JAX
 package returns new caches instead).
+
+Parameters are trainable. On the card the gradients of RMSNorm and of the
+flash attention run through their hand-written backward kernels
+(``ops.rmsnorm``, ``ops.flash_attention``); the Mamba2 and RG-LRU scans
+have none yet and refuse a gradient on the card (ROADMAP Queue 1 item
+13.6b). On the CPU autograd differentiates the plain versions. With
+gradients on, ``attention_blocked`` recomputes each chunk's scores in the
+backward pass, as the reference's ``jax.checkpoint`` of its chunk step
+does. The reference's ``grad_cast`` (an identity whose cotangent is cast
+to its primal's dtype, at q, k, v) has no counterpart: autograd already
+gives every tensor a gradient of its own dtype.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from .config import ModelConfig
@@ -39,8 +52,16 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
+
+
+def recompute(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass when
+    gradients are on (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``); a plain call otherwise."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 @torch.no_grad()
@@ -118,14 +139,11 @@ def attention_blocked(q, k, v, cfg: ModelConfig, *, chunk: int = ATTN_CHUNK):
     use_window = win is not None and win + chunk <= S
     kspan = win + chunk if use_window else S
     kf, vf = k.float(), v.float()
-    out = torch.empty_like(q)
     ar_q = torch.arange(chunk, device=q.device)
     ar_k = torch.arange(kspan, device=q.device)
-    for q0 in range(0, S, chunk):
-        start = min(max(q0 - win, 0), S - kspan) if use_window else 0
-        kc, vc = kf[:, start:start + kspan], vf[:, start:start + kspan]
-        q_pos, k_pos = q0 + ar_q, start + ar_k
-        qc = q[:, q0:q0 + chunk].float().reshape(B, chunk, Hkv, G, Dh)
+
+    def step(qc, kc, vc, q_pos, k_pos):
+        qc = qc.float().reshape(B, chunk, Hkv, G, Dh)
         s = torch.einsum("bcngd,bsnd->bngcs", qc, kc) * scale
         s = _softcap(s, cfg.attn_logit_softcap)
         mask = q_pos[:, None] >= k_pos[None, :]
@@ -135,8 +153,15 @@ def attention_blocked(q, k, v, cfg: ModelConfig, *, chunk: int = ATTN_CHUNK):
         e = torch.exp(s - s.amax(dim=-1, keepdim=True))
         o = torch.einsum("bngcs,bsnd->bcngd", e, vc)
         o = o / e.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
-        out[:, q0:q0 + chunk] = o.reshape(B, chunk, H, Dh).to(q.dtype)
-    return out
+        return o.reshape(B, chunk, H, Dh).to(q.dtype)
+
+    outs = []
+    for q0 in range(0, S, chunk):
+        start = min(max(q0 - win, 0), S - kspan) if use_window else 0
+        outs.append(recompute(
+            step, q[:, q0:q0 + chunk], kf[:, start:start + kspan],
+            vf[:, start:start + kspan], q0 + ar_q, start + ar_k))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def attention_decode(q, k_cache, v_cache, pos, cfg: ModelConfig) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The decoder ``Model``: full forward, prefill and decode.
+"""The decoder ``Model``: full forward, loss, prefill and decode.
 
 Ported from ``src/repro/models/model.py`` for every family. The JAX
 package stacks the layers of each ``block_pattern`` slot over the
@@ -22,8 +22,12 @@ place by ``prefill`` and ``decode_step``, which also return them.
 
 ``Model(cfg)`` places its parameters on the CUDA card and raises when
 there is none; pass ``device="cpu"`` to run on the CPU (the tests do).
-Training is not ported: the kernels have no backward, so the forward
-methods run under ``torch.no_grad``.
+Its parameters are trainable: ``apply`` and ``loss`` leave grad mode to
+the caller (the reference's full-sequence forward is its training
+forward), ``prefill`` and ``decode_step`` run under ``torch.no_grad``. With
+``cfg.remat == "full"`` and gradients on, each group of ``block_pattern``
+layers is recomputed in the backward pass (the reference's
+``jax.checkpoint`` of its scan body); the tail layers are not, as there.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.core.csr import resolve_device
 from .config import ModelConfig
 from .layers import (
     MLP,
+    recompute,
     RGLRU,
     Attention,
     Mamba,
@@ -84,7 +89,10 @@ class Block(nn.Module):
             self.ffn.init(generator)
 
     def forward(self, x, positions, cache):
-        """-> (x, aux): aux the MoE terms of this layer, or None."""
+        """-> (x, aux): aux the MoE terms of this layer, or None. The
+        reference wraps each residual join's branch in ``grad_cast`` (its
+        cotangent cast to the branch's dtype); autograd already gives the
+        branch a gradient of its own dtype, so the joins are plain adds."""
         mix_out, _ = self.mix(x, positions, cache)
         x = x + mix_out
         aux = None
@@ -154,31 +162,110 @@ class Model(nn.Module):
             return torch.einsum("bsd,kdv->bskv", x, self.head)
         return x @ (self.embed.T if self.head is None else self.head)
 
-    def _stack(self, x, positions, caches):
-        """All layers in order -> (x, aux), aux the MoE terms summed over
-        the layers (0 without MoE layers)."""
-        if caches is None:
-            caches = [None] * len(self.layers)
+    def _layers(self, x, positions, layers, caches):
+        """``layers`` in order -> (x, load-balance sum, z-loss sum)."""
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        aux = {"moe_load_balance": zero, "moe_z_loss": zero}
-        for layer, cache in zip(self.layers, caches):
+        lb = z = zero
+        for layer, cache in zip(layers, caches):
             x, layer_aux = layer(x, positions, cache)
             if layer_aux is not None:
-                aux = {k: v + layer_aux[k] for k, v in aux.items()}
-        return x, aux
+                lb = lb + layer_aux["moe_load_balance"]
+                z = z + layer_aux["moe_z_loss"]
+        return x, lb, z
+
+    def _stack(self, x, positions, caches):
+        """All layers in order -> (x, aux), aux the MoE terms summed over
+        the layers (0 without MoE layers). Without caches, under
+        ``remat == "full"``, each group of ``block_pattern`` layers is one
+        recomputed unit (the tail layers run plainly)."""
+        n = len(self.layers)
+        if caches is not None or self.cfg.remat != "full":
+            x, lb, z = self._layers(x, positions, self.layers, caches or [None] * n)
+            return x, {"moe_load_balance": lb, "moe_z_loss": z}
+        pat = len(self.cfg.block_pattern)
+        n_units = self.cfg.n_groups
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        lb = z = zero
+        for g in range(n_units):
+            group = self.layers[g * pat:(g + 1) * pat]
+            x, glb, gz = recompute(
+                lambda h, grp=group: self._layers(h, positions, grp, [None] * pat), x)
+            lb, z = lb + glb, z + gz
+        tail = self.layers[n_units * pat:]
+        x, tlb, tz = self._layers(x, positions, tail, [None] * len(tail))
+        return x, {"moe_load_balance": lb + tlb, "moe_z_loss": z + tz}
 
     # -- public API ------------------------------------------------------------
 
-    @torch.no_grad()
+    def _hidden(self, tokens: torch.Tensor, prefix_embeds=None):
+        """Embed + every layer -> (hidden (B, P + S, D), aux)."""
+        x = self._embed(tokens, prefix_embeds)
+        positions = torch.arange(x.shape[1], device=x.device)
+        return self._stack(x, positions, None)
+
     def apply(self, tokens: torch.Tensor, prefix_embeds=None):
         """Full-sequence forward. tokens (B, S) or, for audio, (B, S, K);
         ``prefix_embeds`` (B, P, D) patch embeddings of a VLM -> (logits
         (B, P + S, V) or (B, P + S, K, V), aux): aux holds the MoE terms
-        ``moe_load_balance`` and ``moe_z_loss`` summed over the layers."""
-        x = self._embed(tokens, prefix_embeds)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = self._stack(x, positions, None)
+        ``moe_load_balance`` and ``moe_z_loss`` summed over the layers.
+        Grad mode is the caller's: call it under ``torch.no_grad()`` to
+        only evaluate."""
+        x, aux = self._hidden(tokens, prefix_embeds)
         return self._logits(x), aux
+
+    #: tokens of logits materialized per cross-entropy chunk (the
+    #: reference's ``LOSS_CHUNK_TOKENS``)
+    LOSS_CHUNK_TOKENS = 16_384
+
+    def _ce_terms(self, x_c, targets_c, mask_c):
+        """Sum of the masked next-token NLL over one chunk, in f32; audio
+        takes the mean over the codebooks."""
+        logits_f = self._logits(x_c).float()
+        logz = torch.logsumexp(logits_f, dim=-1)
+        gold = torch.gather(logits_f, -1, targets_c[..., None].long())[..., 0]
+        nll = logz - gold
+        if self.cfg.n_codebooks:
+            nll = nll.mean(-1)
+        return (nll * mask_c).sum()
+
+    def loss(self, batch: dict):
+        """Next-token cross-entropy plus the MoE aux terms -> (total,
+        metrics), as the reference's ``Model.loss``. ``batch``: tokens,
+        targets, loss_mask[, prefix_embeds] (tensors or arrays). A VLM's
+        prefix positions take no loss. The sequence is cut into
+        ``B * S // LOSS_CHUNK_TOKENS`` chunks (lowered until the count
+        divides S), each chunk's logits recomputed in the backward pass, so
+        the (B, S, V) logits are never held whole. metrics: ``ce``,
+        ``moe_load_balance``, ``moe_z_loss``, ``tokens``."""
+        x, aux = self._hidden(batch["tokens"], batch.get("prefix_embeds"))
+        targets = torch.as_tensor(batch["targets"]).to(x.device)
+        mask = torch.as_tensor(batch["loss_mask"]).to(device=x.device,
+                                                      dtype=torch.float32)
+        if prefix := x.shape[1] - targets.shape[1]:
+            x = x[:, prefix:]  # vlm: no loss on patch positions
+        B, S = x.shape[:2]
+        n_chunks = max(1, (B * S) // max(self.LOSS_CHUNK_TOKENS, 1))
+        while n_chunks > 1 and S % n_chunks:
+            n_chunks -= 1
+        if n_chunks <= 1:
+            nll_sum = self._ce_terms(x, targets, mask)
+        else:
+            sc = S // n_chunks
+            nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            for c in range(n_chunks):
+                part = slice(c * sc, (c + 1) * sc)
+                nll_sum = nll_sum + recompute(
+                    self._ce_terms, x[:, part], targets[:, part], mask[:, part])
+        denom = torch.clamp_min(mask.sum(), 1.0)
+        ce = nll_sum / denom
+        total = ce + 0.01 * aux["moe_load_balance"] + 0.001 * aux["moe_z_loss"]
+        metrics = {
+            "ce": ce,
+            "moe_load_balance": aux["moe_load_balance"],
+            "moe_z_loss": aux["moe_z_loss"],
+            "tokens": mask.sum(),
+        }
+        return total, metrics
 
     def init_cache(self, batch: int, max_seq: int) -> list[dict]:
         dt = model_dtype(self.cfg)

@@ -1,0 +1,146 @@
+"""Atomic, resumable checkpoints in the JAX package's layout
+(``src/repro/train/checkpoint.py``), so a checkpoint crosses packages both
+ways:
+
+  <dir>/step_00001200/
+      arrays.npz        every leaf, keyed by its "/"-joined tree path
+      manifest.json     keys, step, data state, "format": "repro-ckpt/1"
+      COMMITTED         empty marker written LAST (the commit point)
+
+A state is a nested dict of tensors (the trainer converts the port's
+per-layer parameters to the JAX tree, groups stacked, with
+``models.convert.params_to_jax``). Writes go to a ``.tmp_*`` directory
+that ``os.replace`` moves into place; readers trust only directories with
+the marker, and ``_gc`` removes half-written ones.
+
+bf16 leaves are written as the reference writes them: numpy has no
+bfloat16, so their bytes go out as a raw 2-byte ``|V2`` array. The
+reference reads such a leaf back with ``astype``, which numpy refuses
+(ROADMAP Queue 3 fault 7: its bf16 checkpoints do not restore); here a
+``|V2`` leaf is read back by viewing its bytes as ``torch.bfloat16``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .optimizer import tree_leaves
+
+COMMIT_MARKER = "COMMITTED"
+FORMAT = "repro-ckpt/1"
+_RAW2 = np.dtype("V2")  # how a bfloat16 leaf lies in the file
+
+
+def _leaf_key(path: tuple) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_RAW2)
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    if a.dtype == _RAW2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def save_checkpoint(
+    ckpt_dir: str | Path,
+    step: int,
+    state: dict,
+    data_state: dict | None = None,
+    keep_last: int = 3,
+) -> Path:
+    """Writes ``state`` as step ``step`` and commits it -> its directory."""
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    final = ckpt_dir / f"step_{step:08d}"
+    arrays, keys = {}, []
+    for path, leaf in tree_leaves(state):
+        key = _leaf_key(path)
+        keys.append(key)
+        arrays[key] = _to_numpy(leaf)
+    manifest = {
+        "step": step,
+        "keys": keys,
+        "data_state": data_state or {},
+        "format": FORMAT,
+    }
+    tmp = Path(tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_"))
+    try:
+        np.savez(tmp / "arrays.npz", **arrays)
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        (tmp / COMMIT_MARKER).touch()
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)  # atomic on POSIX
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    _gc(ckpt_dir, keep_last)
+    return final
+
+
+def _gc(ckpt_dir: Path, keep_last: int) -> None:
+    steps = sorted(d for d in ckpt_dir.glob("step_*") if d.is_dir())
+    committed = [d for d in steps if (d / COMMIT_MARKER).exists()]
+    for d in committed[:-keep_last]:
+        shutil.rmtree(d, ignore_errors=True)
+    # half-written tmp dirs from preempted saves
+    for d in ckpt_dir.glob(".tmp_*"):
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
+    """The newest committed step directory under ``ckpt_dir``, or None."""
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    steps = sorted(d for d in ckpt_dir.glob("step_*") if d.is_dir())
+    for d in reversed(steps):
+        if (d / COMMIT_MARKER).exists():
+            return d
+    return None
+
+
+def restore_checkpoint(path: str | Path, state_template: dict, device=None
+                       ) -> tuple[dict, int, dict]:
+    """Reads the leaves ``state_template`` names (a nested dict of tensors,
+    meta tensors included: only shapes and dtypes are read) from a
+    committed checkpoint -> (state, step, data_state). Each leaf takes its
+    template's dtype and lies on ``device``, or on its template's device
+    when ``device`` is None. A missing leaf raises ``KeyError``, a shape
+    that differs ``ValueError``."""
+    path = Path(path)
+    if not (path / COMMIT_MARKER).exists():
+        raise ValueError(f"checkpoint {path} is not committed")
+    manifest = json.loads((path / "manifest.json").read_text())
+    state: dict = {}
+    with np.load(path / "arrays.npz") as z:
+        for p, leaf in tree_leaves(state_template):
+            key = _leaf_key(p)
+            if key not in z:
+                raise KeyError(f"checkpoint missing leaf {key!r}")
+            arr = z[key]
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f"shape mismatch for {key}: ckpt {arr.shape} vs {tuple(leaf.shape)}"
+                )
+            t = _from_numpy(arr).to(device=leaf.device if device is None else device,
+                                    dtype=leaf.dtype)
+            node = state
+            for k in p[:-1]:
+                node = node.setdefault(k, {})
+            node[p[-1]] = t
+    return state, int(manifest["step"]), manifest.get("data_state", {})

@@ -884,8 +884,9 @@ def test_model_on_cuda_matches_cpu(cuda_device, arch):
     tokens = torch.from_numpy(np.random.default_rng(1200).integers(  # seed 1200
         0, cfg.vocab_size, (2, 40)))
     before = dict(launch_counts)
-    lc, _ = cpu.apply(tokens)
-    lg, _ = gpu.apply(tokens)
+    with torch.no_grad():  # evaluation: the scans have no backward on the card
+        lc, _ = cpu.apply(tokens)
+        lg, _ = gpu.apply(tokens)
     # f32 throughout; kernels and cuBLAS sum in another order (1e-4, the
     # JAX package's own prefill/decode tolerance)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
@@ -933,8 +934,9 @@ def test_family_on_cuda_matches_cpu(cuda_device, arch):
     prefix = (torch.from_numpy(rng.standard_normal((2, n_pre, cfg.d_model)).astype(
         np.float32)) if n_pre else None)
     before = dict(launch_counts)
-    lc, aux_c = cpu.apply(tokens, prefix)
-    lg, aux_g = gpu.apply(tokens, prefix)
+    with torch.no_grad():  # evaluation: the scans have no backward on the card
+        lc, aux_c = cpu.apply(tokens, prefix)
+        lg, aux_g = gpu.apply(tokens, prefix)
     # f32 throughout; kernels and cuBLAS sum in another order (1e-4, the
     # JAX package's own prefill/decode tolerance)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
@@ -1114,3 +1116,190 @@ def test_store_and_cli_on_cuda_match_cpu(cuda_device, tmp_path):
     outs = {dev: [json.loads(o) for o in Session(mode="json", device=dev).run_script(script)]
             for dev in (cuda_device, "cpu")}
     assert outs[cuda_device] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels (the training path): rmsnorm and flash attention
+# ---------------------------------------------------------------------------
+
+# bf16 gradients against their plain versions in f32: each element within
+# 2^-6 of its reference value plus 2^-10 of the reference's largest (the
+# kernels round their inputs' products once to bf16 at the end, and flash
+# recomputes P from a bf16 o); f32 within 1e-4.
+BWD_REL, BWD_FLOOR, BWD_F32 = 2.0**-6, 2.0**-10, 1e-4
+
+
+def _within_bwd_limit(got, want, dtype, largest=None):
+    """``largest``: the magnitude the floor scales with, by default the
+    reference's own largest (a gradient that is exactly zero, as dq and dk
+    are with one key, takes its call's largest gradient instead)."""
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=BWD_F32, atol=BWD_F32)
+        return
+    largest = want.abs().max() if largest is None else largest
+    limit = BWD_REL * want.abs() + BWD_FLOOR * largest
+    excess = float(((got - want).abs() / limit.clamp_min(1e-30)).max())
+    assert excess <= 1.0, f"worst ratio to the limit {excess:.3f}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1, 128), (1000, 2048), (333, 768),
+                                    (4097, 128), (5, 96), (3, 7), (8192, 2048)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda_device, rows, d, dtype):
+    rng = np.random.default_rng(2300 + d)  # seed 2300+d
+    x = _randn(rng, (rows, d), dtype, cuda_device, 3.0).requires_grad_(True)
+    w = _randn(rng, (d,), torch.float32, cuda_device, 0.1).requires_grad_(True)
+    dy = _randn(rng, (rows, d), dtype, cuda_device)
+    before = dict(launch_counts)
+    ops.rmsnorm(x, w, eps=1e-6, plus_one=True).backward(dy)
+    assert launch_counts["rmsnorm_bwd"] == before.get("rmsnorm_bwd", 0) + 1
+    assert x.grad.dtype == dtype and w.grad.dtype == torch.float32
+    want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6, plus_one=True)
+    _within_bwd_limit(x.grad.float(), want_dx, dtype)
+    _within_bwd_limit(w.grad, want_dw, dtype)
+    # no atomics: a second call gives the same bits
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    dx2, dw2 = rmsnorm_bwd_cuda(x.detach(), w.detach(), dy, eps=1e-6, plus_one=True)
+    assert torch.equal(dx2, x.grad) and torch.equal(dw2, w.grad)
+
+
+def _flash_grads(q, k, v, do):
+    for t in (q, k, v):
+        t.grad = None
+    ops.flash_attention(q, k, v, causal=True).backward(do)
+    return q.grad, k.grad, v.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("S,Hq,Hkv,causal", [(1, 2, 1, True), (17, 2, 2, True),
+                                             (128, 4, 2, True), (200, 4, 1, True),
+                                             (256, 2, 2, False)])
+def test_flash_attention_backward_matches_plain(cuda_device, S, Hq, Hkv, causal, D,
+                                                dtype):
+    rng = np.random.default_rng(2400 + S + D)  # seed 2400+S+D
+    B = 2
+    q, k, v = (_randn(rng, (B, h, S, D), dtype, cuda_device).requires_grad_(True)
+               for h in (Hq, Hkv, Hkv))
+    do = _randn(rng, (B, Hq, S, D), dtype, cuda_device)
+    before = dict(launch_counts)
+    ops.flash_attention(q, k, v, causal=causal).backward(do)
+    assert launch_counts["flash_attention_bwd"] == before.get("flash_attention_bwd", 0) + 1
+    assert launch_counts["flash_attention_bwd_copies"] == before.get(
+        "flash_attention_bwd_copies", 0)
+    want = ref.attention_bwd_ref(q, k, v, do, scale=D**-0.5, causal=causal)
+    largest = max(float(w.abs().max()) for w in want)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert got.dtype == dtype
+        _within_bwd_limit(got.float(), w, dtype, largest)
+
+
+@pytest.mark.cuda
+def test_flash_backward_reads_the_layer_layout_and_repeats_bitwise(cuda_device):
+    rng = np.random.default_rng(2500)  # seed 2500
+    B, S, Hq, Hkv, D = 2, 300, 8, 4, 128
+    base = [_randn(rng, (B, S, h, D), torch.bfloat16, cuda_device).requires_grad_(True)
+            for h in (Hq, Hkv, Hkv)]
+    q, k, v = (t.transpose(1, 2) for t in base)
+    do = _randn(rng, (B, S, Hq, D), torch.bfloat16, cuda_device).transpose(1, 2)
+    before = dict(launch_counts)
+    o = ops.flash_attention(q, k, v, causal=True)
+    o.backward(do)
+    first = [t.grad.clone() for t in base]
+    assert launch_counts["flash_attention_copies"] == before.get("flash_attention_copies", 0)
+    assert launch_counts["flash_attention_bwd_copies"] == before.get(
+        "flash_attention_bwd_copies", 0)
+    for t in base:
+        t.grad = None
+    ops.flash_attention(q, k, v, causal=True).backward(do)
+    assert all(torch.equal(a, t.grad) for a, t in zip(first, base))
+    want = ref.attention_bwd_ref(q, k, v, do, scale=D**-0.5, causal=True)
+    for got, w in zip(first, want):
+        _within_bwd_limit(got.transpose(1, 2).float(), w, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_refuse_a_gradient_on_the_card(cuda_device):
+    a = torch.rand((1, 8, 16), device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="13.6b"):
+        ops.rglru_scan(a, a)
+    with torch.no_grad():
+        assert ops.rglru_scan(a, a).shape == a.shape
+    x = torch.zeros((1, 2, 32, 16), device=cuda_device, requires_grad=True)
+    dt = torch.zeros((1, 2, 32), device=cuda_device)
+    bc = torch.zeros((1, 32, 16), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="13.6b"):
+        ops.ssd_scan(x, dt, dt, bc, bc, chunk=16)
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_refuse_bad_operands(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    q = torch.zeros((1, 4, 16, 64), device=cuda_device)
+    kv = torch.zeros((1, 2, 16, 64), device=cuda_device)
+    kw = dict(scale=0.125, causal=True)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_cuda(q, kv, kv, q.bfloat16(), **kw)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, kv, kv, q[:, :, :8], **kw)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q.cpu(), kv, kv, q, **kw)
+    x = torch.zeros((8, 128), device=cuda_device)
+    w = torch.zeros(128, device=cuda_device)
+    with pytest.raises(ValueError):
+        rmsnorm_bwd_cuda(x, w, x[:4], eps=1e-6, plus_one=True)
+    with pytest.raises(ValueError):
+        rmsnorm_bwd_cuda(x, w, x.bfloat16(), eps=1e-6, plus_one=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_training_gradients_on_cuda_match_cpu(cuda_device, remat):
+    """A reduced qwen3 in f32: ``Model.loss`` and every parameter's gradient
+    on the card (through the backward kernels) against the CPU's plain
+    autograd (f32 throughout; kernels and cuBLAS sum in another order: 1e-4
+    of the largest), then one ``Trainer`` step on the card. Parameters
+    after a step are not compared with the CPU's: AdamW's first step turns
+    a 1e-9 difference in a near-zero gradient into a step of plus or minus
+    lr."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch_at
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-1.7b").reduced(remat=remat)
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = synthetic_batch_at(0, seed=7, batch_size=2, seq_len=64,
+                               vocab_size=cfg.vocab_size, device="cpu")
+    before = dict(launch_counts)
+    grads = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        loss, _ = model.loss(batch)
+        named = list(model.named_parameters())
+        gs = torch.autograd.grad(loss, [p for _, p in named])
+        grads[name] = (float(loss), {n: g.cpu() for (n, _), g in zip(named, gs)})
+    for key in ("flash_attention_bwd", "rmsnorm_bwd"):
+        assert launch_counts[key] > before.get(key, 0)
+    assert grads["gpu"][0] == pytest.approx(grads["cpu"][0], abs=1e-4)
+    largest = max(float(g.abs().max()) for g in grads["cpu"][1].values())
+    for n, g in grads["cpu"][1].items():
+        torch.testing.assert_close(grads["gpu"][1][n], g, rtol=1e-4, atol=1e-4 * largest,
+                                   msg=lambda m, n=n: f"{n}: {m}")
+    # one Trainer step on the card: finite, every parameter moved
+    tr = Trainer(gpu, AdamWConfig(lr_peak=1e-3, warmup_steps=1, decay_steps=4),
+                 TrainerConfig(steps=1))
+    old = {n: p.detach().clone() for n, p in gpu.named_parameters()}
+    state, metrics = tr.train_step(tr.state_of_model(), batch)
+    assert float(metrics["loss"]) == pytest.approx(grads["gpu"][0], abs=1e-6)
+    for n, p in state["params"].items():
+        assert bool(torch.isfinite(p).all()) and not torch.equal(p, old[n]), n

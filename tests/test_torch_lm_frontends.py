@@ -73,11 +73,13 @@ def test_vlm_apply_with_prefix_matches_jax(vlm):
     prefix = _prefix(11, jcfg, 2)  # seed 11
     assert prefix.shape == (2, 8, jcfg.d_model)
     want, _ = jmodel.apply(params, jnp.asarray(tokens), jnp.asarray(prefix))
-    got, _ = model.apply(torch.from_numpy(tokens), torch.from_numpy(prefix))
+    with torch.no_grad():
+        got, _ = model.apply(torch.from_numpy(tokens), torch.from_numpy(prefix))
     assert got.shape == (2, 8 + 24, jcfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     # the prefix is read: without it the token positions' logits change
-    plain, _ = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        plain, _ = model.apply(torch.from_numpy(tokens))
     assert float((plain - got[:, 8:]).abs().max()) > 1e-3
 
 
@@ -90,7 +92,8 @@ def test_vlm_prefill_with_prefix_and_offset_decode_match_jax(vlm):
     max_seq = n_pre + P + steps
     tokens = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, P + steps))  # seed 2
     prefix = _prefix(12, jcfg, 2)  # seed 12
-    full, _ = model.apply(torch.from_numpy(tokens), torch.from_numpy(prefix))
+    with torch.no_grad():
+        full, _ = model.apply(torch.from_numpy(tokens), torch.from_numpy(prefix))
     jlast, jcache = jmodel.prefill(params, jnp.asarray(tokens[:, :P]), max_seq,
                                    jnp.asarray(prefix))
     last, cache = model.prefill(torch.from_numpy(tokens[:, :P]), max_seq,
@@ -119,7 +122,8 @@ def test_audio_apply_logits_per_codebook_match_jax(audio):
     jcfg, jmodel, params, model = audio
     tokens = _audio_tokens(1, jcfg, 2, 32)  # seed 1
     want, _ = jmodel.apply(params, jnp.asarray(tokens))
-    got, _ = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        got, _ = model.apply(torch.from_numpy(tokens))
     assert got.shape == (2, 32, 4, jcfg.vocab_size) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
@@ -128,7 +132,8 @@ def test_audio_prefill_and_decode_match_jax(audio):
     jcfg, jmodel, params, model = audio
     P, steps, max_seq = 16, 8, 32
     tokens = _audio_tokens(2, jcfg, 2, P + steps)  # seed 2
-    full, _ = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        full, _ = model.apply(torch.from_numpy(tokens))
     jlast, jcache = jmodel.prefill(params, jnp.asarray(tokens[:, :P]), max_seq)
     last, cache = model.prefill(torch.from_numpy(tokens[:, :P]), max_seq)
     assert last.shape == (2, 1, 4, jcfg.vocab_size)

@@ -62,7 +62,8 @@ def test_apply_matches_jax(pair):
     case, jcfg, jmodel, params, model = pair
     tokens = _tokens(1, jcfg.vocab_size, 2, 64)  # seed 1
     want, _ = jmodel.apply(params, jnp.asarray(tokens))
-    got, _ = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        got, _ = model.apply(torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
@@ -79,7 +80,8 @@ def test_prefill_and_decode_match_jax(pair):
     case, jcfg, jmodel, params, model = pair
     prompt, steps, max_seq = STEPS[case]
     tokens = _tokens(2, jcfg.vocab_size, 2, prompt + steps)  # seed 2
-    full, _ = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        full, _ = model.apply(torch.from_numpy(tokens))
     jlast, jcache = jmodel.prefill(params, jnp.asarray(tokens[:, :prompt]), max_seq)
     last, cache = model.prefill(torch.from_numpy(tokens[:, :prompt]), max_seq)
     if jcfg.attn_window:
@@ -213,6 +215,6 @@ def test_rglru_init_draws_the_jax_distributions():
     want = jnp.log(jnp.expm1(jnp.linspace(0.3, 1.5, 128)))
     # linspace rounds differently in the two libraries: 1 ulp of its
     # values, 2.4e-7 after log(expm1(.)) where lam crosses 0
-    np.testing.assert_allclose(mix.lam.numpy(), np.asarray(want), rtol=1e-6,
+    np.testing.assert_allclose(mix.lam.detach().numpy(), np.asarray(want), rtol=1e-6,
                                atol=3e-7)
     assert float(mix.b_a.abs().max()) == 0.0 == float(mix.conv_b.abs().max())

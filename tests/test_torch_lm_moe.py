@@ -85,7 +85,8 @@ def test_apply_and_aux_match_jax(pair, capacity):
         params, jnp.asarray(tokens))
     model = _port(arch, state, **overrides)
     stats = _route_stats(model)
-    got, aux = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        got, aux = model.apply(torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     for k in ("moe_load_balance", "moe_z_loss"):
         np.testing.assert_allclose(float(aux[k]), float(jaux[k]), atol=ATOL, err_msg=k)
@@ -105,7 +106,8 @@ def test_multi_chunk_dispatch_matches_jax(pair, monkeypatch):
     want, jaux = JModel(jcfg).apply(params, jnp.asarray(tokens))
     model = _port(arch, state)
     stats = _route_stats(model)
-    got, aux = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        got, aux = model.apply(torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     for k in ("moe_load_balance", "moe_z_loss"):
         np.testing.assert_allclose(float(aux[k]), float(jaux[k]), atol=ATOL, err_msg=k)
@@ -136,7 +138,8 @@ def test_prefill_and_decode_match_jax(pair):
                                    err_msg=f"{arch} decode step at t={t}")
 
     model = _port(arch, state, moe_capacity_factor=4.0)
-    full, _ = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        full, _ = model.apply(torch.from_numpy(tokens))
     last, cache = model.prefill(torch.from_numpy(tokens[:, :prompt]), max_seq)
     np.testing.assert_allclose(last[:, 0].numpy(), full[:, prompt - 1].numpy(),
                                atol=ATOL)

@@ -70,7 +70,8 @@ def test_apply_matches_jax(pair, use_pallas):
     tokens = _tokens(1, jcfg.vocab_size, 2, SEQ[arch])  # seed 1
     want, _ = JModel(dataclasses.replace(jcfg, use_pallas=use_pallas)).apply(
         params, jnp.asarray(tokens))
-    got, aux = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        got, aux = model.apply(torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     assert float(aux["moe_load_balance"]) == 0.0
 
@@ -87,7 +88,8 @@ def test_prefill_and_decode_match_jax(pair):
     arch, jcfg, jmodel, params, model = pair
     prompt, steps, max_seq = PROMPT[arch], 8, 32
     tokens = _tokens(2, jcfg.vocab_size, 2, prompt + steps)  # seed 2
-    full, _ = model.apply(torch.from_numpy(tokens))
+    with torch.no_grad():
+        full, _ = model.apply(torch.from_numpy(tokens))
     jlast, jcache = jmodel.prefill(params, jnp.asarray(tokens[:, :prompt]), max_seq)
     last, cache = model.prefill(torch.from_numpy(tokens[:, :prompt]), max_seq)
     np.testing.assert_allclose(last.numpy(), np.asarray(jlast), atol=ATOL)
@@ -232,7 +234,7 @@ def test_init_draws_the_jax_distributions():
     mix = m.layers[0].mix
     want = jnp.log(jnp.linspace(1.0, 16.0, mcfg.ssm_heads, dtype=jnp.float32))
     # linspace and log round differently in the two libraries: 1 ulp
-    np.testing.assert_allclose(mix.a_log_p.numpy(), np.asarray(want), rtol=1e-6)
+    np.testing.assert_allclose(mix.a_log_p.detach().numpy(), np.asarray(want), rtol=1e-6)
     assert float(mix.d_skip.min()) == 1.0 == float(mix.d_skip.max())
     assert float(mix.conv_b.abs().max()) == 0.0 == float(mix.dt_bias.abs().max())
 
@@ -243,7 +245,7 @@ def test_params_from_jax_unstacks_every_group(pair):
     name = "in_proj" if arch.startswith("mamba") else "wq"
     for g in range(2):
         np.testing.assert_array_equal(
-            getattr(model.layers[g].mix, name).numpy(),
+            getattr(model.layers[g].mix, name).detach().numpy(),
             np.asarray(params["groups"]["slot0"]["mix"][name][g]))
 
 
@@ -255,7 +257,7 @@ def test_launch_serve_on_cpu(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert [line.split(":")[0] for line in lines] == ["request 0", "request 1"]
     assert all(len(eval(line.split(":")[1])) == 3 for line in lines)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="no committed checkpoint under"):
         main(["--device", "cpu", "--ckpt-dir", "/nonexistent"])
 
 
@@ -272,7 +274,9 @@ def test_serving_modules_import_neither_jax_nor_the_reference():
         "repro_torch.kernels.rglru_scan, repro_torch.launch.serve, "
         "repro_torch.configs.qwen3_1_7b, repro_torch.configs.llama4_scout_17b_a16e, "
         "repro_torch.configs.recurrentgemma_9b, repro_torch.configs.internvl2_26b, "
-        "repro_torch.configs.musicgen_large; "
+        "repro_torch.configs.musicgen_large, repro_torch.train.optimizer, "
+        "repro_torch.train.checkpoint, repro_torch.train.train_loop, "
+        "repro_torch.data.pipeline, repro_torch.launch.train; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -677,7 +677,9 @@ def test_serving_phase_rehearsed_on_the_cpu(serving_smoke, capsys):
     for key in smoke.SERVE_KERNELS:
         assert out["launches"][key] > 0, key
     text = capsys.readouterr().out
-    assert "800 served results, 0 errors; the 200 of the loop bit-identical" in text
+    n_loop = len(range(0, 800, smoke.SERVE_LOOP_STRIDE))
+    assert (f"800 served results, 0 errors; the {n_loop} of the loop bit-identical"
+            in text)
     assert "loop ms a request by kind: alters" in text
     assert "bit-identical to the plain paths" in text
     assert "800 wire results (JSON round trip) equal (a)'s" in text
@@ -743,6 +745,31 @@ def test_serving_wire_rejects_a_mutation_off_the_pump_thread(serving_smoke,
     monkeypatch.setattr(GraphServeEngine, "_mutate", on_the_caller)
     with pytest.raises(AssertionError, match="mutation ran on threads"):
         smoke.serving_wire(net, trace, values, "cpu (stand-in)", torch.device("cpu"))
+
+
+def test_wire_load_outlasts_a_run_of_torn_writes(smoke):
+    """One session whose response is torn 12 times running (more than the
+    8 attempts the load generator once allowed) still gets every result,
+    each torn ack replayed."""
+    from repro_torch.core import api
+    from repro_torch.serve import FaultPlan, run_request
+
+    slo = smoke.serve_slo()
+    net, median = slo._standalone_net(2_000, torch.device("cpu"))
+    trace = slo.build_serve_trace(net, 20, {"attr": "income", "op": "gt",
+                                            "value": median})
+    plan = FaultPlan({"write": {"kind": "torn", "frac": 0.5,
+                                "at": tuple(range(4, 16))}}, seed=17)
+    fe = api.servenet(net, port=0, fault_plan=plan)
+    try:
+        res = slo.run_open_loop(fe, trace, rate=200.0, n_threads=1,
+                                deadline_ms=2000.0)
+    finally:
+        fe.close()
+    assert res["errors"] == 0, res["error_kinds"]
+    assert res["torn_writes"] == 12 and res["idempotent_replays"] == 12
+    assert [got for _, got in res["outcomes"]] == [
+        smoke.wire_value(run_request(net, r)) for r in trace]
 
 
 @pytest.mark.parametrize("lost", [0, 1])
@@ -997,5 +1024,170 @@ def test_family_configs_cut_depth_only(smoke, capsys):
             full.d_model, full.n_heads, full.vocab_size, full.n_experts)
     assert "llama4-scout-17b-a16e: depth cut to 8 of 48 layers (all 48 take " \
            "215540224000 bytes in bf16, past the card's memory" in text
-    assert "internvl2-26b: depth cut to 24 of 48 layers (the phase's time" in text
+    assert "internvl2-26b: depth cut to 16 of 48 layers (the smoke's time" in text
     assert "recurrentgemma-9b: depth cut" not in text
+
+
+# ---------------------------------------------------------------------------
+# The train: phase
+# ---------------------------------------------------------------------------
+
+TRAIN_CUT = {"TRAIN_BATCH": 2, "TRAIN_SEQ": 32, "TRAIN_STEPS": 3,
+             "TRAIN_RESUME_STEPS": 4, "TRAIN_SERVE_PROMPT": 8, "TRAIN_SERVE_NEW": 3,
+             "TRAIN_F32_SHAPES": {"flash": (1, 2, 1, 40, 32), "rmsnorm": (16, 64)}}
+
+
+def _bwd_standin(name: str, fault: str = "none"):
+    """A stand-in for ``ops.<name>_cuda`` of a backward kernel: its plain
+    version (f32 autograd), each output rounded once to its kernel's dtype,
+    then the planted ``fault`` on the first output."""
+    def run(*args, **kwargs):
+        if name == "rmsnorm_bwd":
+            x, w, dy = args
+            outs = list(ref.rmsnorm_bwd_ref(x, w, dy, **kwargs))
+            outs[0] = outs[0].to(x.dtype)
+        else:
+            outs = [t.to(args[0].dtype) for t in ref.attention_bwd_ref(*args, **kwargs)]
+        if fault == "zeros":
+            outs[0] = torch.zeros_like(outs[0])
+        elif fault == "scaled":  # a dropped factor: the gradient doubled
+            outs[0] = outs[0] * 2
+        return tuple(outs)
+    return run
+
+
+def _fwd_standin(name: str):
+    def run(*args, **kwargs):
+        return _plain32(name, args, kwargs).to(args[0].dtype)
+    return run
+
+
+@pytest.fixture
+def train_smoke(smoke, monkeypatch):
+    """``chip_smoke`` with its train constants cut and its device probes
+    stubbed; ``ops.rmsnorm`` and ``ops.flash_attention`` run through their
+    autograd Functions on the CPU, the CUDA wrappers stood in with counting
+    plain versions (``KernelInputs`` records the backward ones), and the
+    scans refusing a gradient as they do on the card."""
+    for name, value in TRAIN_CUT.items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "sync", lambda: None)
+    monkeypatch.setattr(smoke, "device_line", lambda fields="": "cpu (stand-in)")
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "cold_ms", lambda fn, iters: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    for name in ("flash_attention", "rmsnorm"):
+        monkeypatch.setattr(ops, f"{name}_cuda", _counting(name, _fwd_standin(name)))
+        monkeypatch.setattr(ops, f"{name}_bwd_cuda",
+                            _counting(f"{name}_bwd", _bwd_standin(f"{name}_bwd")))
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, *, causal=True: (
+        ops._FlashAttention.apply(q, k, v, q.shape[-1] ** -0.5, causal)))
+    monkeypatch.setattr(ops, "rmsnorm", lambda x, w, *, eps, plus_one: (
+        ops._RMSNorm.apply(x, w, eps, plus_one)))
+    ssd, rglru = ops.ssd_scan, ops.rglru_scan
+
+    def ssd_on_card(x, dt, a_log, bmat, cmat, *, chunk=128):
+        ops._no_backward_kernel("ssd_scan", (x, dt, a_log, bmat, cmat))
+        return ssd(x, dt, a_log, bmat, cmat, chunk=chunk)
+
+    def rglru_on_card(a, b, h0=None):
+        ops._no_backward_kernel("rglru_scan", (a, b, h0))
+        return rglru(a, b, h0)
+
+    monkeypatch.setattr(ops, "ssd_scan", ssd_on_card)
+    monkeypatch.setattr(ops, "rglru_scan", rglru_on_card)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import demo_population_network
+
+    cfg = get_config("qwen3-1.7b").reduced(dtype="bfloat16", remat="full")
+    return smoke, cfg, demo_population_network(400, seed=0, device="cpu")
+
+
+def test_train_phase_rehearsed_on_the_cpu(train_smoke, capsys):
+    smoke, cfg, net = train_smoke
+    out = smoke.phase_train(net, torch.device("cpu"), 0, cfg)
+    text = capsys.readouterr().out
+    steps, L = smoke.TRAIN_STEPS, cfg.n_layers
+    # remat recomputes every group's forward in the backward pass: each
+    # layer's two norms (qk-norm: four) and its attention run twice a step
+    assert out["launches"]["flash_attention"] == 2 * L * steps
+    assert out["launches"]["flash_attention_bwd"] == L * steps
+    assert out["launches"]["rmsnorm_bwd"] == (4 * L + 1) * steps
+    assert len(out["losses"]) == steps and out["losses"][-1] < out["losses"][0]
+    assert set(out["worst"]) == {"rmsnorm_bwd", "flash_attention_bwd"}
+    assert "tensors differ" in text and "0 of" in text
+    assert "restored params from step 4" in text
+    assert "Model.apply's argmax" in text
+    for arch in smoke.TRAIN_SCAN_ARCHS:
+        assert f"a gradient through {arch}'s scan on the card raises" in text
+    assert "one step in parts (ms)" in text
+    records = smoke.train_timing(out)
+    assert [r["name"] for r in records] == ["rmsnorm_bwd", "flash_attention_bwd"]
+    flash = records[1]
+    B, Hq, S, D = smoke.TRAIN_BATCH, cfg.n_heads, smoke.TRAIN_SEQ, cfg.head_dim
+    ops_ms = 2.5 * 4 * B * Hq * D * S * (S + 1) / 2 / smoke.BF16_TENSOR_OPS_PER_S * 1e3
+    assert flash["bound_ms"] == pytest.approx(max(ops_ms, flash["bound_ms"]))
+    assert flash["bound_ms"] >= ops_ms and flash["library_ms"] is not None
+    assert records[0]["launches"] == out["launches"]["rmsnorm_bwd"]
+    assert {"route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"} <= set(flash)
+
+
+def _bwd_seen(name: str) -> dict:
+    """``KernelInputs``' record of one backward launch, seed 2600."""
+    rng = np.random.default_rng(2600)  # seed 2600
+    if name == "rmsnorm_bwd":
+        w = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(np.float32))
+        args = [_bf16(rng, (16, 64), 3.0), w, _bf16(rng, (16, 64))]
+        kwargs = dict(eps=1e-6, plus_one=True)
+    else:
+        args = [_bf16(rng, s) for s in ((1, 4, 40, 32), (1, 2, 40, 32), (1, 2, 40, 32),
+                                        (1, 4, 40, 32))]
+        kwargs = dict(scale=32**-0.5, causal=True)
+    shapes = tuple((tuple(a.shape), str(a.dtype)) for a in args)
+    return {(name, "train", shapes): (args, kwargs)}
+
+
+@pytest.mark.parametrize("name", ["rmsnorm_bwd", "flash_attention_bwd"])
+@pytest.mark.parametrize("fault", ["none", "zeros", "scaled"])
+def test_train_phase_backward_check_rejects_a_faulty_kernel(smoke, monkeypatch, name,
+                                                            fault):
+    """The train phase's backward check passes a kernel that rounds its
+    outputs once and rejects a zeroed or doubled gradient."""
+    monkeypatch.setattr(ops, f"{name}_cuda", _bwd_standin(name, fault))
+    if fault == "none":
+        assert set(smoke.bwd_kernel_checks(_bwd_seen(name))) == {name}
+        return
+    with pytest.raises(AssertionError, match="backward kernel checks failed"):
+        smoke.bwd_kernel_checks(_bwd_seen(name))
+
+
+def test_train_phase_refuses_a_scan_gradient_that_passes(train_smoke, monkeypatch):
+    smoke, cfg, _ = train_smoke
+    monkeypatch.setattr(ops, "rglru_scan", lambda a, b, h0=None: ref.rglru_scan_ref(a, b, h0))
+    with pytest.raises(AssertionError, match="without a backward kernel"):
+        smoke.scan_gradients_refused(torch.device("cpu"), 0)
+
+
+@pytest.mark.parametrize("losses", [[3.0, 2.5, float("nan")], [3.0, 3.1, 3.2],
+                                    [3.0, 2.0, 3.0]])
+def test_check_losses_refuses_a_non_finite_or_rising_loss(smoke, losses):
+    with pytest.raises(AssertionError, match="non-finite|did not fall"):
+        smoke.check_losses("x", losses)
+    smoke.check_losses("x", [3.0, 3.5, 2.9])
+
+
+def test_check_phase_time_refuses_a_phase_past_its_limit(smoke):
+    smoke.check_phase_time("train", smoke.TRAIN_PHASE_LIMIT_S, smoke.TRAIN_PHASE_LIMIT_S)
+    with pytest.raises(AssertionError, match="over its 150 s"):
+        smoke.check_phase_time("train", 150.1, smoke.TRAIN_PHASE_LIMIT_S)
+
+
+@pytest.mark.parametrize("name", ["rmsnorm_bwd", "flash_attention_bwd"])
+def test_check_readings_refuses_a_backward_time_under_its_bound(smoke, name):
+    rec = {"name": name, "ms": 0.5, "library_ms": 0.9, "bound_ms": 0.6}
+    with pytest.raises(AssertionError, match="under its bound"):
+        smoke.check_readings(rec)
+    smoke.check_readings({**rec, "ms": 0.6})
