@@ -218,7 +218,7 @@ fails (non-zero exit) if any phase fails:
               steps against ``Model.apply``. At most 150 s;
 16. train   — training on the card through ``repro_torch.train``:
               qwen3-1.7b at full width and depth (28 layers, bf16, remat by
-              layer), 6 AdamW steps of ``Trainer.train_step`` on walk-corpus
+              layer), 4 AdamW steps of ``Trainer.train_step`` on walk-corpus
               batches (``repro_torch.data.pipeline.WalkCorpus``) of this
               network, 4 walks of 2,048 nodes over its four layers, drawn
               before the steps; counts reset before and read after
@@ -236,9 +236,21 @@ fails (non-zero exit) if any phase fails:
               kernels against their plain versions (f32 autograd) on the
               inputs the main path gave them, each element within 2^-6 of its
               reference plus 2^-10 of the reference's largest (planted faults
-              rejected), and in f32 at a small shape within 1e-4; a loss
-              through ``ssd_scan`` (mamba2) or ``rglru_scan`` (recurrentgemma)
-              on the card must raise ``NotImplementedError``. At most 150 s;
+              rejected; ``rglru_scan_bwd`` also bit for bit equal to its
+              plain loop), and in f32 at a small shape within 1e-4. Before
+              the checks, the scan families (``train_scans``, its seconds
+              printed beside its 35 s budget): mamba2-130m (24 layers) and
+              recurrentgemma-9b cut to 5 of 38 layers (one (R, R, A) group
+              and the (R, R) tail; all 38 with AdamW's state pass the card's
+              memory, and 8 ran out of it in a step; its cross-entropy in
+              chunks of 2,048 tokens), full width, bf16, 4 AdamW steps each
+              of 4 x 2,048 synthetic tokens (``launch/train.py --data
+              synthetic``); loss
+              finite and falling, the forward and backward scan kernels
+              launched (``ssd_scan_bwd_states``, ``ssd_scan_bwd``;
+              ``rglru_scan_bwd``), the scans' plain versions called 0 times
+              in the steps, ms a step in parts, tokens/s, peak GB. At most
+              150 s;
 17. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
@@ -265,9 +277,14 @@ fails (non-zero exit) if any phase fails:
               with the library's backward (SDPA's, ``F.rms_norm``'s autograd)
               cold beside them; flash's bound is 2.5 times the forward's
               causal flops at the bf16 tensor-core peak, rmsnorm's the bytes
-              of x, w and dy read and dx written. The ``launches`` of each
-              record add the sharded, lm_families and train phases' counts
-              to its own phase's.
+              of x, w and dy read and dx written; ``ssd_scan_bwd`` and
+              ``rglru_scan_bwd`` with no library call (none computes either
+              gradient), the SSD's bound the larger of its bytes and 2.5
+              times the chunked products at the backward's own chunk at the
+              bf16 tensor-core peak, the RG-LRU's its bytes; each backward kernel launched
+              twice more on the same inputs, which must give the same bits.
+              The ``launches`` of each record add the sharded, lm_families
+              and train phases' counts to its own phase's.
 
 Its last lines are the ``kernels`` JSON record and then
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -5005,7 +5022,7 @@ def rmsnorm_timing(args, kw, label: str, lm: dict) -> dict:
 TRAIN_ARCH = "qwen3-1.7b"  # launch/train.py's default --arch, published config
 TRAIN_BATCH = 4
 TRAIN_SEQ = 2048
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4  # the resume check's 4 walk batches; each more costs 7-9 s
 # AdamW's peak lr, 2 warmup steps, cosine to a tenth: a sweep at full width
 # on an NVIDIA H100 80GB HBM3 at 700 W fell 0.105 nats over 6 steps at 1e-3
 # and 0.055 at 3e-4 (both also on a held-out batch); launch/train.py's 3e-3
@@ -5020,11 +5037,47 @@ TRAIN_SERVE_NEW = 8
 TRAIN_REL_TOL = 2.0**-6  # a backward kernel against its plain version in f32
 TRAIN_FLOOR_TOL = 2.0**-10
 TRAIN_F32_TOL = 1e-4  # the same in f32 at a small shape
-TRAIN_F32_SHAPES = {"flash": (2, 4, 2, 256, 128), "rmsnorm": (512, 2048)}
+# the SSD backward's f32 check adds this share of each gradient's largest to
+# TRAIN_F32_TOL of each element (ddt and da_log sum hundreds of terms of
+# either sign): on an H100 its worst errors were 1.4e-6 to 2.6e-6 of their
+# gradients' largest (readings in PERF.md)
+TRAIN_SSD_F32_FLOOR = 1e-5
+TRAIN_F32_SHAPES = {"flash": (2, 4, 2, 256, 128), "rmsnorm": (512, 2048),
+                    # S a multiple of neither the chunk (128) nor the
+                    # backward's (64); h0 given to the RG-LRU
+                    "ssd": (1, 3, 300, 64, 128, 128), "rglru": (2, 333, 1000)}
 TRAIN_PHASE_LIMIT_S = 150.0
 TRAIN_RECORDED = ("rmsnorm_bwd", "flash_attention_bwd")
 TRAIN_KERNELS = ("rmsnorm", "flash_attention") + TRAIN_RECORDED
+# train_scans: the two scan families, TRAIN_SCAN_STEPS AdamW steps of
+# TRAIN_BATCH x TRAIN_SEQ synthetic tokens each (launch/train.py --data
+# synthetic), the phase's schedule. recurrentgemma is cut to whole (R, R, A)
+# groups plus its (R, R) tail (TRAIN_SCAN_LAYERS): all 38 layers hold 9.0B
+# parameters, and weights, gradients and AdamW's f32 master and moments
+# (2 + 2 + 12 bytes each) come to 150 GB, past the card's 80 GB; and at 8
+# layers (2.83B parameters) a step ran out of it on the H100 (75 GB held when
+# the cross-entropy's (8,192, 256,000) f32 logits asked for 7.8 GiB more), so
+# 5: one group and the tail. Its cross-entropy goes in chunks of 2,048 tokens
+# (TRAIN_SCAN_LOSS_CHUNK, Model.LOSS_CHUNK_TOKENS, each chunk's logits
+# recomputed in the backward pass; the same function): whole, at 5 layers
+# the step peaked at 79.8 GB with a 1M-node network on the card, and the
+# smoke keeps its 10M-node network there (7 GB more at qwen3's peak).
 TRAIN_SCAN_ARCHS = ("mamba2-130m", "recurrentgemma-9b")
+TRAIN_SCAN_LAYERS = {"recurrentgemma-9b": 5}
+TRAIN_SCAN_CUT_WHY = ("at 8 layers (2.83B parameters) a step ran out of the card's "
+                      "memory: 75 GB held when the cross-entropy's f32 logits asked "
+                      "for 7.8 GiB more")
+TRAIN_SCAN_LOSS_CHUNK = {"recurrentgemma-9b": 2048}
+TRAIN_SCAN_STEPS = 4
+TRAIN_SCAN_BUDGET_S = 35.0  # the part's share of the phase, printed beside it
+TRAIN_SCAN_RECORDED = ("ssd_scan_bwd", "rglru_scan_bwd")
+TRAIN_SCAN_KERNELS = {
+    "mamba": ("rmsnorm", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd_states",
+              "ssd_scan_bwd"),
+    "rglru": ("rmsnorm", "rmsnorm_bwd", "rglru_scan", "rglru_scan_bwd"),
+}
+TRAIN_BITWISE = ("rglru_scan_bwd",)  # equal to its plain loop bit for bit
+TRAIN_BYTES_A_PARAM = 16  # bf16 weight and gradient, f32 master, mu and nu
 
 
 def train_opt_config(steps: int):
@@ -5050,13 +5103,24 @@ def check_phase_time(phase: str, seconds: float, limit: float) -> None:
 
 
 def bwd_plain(name: str, args, kwargs) -> list:
-    """The plain version (f32 autograd) of a backward kernel's call ->
-    [(output name, reference f32)]."""
+    """The plain version of a backward kernel's call -> [(output name,
+    reference f32)]: f32 autograd of the forward's plain version, or for
+    ``rglru_scan_bwd`` the plain loop its kernel must equal bit for bit
+    (autograd needs b, which the kernel does not take; the CPU tests hold
+    the loop against autograd). An output the call has not (dh0 without
+    h0) is left out."""
     from repro_torch.kernels import ref
 
     if name == "rmsnorm_bwd":
         x, w, dy = args
         return list(zip(("dx", "dw"), ref.rmsnorm_bwd_ref(x, w, dy, **kwargs)))
+    if name == "ssd_scan_bwd":
+        return list(zip(("dx", "ddt", "da_log", "dB", "dC"),
+                        ref.ssd_scan_bwd_ref(*args, **kwargs)))
+    if name == "rglru_scan_bwd":
+        return [(out, t) for out, t in zip(("da", "db", "dh0"),
+                                           ref.rglru_scan_bwd_loop(*args))
+                if t is not None]
     return list(zip(("dq", "dk", "dv"), ref.attention_bwd_ref(*args, **kwargs)))
 
 
@@ -5081,15 +5145,20 @@ def bwd_kernel_checks(seen: dict) -> dict:
             _, coarse_ratio = lm_excess(round_bits(want, LM_FAULT_BITS), want,
                                         TRAIN_REL_TOL, TRAIN_FLOOR_TOL)
             ok = bool(torch.isfinite(g).all()) and ratio <= 1.0
+            bitwise = ""
+            if name in TRAIN_BITWISE:
+                same = torch.equal(g, want)
+                ok = ok and same
+                bitwise = f"; bit-identical to its loop: {same}"
             caught = zero_ratio > 1.0 and coarse_ratio > 1.0
             worst[name] = max(worst.get(name, 0.0), err)
             log(f"train: {name} {out} at {[list(sh) for sh, _ in shapes]} "
                 f"{shapes[0][1]} against its plain version in f32: max_abs_err "
                 f"{err:.3e} (reference max {float(want.abs().max()):.3e}); worst ratio "
                 f"to the limit {ratio:.3f} ({'ok' if ok else 'FAILS'}; limit "
-                f"{TRAIN_REL_TOL:g} |ref| + {TRAIN_FLOOR_TOL:g} max |ref|); planted "
-                f"faults: zeroed {zero_ratio:.3g}, rounded to {LM_FAULT_BITS} bits "
-                f"{coarse_ratio:.3g} ({'both rejected' if caught else 'NOT REJECTED'})")
+                f"{TRAIN_REL_TOL:g} |ref| + {TRAIN_FLOOR_TOL:g} max |ref|){bitwise}; "
+                f"planted faults: zeroed {zero_ratio:.3g}, rounded to {LM_FAULT_BITS} "
+                f"bits {coarse_ratio:.3g} ({'both rejected' if caught else 'NOT REJECTED'})")
             if not ok or not caught:
                 bad.append(f"{name}/{out}{[list(sh) for sh, _ in shapes]}")
         del got
@@ -5099,9 +5168,15 @@ def bwd_kernel_checks(seen: dict) -> dict:
 
 
 def bwd_f32_checks(device, seed: int) -> None:
-    """Both backward kernels in f32 at a small shape against their plain
-    versions, within TRAIN_F32_TOL (rtol and atol)."""
+    """The backward kernels in f32 at a small shape against their plain
+    versions: flash and rmsnorm within TRAIN_F32_TOL (rtol and atol); the
+    SSD scan within TRAIN_F32_TOL of each element plus TRAIN_SSD_F32_FLOOR
+    of the gradient's largest (ddt and da_log sum hundreds of terms of either
+    sign), against f32 autograd; the RG-LRU scan, from a seeded h0, equal
+    to its loop bit for bit and within TRAIN_F32_TOL of f32 autograd."""
     import torch
+
+    from repro_torch.kernels import ref
 
     gen = torch.Generator(device=device).manual_seed(seed + 31)
     B, Hq, Hkv, S, D = TRAIN_F32_SHAPES["flash"]
@@ -5121,33 +5196,217 @@ def bwd_f32_checks(device, seed: int) -> None:
                 f"{TRAIN_F32_TOL:g} rtol and atol)")
             torch.testing.assert_close(g, want, rtol=TRAIN_F32_TOL, atol=TRAIN_F32_TOL)
 
+    B, H, S, P, N, chunk = TRAIN_F32_SHAPES["ssd"]
+    x, dy = (torch.randn((B, H, S, P), generator=gen, device=device) for _ in range(2))
+    dt = torch.rand((B, H, S), generator=gen, device=device) * 0.5 + 0.01
+    a_log = -dt * (torch.rand((1, H, 1), generator=gen, device=device) * 8 + 0.5)
+    bm, cm = (torch.randn((B, S, N), generator=gen, device=device) for _ in range(2))
+    args = (x, dt, a_log, bm, cm, dy)
+    got = lm_kernel("ssd_scan_bwd")(*args, chunk=chunk)
+    for (out, want), g in zip(bwd_plain("ssd_scan_bwd", args, {"chunk": chunk}), got):
+        top = float(want.abs().max())
+        err = float((g - want).abs().max())
+        log(f"train: ssd_scan_bwd {out} f32 at x {[B, H, S, P]}, N {N}, chunk {chunk}: "
+            f"max_abs_err {err:.3e} (reference max {top:.3e}, {err / top:.2e} of it; "
+            f"limit {TRAIN_F32_TOL:g} |ref| + {TRAIN_SSD_F32_FLOOR:g} max |ref|)")
+        torch.testing.assert_close(g, want, rtol=TRAIN_F32_TOL,
+                                   atol=TRAIN_SSD_F32_FLOOR * top)
 
-def scan_gradients_refused(device, seed: int) -> None:
-    """A loss through ``ssd_scan`` or ``rglru_scan`` on the card must raise
-    the NotImplementedError naming ROADMAP item 13.6b: no plain-version
-    fallback stands in for a missing backward kernel."""
+    B, S, dr = TRAIN_F32_SHAPES["rglru"]
+    a = torch.rand((B, S, dr), generator=gen, device=device) * 0.5 + 0.5
+    b, dh = (torch.randn((B, S, dr), generator=gen, device=device) for _ in range(2))
+    h0 = torch.randn((B, dr), generator=gen, device=device)
+    h = lm_kernel("rglru_scan")(a, b, h0)
+    got = lm_kernel("rglru_scan_bwd")(a, h, h0, dh)
+    loop = ref.rglru_scan_bwd_loop(a, h, h0, dh)
+    autograd = ref.rglru_scan_bwd_ref(a, b, h0, dh)
+    for out, g, lp, want in zip(("da", "db", "dh0"), got, loop, autograd):
+        same = torch.equal(g, lp)
+        err = float((g - want).abs().max())
+        log(f"train: rglru_scan_bwd {out} f32 at [{B},{S},{dr}] from a seeded h0: "
+            f"bit-identical to its loop: {same}; against f32 autograd max_abs_err "
+            f"{err:.3e} (reference max {float(want.abs().max()):.3e}; limit "
+            f"{TRAIN_F32_TOL:g} rtol and atol)")
+        if not same:
+            raise AssertionError(f"train: rglru_scan_bwd {out} differs from its loop")
+        torch.testing.assert_close(g, want, rtol=TRAIN_F32_TOL, atol=TRAIN_F32_TOL)
+
+
+class PlainScanCalls:
+    """Within the block, counts the calls of the scans' plain versions, the
+    CPU path of ``ops.ssd_scan`` and ``ops.rglru_scan``
+    (``ref.ssd_scan_heads_ref``, ``ref.rglru_scan_ref``): on the card they
+    must not run."""
+
+    NAMES = ("ssd_scan_heads_ref", "rglru_scan_ref")
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self._inner = {n: getattr(ref, n) for n in self.NAMES}
+
+        def counter(name, inner):
+            def run(*args, **kwargs):
+                self.counts[name] += 1
+                return inner(*args, **kwargs)
+            return run
+
+        for n, inner in self._inner.items():
+            setattr(ref, n, counter(n, inner))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+
+        for n, inner in self._inner.items():
+            setattr(ref, n, inner)
+
+
+def step_parts(model, trainer, state, batch) -> dict:
+    """One more AdamW step on ``batch``, timed in parts (ms): forward,
+    backward, optimizer."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import synthetic_batch_at
-    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import adamw_update
 
+    params = state["params"]
+    sync()
+    t1 = time.perf_counter()
+    loss, _ = model.loss(batch)
+    sync()
+    t2 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    sync()
+    t3 = time.perf_counter()
+    master, _ = adamw_update(dict(zip(params, grads)), state["opt"], trainer.opt_cfg)
+    del grads
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(master[name])
+    sync()
+    t4 = time.perf_counter()
+    return {"forward": (t2 - t1) * 1e3, "backward": (t3 - t2) * 1e3,
+            "optimizer": (t4 - t3) * 1e3}
+
+
+def scan_train_configs() -> dict:
+    """TRAIN_SCAN_ARCHS' published configurations, each cut to its
+    TRAIN_SCAN_LAYERS depth where it has one (the cut printed)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import param_count
+
+    configs = {}
     for arch in TRAIN_SCAN_ARCHS:
-        cfg = get_config(arch).reduced()
-        model = Model(cfg, device=device).init(
-            torch.Generator(device=device).manual_seed(seed))
-        batch = synthetic_batch_at(0, seed=seed, batch_size=1, seq_len=32,
-                                   vocab_size=cfg.vocab_size, device=device)
-        try:
-            model.loss(batch)
-        except NotImplementedError as exc:
-            if "13.6b" not in str(exc):
-                raise
-            log(f"train: a gradient through {arch}'s scan on the card raises: {exc}")
-        else:
-            raise AssertionError(f"train: {arch}'s loss took a gradient through its "
-                                 "scan on the card without a backward kernel")
-        del model
+        cfg = get_config(arch)
+        depth = TRAIN_SCAN_LAYERS.get(arch)
+        if depth is not None and depth != cfg.n_layers:
+            cut = dataclasses.replace(cfg, n_layers=depth).validate()
+            log(f"train: {arch}: depth cut to {depth} of {cfg.n_layers} layers, "
+                f"{(depth - len(cfg.tail_pattern)) // len(cfg.block_pattern)} "
+                f"{tuple(cfg.block_pattern)} groups and the {tuple(cfg.tail_pattern)} "
+                f"tail: all {cfg.n_layers} hold {param_count(cfg)} parameters, "
+                f"{TRAIN_BYTES_A_PARAM * param_count(cfg)} bytes with gradients and "
+                f"AdamW's f32 master and moments, past the card's {LM_CARD_BYTES:g}, "
+                f"and {TRAIN_SCAN_CUT_WHY}; {depth} hold {param_count(cut)} "
+                f"({TRAIN_BYTES_A_PARAM * param_count(cut)} bytes); widths and "
+                f"vocabulary as published")
+            cfg = cut
+        configs[arch] = cfg
+    return configs
+
+
+def train_scan_family(cfg, device, seed: int) -> dict:
+    """TRAIN_SCAN_STEPS AdamW steps of ``cfg`` through ``Trainer.train_step``
+    on ``synthetic_batch_at`` batches of TRAIN_BATCH x TRAIN_SEQ tokens,
+    launch counts set to 0 just before and read just after, the scans'
+    backward inputs recorded and their plain versions counted; then one
+    more step timed in parts."""
+    import torch
+
+    from repro_torch.data.pipeline import synthetic_batch_at
+    from repro_torch.kernels import build
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device)
+    if cfg.name in TRAIN_SCAN_LOSS_CHUNK:
+        model.LOSS_CHUNK_TOKENS = TRAIN_SCAN_LOSS_CHUNK[cfg.name]
+        log(f"train: {cfg.name}: the cross-entropy in chunks of "
+            f"{model.LOSS_CHUNK_TOKENS} tokens, each recomputed in the backward pass "
+            f"(whole, its f32 logits over a vocabulary of {cfg.vocab_size} took the "
+            f"step to 79.8 GB at 5 layers beside a 1M-node network)")
+    trainer = Trainer(model, train_opt_config(TRAIN_SCAN_STEPS),
+                      TrainerConfig(steps=TRAIN_SCAN_STEPS, seed=seed))
+    state = trainer.init_state(seed)
+    batches = [synthetic_batch_at(step, seed=seed, batch_size=TRAIN_BATCH,
+                                  seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size,
+                                  device=device)
+               for step in range(TRAIN_SCAN_STEPS)]
+    sync()
+    n_params = sum(p.numel() for p in state["params"].values())
+    log(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}): {n_params} parameters, "
+        f"built, drawn and {TRAIN_SCAN_STEPS} synthetic batches made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    losses, step_ms = [], []
+    with KernelInputs("train", TRAIN_SCAN_RECORDED) as rec, PlainScanCalls() as plain:
+        for step in range(TRAIN_SCAN_STEPS):
+            sync()
+            t1 = time.perf_counter()
+            state, metrics = trainer.train_step(state, batches[step])
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            log(f"train: {cfg.name} step {step + 1}: loss {losses[-1]:.6f}, "
+                f"{step_ms[-1]:.1f} ms")
+    launches = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(step_ms[1:] if len(step_ms) > 1 else step_ms)
+    log(f"train: {cfg.name} launch counts {json.dumps(launches, sort_keys=True)}; "
+        f"plain scan calls {json.dumps(plain.counts, sort_keys=True)}")
+    log(f"train: {cfg.name}: {TRAIN_SCAN_STEPS} steps of {tokens} tokens: median "
+        f"{med:.1f} ms a step after the first ({step_ms[0]:.1f} ms), "
+        f"{tokens / med * 1e3:.1f} tokens/s; max_memory_allocated {peak} "
+        f"({peak / 1e9:.2f} GB); {device_line()}")
+    check_losses(cfg.name, losses)
+    if any(plain.counts.values()):
+        raise AssertionError(f"train: {cfg.name}: a scan's plain version ran on the "
+                             f"card: {plain.counts}")
+    kinds = set(cfg.block_pattern) | set(cfg.tail_pattern)
+    assert_launched(f"train {cfg.name}", launches, sorted(
+        {k for kind in kinds & set(TRAIN_SCAN_KERNELS) for k in TRAIN_SCAN_KERNELS[kind]}))
+    split = step_parts(model, trainer, state, batches[0])
+    log(f"train: {cfg.name} one step in parts (ms): {json.dumps(split)}")
+    del model, trainer, state, batches
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "launches": launches, "peak": peak,
+            "seen": rec.seen, "split": split}
+
+
+def train_scans(device, seed: int, configs: dict | None = None) -> dict:
+    """Both scan families trained on the card (``train_scan_family``), each
+    at ``configs[arch]`` (``scan_train_configs()`` by default) -> their
+    runs, the launches summed and the recorded backward inputs."""
+    import collections
+
+    t0 = time.perf_counter()
+    configs = configs or scan_train_configs()
+    runs, launches, seen = {}, collections.Counter(), {}
+    for arch, cfg in configs.items():
+        runs[arch] = train_scan_family(cfg, device, seed)
+        launches.update(runs[arch]["launches"])
+        seen.update(runs[arch]["seen"])
+    seconds = time.perf_counter() - t0
+    log(f"train: train_scans: {', '.join(configs)} trained in {seconds:.3f} s "
+        f"(budget {TRAIN_SCAN_BUDGET_S:g} s)")
+    return {"runs": runs, "launches": dict(launches), "seen": seen,
+            "seconds": seconds}
 
 
 def train_full(batch_at, cfg, device, seed: int) -> dict:
@@ -5159,7 +5418,6 @@ def train_full(batch_at, cfg, device, seed: int) -> dict:
 
     from repro_torch.kernels import build
     from repro_torch.models.model import Model
-    from repro_torch.train.optimizer import adamw_update
     from repro_torch.train.train_loop import Trainer, TrainerConfig
 
     t0 = time.perf_counter()
@@ -5200,28 +5458,9 @@ def train_full(batch_at, cfg, device, seed: int) -> dict:
             raise AssertionError(f"train: {key} read {launches[key]}: bf16 attention at "
                                  "head dim 128 must read the layer's layout uncopied")
 
-    # one more step, timed in parts
-    params = state["params"]
-    batch = batch_at(0)
-    sync()
-    t1 = time.perf_counter()
-    loss, _ = model.loss(batch)
-    sync()
-    t2 = time.perf_counter()
-    grads = torch.autograd.grad(loss, list(params.values()))
-    sync()
-    t3 = time.perf_counter()
-    master, _ = adamw_update(dict(zip(params, grads)), state["opt"], trainer.opt_cfg)
-    del grads
-    with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(master[name])
-    sync()
-    t4 = time.perf_counter()
-    split = {"forward": (t2 - t1) * 1e3, "backward": (t3 - t2) * 1e3,
-             "optimizer": (t4 - t3) * 1e3}
+    split = step_parts(model, trainer, state, batch_at(0))
     log(f"train: one step in parts (ms): {json.dumps(split)}")
-    del model, trainer, state, params, master, loss
+    del model, trainer, state
     torch.cuda.empty_cache()
     return {"losses": losses, "step_ms": step_ms, "launches": launches, "peak": peak,
             "seen": rec.seen, "split": split}
@@ -5311,13 +5550,13 @@ def train_resume(batch_at, cfg, device, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train(net, device, seed: int, cfg=None) -> dict:
+def phase_train(net, device, seed: int, cfg=None, scan_configs=None) -> dict:
     """Training on the card (``cfg``: TRAIN_ARCH's published config by
     default): ``train_full`` on walk-corpus batches of the phase's network
     (all its layers, TRAIN_BATCH x TRAIN_SEQ tokens), ``train_resume``, the
-    backward kernels against their plain versions on the recorded inputs
-    and in f32, and a gradient through the scans refused. Fails past
-    TRAIN_PHASE_LIMIT_S."""
+    scan families (``train_scans`` at ``scan_configs``), the backward
+    kernels against their plain versions on the recorded inputs and in
+    f32. Fails past TRAIN_PHASE_LIMIT_S."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import WalkCorpus, WalkCorpusConfig
 
@@ -5338,36 +5577,52 @@ def phase_train(net, device, seed: int, cfg=None) -> dict:
             f"{time.perf_counter() - t1:.3f} s")
     full = train_full(batches.__getitem__, cfg, device, seed)
     train_resume(batches.__getitem__, cfg, device, seed)
-    worst = bwd_kernel_checks(full["seen"])
+    scans = train_scans(device, seed, scan_configs)
+    t1 = time.perf_counter()
+    worst = bwd_kernel_checks({**full["seen"], **scans["seen"]})
     bwd_f32_checks(device, seed)
-    scan_gradients_refused(device, seed)
     seconds = time.perf_counter() - t0
-    log(f"train: worst backward errors {json.dumps(worst, sort_keys=True)}; phase "
-        f"{seconds:.3f} s (limit {TRAIN_PHASE_LIMIT_S:g} s); {device_line()}")
+    log(f"train: worst backward errors {json.dumps(worst, sort_keys=True)}; checks "
+        f"{seconds - (t1 - t0):.3f} s; phase {seconds:.3f} s (limit "
+        f"{TRAIN_PHASE_LIMIT_S:g} s); {device_line()}")
     check_phase_time("train", seconds, TRAIN_PHASE_LIMIT_S)
-    return {**full, "worst": worst, "seconds": seconds}
+    return {**full, "worst": worst, "seconds": seconds, "scans": scans}
 
 
 def train_timing(train: dict) -> list:
-    """The rmsnorm_bwd and flash_attention_bwd records at the heaviest shape
-    the train phase recorded (by elements of the first operand, then its
-    width): the kernel and the library call cold (CUDA events, the L2
-    flushed before each launch), the plain version by CUDA events. Bounds:
-    flash's operations, 2.5 times the forward's causal flops at the bf16
-    tensor-core peak; rmsnorm's bytes, x, w and dy read and dx written."""
+    """The backward kernels' records at the heaviest shape the train phase
+    recorded (by elements of the first operand, then its width): the kernel
+    and the library call cold (CUDA events, the L2 flushed before each
+    launch), the plain version by CUDA events, and a second launch on the
+    same inputs that must give the same bits. Bounds: flash's operations,
+    2.5 times the forward's causal flops at the bf16 tensor-core peak;
+    rmsnorm's bytes, x, w and dy read and dx written; the SSD scan's larger
+    of its bytes (every operand read once, every gradient written once) and
+    2.5 times the chunked products at the chunk the backward runs
+    (``bwd_chunk``) at the bf16 tensor-core peak;
+    the RG-LRU's bytes, a, h, dh (and h0) read and da, db (and dh0)
+    written."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.ssd_scan import bwd_chunk, kernel_chunk
+
     heaviest = {}
-    for (name, label, _), (args, kwargs) in train["seen"].items():
+    seen = {**train["seen"], **train["scans"]["seen"]}
+    launches = collections.Counter(train["launches"])
+    launches.update(train["scans"]["launches"])
+    for (name, label, _), (args, kwargs) in seen.items():
         size = (args[0].numel(), args[0].shape[-1])
         if name not in heaviest or size > heaviest[name][0]:
             heaviest[name] = (size, label, args, kwargs)
     records = []
-    for name in TRAIN_RECORDED:
+    for name in TRAIN_RECORDED + TRAIN_SCAN_RECORDED:
         _, label, args, kw = heaviest[name]
         kernel_fn = lm_kernel(name)
         el = args[0].element_size()
+        library, source = None, name
+        replaces = ("none: no TPU kernel (the JAX package differentiates its plain "
+                    "path; forward {})")
         if name == "flash_attention_bwd":
             q, k, v, do = args
             B, Hq, S, D = q.shape
@@ -5381,9 +5636,8 @@ def train_timing(train: dict) -> list:
             rate = BF16_TENSOR_OPS_PER_S
             shape = (f"q [{B},{Hq},{S},{D}], kv [{B},{k.shape[1]},{S},{D}] {q.dtype}, "
                      f"strides {q.stride()} ({label})")
-            replaces = ("none: no TPU kernel (the JAX package differentiates its plain "
-                        "path; forward src/repro/kernels/flash_attention.py:92)")
-        else:
+            replaces = replaces.format("src/repro/kernels/flash_attention.py:92")
+        elif name == "rmsnorm_bwd":
             x, w, dy = args
             R, D = x.numel() // x.shape[-1], x.shape[-1]
             xr = x.detach().requires_grad_(True)
@@ -5396,32 +5650,89 @@ def train_timing(train: dict) -> list:
             ops_count = 8 * R * D
             rate = SCALAR_OPS_PER_S
             shape = f"[{R},{D}] {x.dtype}, cold ({label})"
-            replaces = ("none: no TPU kernel (the JAX package differentiates its plain "
-                        "path; forward src/repro/kernels/rmsnorm.py:33)")
+            replaces = replaces.format("src/repro/kernels/rmsnorm.py:33")
+            source = "rmsnorm"
+        elif name == "ssd_scan_bwd":
+            x, dt, a_log, bm, cm, dy = args
+            B, H, S, P = x.shape
+            N = bm.shape[-1]
+            Q = bwd_chunk(kw["chunk"], S, N, P)
+            tri = Q * (Q + 1) / 2
+            ops_count = 2.5 * B * H * -(-S // Q) * 2 * (tri * N + tri * P + 2 * Q * N * P)
+            rate = BF16_TENSOR_OPS_PER_S
+            # x, dy, dx; dt, a_log, ddt, da_log; B, C, dB, dC
+            nbytes = 3 * el * x.numel() + 16 * dt.numel() + 4 * el * bm.numel()
+            shape = (f"x [{B},{H},{S},{P}], B/C [{B},{S},{N}] {x.dtype}, the backward's "
+                     f"chunk {Q} (the forward's {kernel_chunk(kw['chunk'], S)}), cold "
+                     f"({label})")
+            replaces = replaces.format("src/repro/kernels/ssd_scan.py:93")
+        else:
+            a, h, h0, dh = args
+            B, S, dr = a.shape
+            nbytes = 4 * 5 * a.numel() + (0 if h0 is None else 8 * h0.numel())
+            ops_count = 3 * a.numel()
+            rate = SCALAR_OPS_PER_S
+            shape = (f"a, h, dh [{B},{S},{dr}] float32, h0 "
+                     f"{'none' if h0 is None else list(h0.shape)}, cold ({label})")
+            replaces = ("none: no TPU kernel (the JAX package differentiates "
+                        "jax.lax.associative_scan, src/repro/models/layers.py:689)")
+            source = "rglru_scan"
+        first = kernel_fn(*args, **kw)
+        second = kernel_fn(*args, **kw)
+        same = all(f is None or torch.equal(f, g) for f, g in zip(first, second))
+        del first, second
+        if not same:
+            raise AssertionError(f"timing: {name}: a second launch on the same inputs "
+                                 "gave other bits")
         ms = cold_ms(lambda: kernel_fn(*args, **kw), 10)
-        library_ms = cold_ms(library, 10)
+        if name == "ssd_scan_bwd":
+            ssd_bwd_split(lambda: kernel_fn(*args, **kw))
+        library_ms = None if library is None else cold_ms(library, 10)
         plain_ms = cuda_ms(lambda: bwd_plain(name, args, kw), 2)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops_count / rate * 1e3
         rec = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{'rmsnorm' if name == 'rmsnorm_bwd' else 'flash_attention_bwd'}.cu",
-            "replaces": replaces, "launches": int(train["launches"].get(name, 0)),
+            "source": f"src/repro_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": int(launches.get(name, 0)),
             "max_abs_err": train["worst"][name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "shape": shape,
             "ms_from": "cuda events, cold: L2 flushed before each launch",
         }
+        lib = ("no library call (no torch call computes this gradient)"
+               if library_ms is None else f"library {library_ms:.4f} ms cold")
         log(f"timing: {name} at {shape}: kernel {ms:.4f} ms cold, "
             f"{ms / rec['bound_ms']:.2f}x its bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}: bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); plain "
-            f"{plain_ms:.4f} ms; library {library_ms:.4f} ms cold; {rec['launches']} "
-            f"launches in the train phase; {device_line(CLOCK_FIELDS)}")
+            f"{plain_ms:.4f} ms; {lib}; a second launch bit-identical; "
+            f"{rec['launches']} launches in the train phase; {device_line(CLOCK_FIELDS)}")
         records.append(check_readings(rec))
-        del out, library
+        del library
         torch.cuda.empty_cache()
     return records
+
+
+def ssd_bwd_split(call) -> None:
+    """Prints the device time of the SSD backward's two kernels apart (the
+    profiler, 3 calls after a warm-up), or "not measured" where the window
+    lost them."""
+    try:
+        acts = device_activity(call, 3)
+    except ProfilerLostEvents:
+        log("timing: ssd_scan_bwd kernels apart: not measured (profiler lost the "
+            "window)")
+        return
+    parts = {k: [0, 0.0] for k in ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel")}
+    for act, (n, us) in acts.items():
+        for k, tally in parts.items():
+            if k in act:
+                tally[0] += n
+                tally[1] += us
+    log("timing: ssd_scan_bwd kernels apart (profiler, warm): " + ", ".join(
+        f"{k} {us / max(n, 1) / 1e3:.4f} ms a call ({n} events)"
+        for k, (n, us) in parts.items()))
 
 
 def run() -> int:
@@ -5488,11 +5799,12 @@ def run() -> int:
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
                            panel, traversal, sampling, lm, device)
     for rec in records:  # the launch columns include the later phases'
-        for later in (sharded, families, train):
+        for later in (sharded, families, train, train["scans"]):
             rec["launches"] += later["launches"].get(rec["name"], 0)
+    records.append(rglru_timing(families))
+    records[-1]["launches"] += train["scans"]["launches"].get("rglru_scan", 0)
     log("timing: launches with the sharded, lm_families and train phases' added: "
         + ", ".join(f"{r['name']} {r['launches']}" for r in records))
-    records.append(rglru_timing(families))
     records.extend(train_timing(train))
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)

@@ -29,7 +29,10 @@ under ``"flash_attention_copies"``; the RG-LRU recurrence counts under
 ``"rglru_scan"``. The gradients count under ``"rmsnorm_bwd"`` and
 ``"flash_attention_bwd"`` (one a call, each call two and three launches),
 operands the flash backward had to copy under
-``"flash_attention_bwd_copies"``. The sampling path's threefry kernels
+``"flash_attention_bwd_copies"``; the SSD scan's under
+``"ssd_scan_bwd_states"`` and ``"ssd_scan_bwd"`` (its two kernels, one
+each a call), operands it had to copy under ``"ssd_scan_bwd_copies"``;
+the RG-LRU scan's under ``"rglru_scan_bwd"``. The sampling path's threefry kernels
 count under ``"threefry_bits"``, ``"randint"`` and ``"csr_row_sample"``.
 
 No source needs a flag of its own: ``flash_attention.cu`` and
@@ -58,7 +61,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNEL_SOURCES = (
     "intersect", "segmented_union", "frontier",
     "rmsnorm", "flash_attention", "ssd_scan", "threefry", "rglru_scan",
-    "flash_attention_bwd",
+    "flash_attention_bwd", "ssd_scan_bwd",
 )
 #: the sources of the graph query kernels (what a serve engine launches)
 GRAPH_SOURCES = ("intersect", "segmented_union", "frontier", "threefry")

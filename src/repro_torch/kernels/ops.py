@@ -22,7 +22,7 @@ from . import ref
 from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from .frontier import frontier_compact_cuda
 from .intersect import intersect_count_cuda, intersect_rows_cuda
-from .rglru_scan import rglru_scan_cuda
+from .rglru_scan import rglru_scan_bwd_cuda, rglru_scan_cuda
 from .rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from .segmented_union import (
     MAX_FLAT,
@@ -32,7 +32,7 @@ from .segmented_union import (
     union_merge_cuda,
     union_tiles_cuda,
 )
-from .ssd_scan import ssd_scan_cuda
+from .ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from .threefry import csr_row_sample_cuda, randint_cuda, threefry_bits_cuda
 
 _SENT = int(SENTINEL)
@@ -334,18 +334,6 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _no_backward_kernel(name: str, tensors) -> None:
-    """Refuses a CUDA call that autograd would have to differentiate: the
-    kernel has no backward yet, and the plain version never stands in for
-    it on the card."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: no backward kernel on the card yet (ROADMAP Queue 1 item "
-            f"13.6b); train this layer kind on the CPU, or call it under "
-            f"torch.no_grad()")
-
-
 # ---------------------------------------------------------------------------
 # Mamba2 SSD scan
 # ---------------------------------------------------------------------------
@@ -361,13 +349,32 @@ def ssd_scan(
     chunk: int = 128,
 ) -> torch.Tensor:
     """Mamba2 SSD scan -> (B, H, S, P) in x's dtype; on the CPU
-    ``ref.ssd_scan_heads_ref``. On the card the route is
-    ``ssd_scan.uses_tensor_cores``'s: bf16 at mamba2's widths on the tensor
-    cores, f32 and other shapes on the CUDA cores."""
+    ``ref.ssd_scan_heads_ref`` (autograd differentiates it). On the card the
+    route is ``ssd_scan.uses_tensor_cores``'s: bf16 at mamba2's widths on
+    the tensor cores, f32 and other shapes on the CUDA cores; the gradient
+    is the backward kernels'."""
     if x.is_cuda:
-        _no_backward_kernel("ssd_scan", (x, dt, a_log, bmat, cmat))
-        return ssd_scan_cuda(x, dt, a_log, bmat, cmat, chunk=chunk)
+        return _SSDScan.apply(x, dt, a_log, bmat, cmat, chunk)
     return ref.ssd_scan_heads_ref(x, dt, a_log, bmat, cmat, chunk=chunk)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The SSD scan kernel with the hand-written backward. Saves the
+    operands as they lie (the layer's views); the backward kernels recompute
+    the chunks' states from them."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, bmat, cmat, chunk):
+        ctx.save_for_backward(x, dt, a_log, bmat, cmat)
+        ctx.chunk = chunk
+        return ssd_scan_cuda(x, dt, a_log, bmat, cmat, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, a_log, bmat, cmat = ctx.saved_tensors
+        grads = ssd_scan_bwd_cuda(x, dt, a_log, bmat, cmat, dy.to(x.dtype),
+                                  chunk=ctx.chunk)
+        return (*grads, None)
 
 
 # ---------------------------------------------------------------------------
@@ -381,11 +388,27 @@ def rglru_scan(
     h0: torch.Tensor | None = None,  # (B, dr) f32, or None for 0
 ) -> torch.Tensor:
     """The RG-LRU recurrence ``h_t = a_t h_(t-1) + b_t`` -> every h_t
-    (B, S, dr) f32; on the CPU ``ref.rglru_scan_ref``."""
+    (B, S, dr) f32; on the CPU ``ref.rglru_scan_ref`` (autograd
+    differentiates it), on the card the kernel and its backward kernel."""
     if a.is_cuda:
-        _no_backward_kernel("rglru_scan", (a, b, h0))
-        return rglru_scan_cuda(a, b, h0)
+        return _RGLRUScan.apply(a, b, h0)
     return ref.rglru_scan_ref(a, b, h0)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The RG-LRU scan kernel with the hand-written backward, which reads a,
+    h0 and the saved output h."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = rglru_scan_cuda(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        return rglru_scan_bwd_cuda(a, h, h0, dh.float())
 
 
 # ---------------------------------------------------------------------------

@@ -471,3 +471,145 @@ def rglru_scan_ref(
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd_ref(
+    a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None, dh: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The gradient of ``rglru_scan_ref`` in f32 by ``torch.autograd.grad``:
+    (da, db, dh0) for an output gradient ``dh`` (B, S, dr); dh0 is None
+    without h0."""
+    with torch.enable_grad():
+        af, bf = (t.detach().float().requires_grad_(True) for t in (a, b))
+        h0f = None if h0 is None else h0.detach().float().requires_grad_(True)
+        h = rglru_scan_ref(af, bf, h0f)
+        leaves = (af, bf) if h0f is None else (af, bf, h0f)
+        grads = torch.autograd.grad(h, leaves, dh.float())
+    return grads[0], grads[1], None if h0f is None else grads[2]
+
+
+def rglru_scan_bwd_loop(
+    a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor | None, dh: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The backward kernel's algorithm (``csrc/rglru_scan.cu``) in plain
+    torch, from a and the forward's output h: walking t from S-1 down,
+    ``g = dh_t + a_(t+1) g`` (a product, then a sum, as the kernel rounds),
+    ``db_t = g``, ``da_t = g h_(t-1)`` with ``h_(-1) = h0`` or 0, and
+    ``dh0 = a_0 g`` -> (da, db, dh0) f32; dh0 is None without h0."""
+    a, h, dh = a.float(), h.float(), dh.float()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    g = torch.zeros_like(a[:, 0])
+    a_next = torch.zeros_like(g)
+    start = g if h0 is None else h0.float()
+    for t in reversed(range(a.shape[1])):
+        g = dh[:, t] + a_next * g
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t else start)
+        a_next = a[:, t]
+    return da, db, None if h0 is None else a_next * g
+
+
+def ssd_scan_bwd_ref(
+    x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, bmat: torch.Tensor,
+    cmat: torch.Tensor, dy: torch.Tensor, *, chunk: int = 128,
+) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_scan_heads_ref`` in f32 by
+    ``torch.autograd.grad``: (dx, ddt, da_log, dB, dC) for an output
+    gradient ``dy`` (B, H, S, P), all f32; dB and dC (B, S, N) are summed
+    over the H heads that share B and C."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(True)
+                  for t in (x, dt, a_log, bmat, cmat)]
+        y = ssd_scan_heads_ref(*leaves, chunk=chunk)
+        return torch.autograd.grad(y, leaves, dy.float())
+
+
+def ssd_scan_chunked_bwd(
+    x: torch.Tensor,  # (B, H, S, P)
+    dt: torch.Tensor,  # (B, H, S)
+    a_log: torch.Tensor,  # (B, H, S)
+    bmat: torch.Tensor,  # (B, S, N) shared by the H heads
+    cmat: torch.Tensor,  # (B, S, N)
+    dy: torch.Tensor,  # (B, H, S, P)
+    *,
+    chunk: int,
+) -> tuple[torch.Tensor, ...]:
+    """The SSD backward kernels' algorithm (``csrc/ssd_scan_bwd.cu``) in
+    plain torch, explicit formulas and no autograd -> (dx, ddt, da_log, dB,
+    dC) f32, dB and dC summed over the heads. Steps past S are zero-padded
+    up to a multiple of ``chunk`` and take no gradient.
+
+    Per chunk of Q steps (l the inclusive cumsum of a_log in the chunk,
+    l_Q its last, B̃ = B dt, S_c the state entering the chunk, D the
+    gradient of the state leaving it, L_ij = exp(l_i - l_j) for j <= i):
+
+    - states pass: S_(c+1) = exp(l_Q) S_c + Σ_j exp(l_Q - l_j) B̃_j x_jᵀ;
+    - reverse pass: D_(c-1) = exp(l_Q) D_c + Σ_i exp(l_i) C_i dy_iᵀ, from
+      D = 0 for the last chunk;
+    - per chunk, with M = (C B̃ᵀ) ∘ L and E = (dy xᵀ) ∘ L:
+      dx = Mᵀ dy + exp(l_Q - l) ∘ (B̃ D); dB̃ = Eᵀ C + exp(l_Q - l) ∘ (x Dᵀ);
+      dC = E B̃ + exp(l) ∘ (dy S_cᵀ); dB = dB̃ dt, ddt = rowsum(dB̃ ∘ B);
+      dl_i = Σ_j R_ij - Σ_k R_ki (R = E ∘ C B̃ᵀ strictly below the
+      diagonal) + exp(l_i) C_i·(S_c dy_i) - w_i, with w_j = exp(l_Q - l_j)
+      B̃_j·(D x_j), and dl_Q also takes Σ_j w_j + exp(l_Q) <D, S_c>;
+      da_log is dl summed from the end of the chunk back.
+    """
+    Bn, H, S, P = x.shape
+    N = bmat.shape[-1]
+    Q = max(int(chunk), 1)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    f32 = torch.float32
+
+    def split(t, seq_axis, shape):  # zero-pad the sequence axis, then cut it
+        widths = [0, 0] * (t.dim() - seq_axis - 1) + [0, pad]
+        return torch.nn.functional.pad(t.to(f32), widths).reshape(shape)
+
+    xc, dyc = (split(t, 2, (Bn, H, nc, Q, P)) for t in (x, dy))
+    dtc, ac = (split(t, 2, (Bn, H, nc, Q)) for t in (dt, a_log))
+    bc, cc = (split(t, 1, (Bn, 1, nc, Q, N)) for t in (bmat, cmat))
+    l = torch.cumsum(ac, dim=-1)
+    lq = l[..., -1:]
+    el, dec, eq = torch.exp(l), torch.exp(lq - l), torch.exp(lq[..., 0])
+    bt = bc * dtc[..., None]
+
+    local = torch.einsum("bhcqn,bhcqp->bhcnp", bt * dec[..., None], xc)
+    s = torch.zeros((Bn, H, N, P), dtype=f32, device=x.device)
+    states = []
+    for c in range(nc):
+        states.append(s)
+        s = eq[:, :, c, None, None] * s + local[:, :, c]
+    sc = torch.stack(states, dim=2) if states else local
+    into = torch.einsum("bhcqn,bhcqp->bhcnp", cc * el[..., None], dyc)
+    d = torch.zeros_like(s)
+    ends = [d] * nc
+    for c in reversed(range(nc)):
+        ends[c] = d
+        d = eq[:, :, c, None, None] * d + into[:, :, c]
+    dend = torch.stack(ends, dim=2) if ends else into
+
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(lower, l[..., :, None] - l[..., None, :], -torch.inf))
+    G = torch.einsum("bhcin,bhcjn->bhcij", cc, bc)
+    M = G * dtc[..., None, :] * L
+    E = torch.einsum("bhcip,bhcjp->bhcij", dyc, xc) * L
+    R = torch.where(lower.tril(-1), E * G * dtc[..., None, :], 0.0)
+    V = torch.einsum("bhcnp,bhcip->bhcin", sc, dyc)
+    W = torch.einsum("bhcnp,bhcjp->bhcjn", dend, xc)
+    dbt = torch.einsum("bhcij,bhcin->bhcjn", E, cc) + dec[..., None] * W
+    w = dec * dtc * (bc * W).sum(-1)
+    dl = R.sum(-1) - R.sum(-2) + el * (cc * V).sum(-1) - w
+    dl[..., -1] += w.sum(-1) + eq * (dend * sc).sum((-1, -2))
+    dx = torch.einsum("bhcij,bhcip->bhcjp", M, dyc) + (dec * dtc)[..., None] * (
+        torch.einsum("bhcjn,bhcnp->bhcjp", bc.expand(-1, H, -1, -1, -1), dend))
+    dc = (torch.einsum("bhcij,bhcjn->bhcin", E * dtc[..., None, :], bc)
+          + el[..., None] * V)
+    da = torch.flip(torch.cumsum(torch.flip(dl, (-1,)), -1), (-1,))
+    ddt = (dbt * bc).sum(-1)
+
+    def seq(t):  # (B, H?, nc, Q, ...) -> the first S steps
+        return t.reshape(*t.shape[:2], nc * Q, *t.shape[4:])[:, :, :S]
+
+    return (seq(dx), seq(ddt), seq(da),
+            seq((dbt * dtc[..., None]).sum(1, keepdim=True))[:, 0],
+            seq(dc.sum(1, keepdim=True))[:, 0])

@@ -23,6 +23,16 @@ shapes:
 - f32, and the shapes the first cannot take: ``ssd_fma_kernel``, f32 FMAs
   on the CUDA cores on contiguous [B·H, S, P] copies, exact to f32
   rounding. Launches count under ``launch_counts["ssd_scan_fma"]``.
+
+:func:`ssd_scan_bwd_cuda` is the gradient (``csrc/ssd_scan_bwd.cu``), for
+f32 and bf16 alike: ``ssd_bwd_states_kernel`` (counted under
+``launch_counts["ssd_scan_bwd_states"]``) writes each chunk's entering
+state and the gradient of its leaving state, then ``ssd_bwd_chunk_kernel``
+(``launch_counts["ssd_scan_bwd"]``) the five gradients, at its own chunk
+(:func:`bwd_chunk`). It reads contiguous copies of its operands; each
+operand it had to copy counts under ``launch_counts["ssd_scan_bwd_copies"]``.
+Its plain versions are ``kernels/ref.py::ssd_scan_chunked_bwd`` (the same
+algorithm) and ``ssd_scan_bwd_ref`` (f32 autograd).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from .build import (
 )
 
 MAX_CHUNK = 128  # the Q x Q f32 score tile must fit beside the state
+BWD_MAX_CHUNK = 64  # the backward's chunk, halved until its block fits
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 TC_HEAD_TILE = 32  # head-dim columns per block of the tensor-core route
 TC_STATES = (16, 32, 64, 128)  # state sizes the tensor-core route is built for
@@ -79,6 +90,19 @@ def smem_bytes(q: int, n: int, p: int) -> int:
     return 4 * (2 * q * p + n * p + q * q + 2 * q * 16 + 4 * q)
 
 
+def bwd_chunk(chunk: int, seq: int, n: int, p: int) -> int:
+    """The backward's chunk: :func:`kernel_chunk`, at most
+    ``BWD_MAX_CHUNK``, halved until both of its kernels' blocks fit in
+    shared memory, as ``csrc/ssd_scan_bwd.cu``'s ``ssd_scan_bwd_chunk``
+    counts them (this loads, and on first use builds, that library)."""
+    query = _launcher("ssd_scan_bwd_chunk", [ctypes.c_int] * 3, "ssd_scan_bwd")
+    q = query(min(kernel_chunk(chunk, seq), BWD_MAX_CHUNK), n, p)
+    if q < 1:
+        raise ValueError(f"state {n}, head dim {p}: the SSD backward's blocks do not "
+                         "fit in shared memory at any chunk")
+    return q
+
+
 def tma_ready(t: torch.Tensor) -> bool:
     """Whether the tensor-core route's TMA can read ``t`` (x, B or C) as
     it lies: unit stride along the last axis, a 16-byte-aligned base and
@@ -99,20 +123,17 @@ def _strides(t: torch.Tensor, axes: int):
         for n, st in zip(t.shape[:axes], t.stride()[:axes])))
 
 
-def _launcher(symbol: str, argtypes):
-    fn = getattr(library("ssd_scan"), symbol)
+def _launcher(symbol: str, argtypes, source: str = "ssd_scan"):
+    fn = getattr(library(source), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-def ssd_scan_cuda(
-    x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-    bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int,
-) -> torch.Tensor:
-    """SSD scan of CUDA x [B, H, S, P] (bf16/f32) with dt, a_log [B, H, S]
-    (f32) and B, C [B, S, N] in x's dtype, at any strides -> contiguous
-    [B, H, S, P] in x's dtype."""
+def _check_scan_operands(x, dt, a_log, bmat, cmat) -> None:
+    """The forward's and the backward's operand checks: CUDA x [B, H, S,
+    P] bf16/f32, dt and a_log f32 [B, H, S], B and C [B, S, N] in x's dtype,
+    all on x's device."""
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dim() != 4:
@@ -139,7 +160,18 @@ def ssd_scan_cuda(
         )
     if p % 4:
         raise ValueError(f"head dim P={p} must be a multiple of 4")
-    q = kernel_chunk(chunk, s_len)
+
+
+def ssd_scan_cuda(
+    x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+    bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int,
+) -> torch.Tensor:
+    """SSD scan of CUDA x [B, H, S, P] (bf16/f32) with dt, a_log [B, H, S]
+    (f32) and B, C [B, S, N] in x's dtype, at any strides -> contiguous
+    [B, H, S, P] in x's dtype."""
+    _check_scan_operands(x, dt, a_log, bmat, cmat)
+    p, n = x.shape[-1], bmat.shape[-1]
+    q = kernel_chunk(chunk, x.shape[2])
     if uses_tensor_cores(x.dtype, p, n, q):
         return _ssd_tc(x, dt, a_log, bmat, cmat, q)
     return _ssd_fma(x, dt, a_log, bmat, cmat, q)
@@ -197,3 +229,74 @@ def _ssd_fma(x, dt, a_log, bmat, cmat, q):
         check_launch(err, "ssd_scan_fma")
         launch_counts["ssd_scan_fma"] += 1
     return out.reshape(b, h, s_len, p)
+
+
+_BWD_STATES_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_CHUNKS_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def ssd_scan_bwd_cuda(
+    x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+    bmat: torch.Tensor, cmat: torch.Tensor, dy: torch.Tensor, *, chunk: int,
+) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_scan_cuda`` for an output gradient ``dy`` of
+    x's shape and dtype, the operands as the forward takes them -> (dx in
+    x's dtype [B, H, S, P], ddt and da_log f32 [B, H, S], dB and dC in B's
+    dtype [B, S, N], summed over the heads)."""
+    _check_scan_operands(x, dt, a_log, bmat, cmat)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} must match "
+                         f"x {tuple(x.shape)} {x.dtype} on {x.device}")
+    b, h, s_len, p = x.shape
+    n = bmat.shape[-1]
+    if n & (n - 1) or n > 512:
+        raise ValueError(f"state size N={n}: the SSD backward takes a power of two "
+                         "up to 512")
+    q = bwd_chunk(chunk, s_len, n, p)
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((b * h, s_len, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b * h, s_len), dtype=f32, device=dev)
+    da = torch.empty((b * h, s_len), dtype=f32, device=dev)
+    db = torch.empty((b, s_len, n), dtype=bmat.dtype, device=dev)
+    dc = torch.empty((b, s_len, n), dtype=bmat.dtype, device=dev)
+    outs = (dx.reshape(b, h, s_len, p), ddt.reshape(b, h, s_len),
+            da.reshape(b, h, s_len), db, dc)
+    if b * h * s_len == 0:
+        return outs
+    copies = 0
+
+    def flat(t, shape):
+        nonlocal copies
+        copies += not t.is_contiguous()
+        return t.contiguous().reshape(shape)
+
+    xf, dyf = flat(x, (b * h, s_len, p)), flat(dy, (b * h, s_len, p))
+    dtf, af = flat(dt, (b * h, s_len)), flat(a_log, (b * h, s_len))
+    bm, cm = flat(bmat, (b, s_len, n)), flat(cmat, (b, s_len, n))
+    nc = -(-s_len // q)
+    sbuf = torch.empty((b * h, nc, n, p), dtype=f32, device=dev)
+    dbuf = torch.empty_like(sbuf)
+    sdot = torch.empty((b * h, nc), dtype=f32, device=dev)
+    db32 = torch.empty((b, s_len, n), dtype=f32, device=dev)
+    dc32 = torch.empty_like(db32)
+    code = float_code(x.dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _launcher("ssd_scan_bwd_states_launch", _BWD_STATES_ARGTYPES,
+                        "ssd_scan_bwd")(
+            xf.data_ptr(), dyf.data_ptr(), dtf.data_ptr(), af.data_ptr(),
+            bm.data_ptr(), cm.data_ptr(), sbuf.data_ptr(), dbuf.data_ptr(),
+            sdot.data_ptr(), b, h, s_len, q, n, p, code, stream)
+        check_launch(err, "ssd_scan_bwd_states")
+        launch_counts["ssd_scan_bwd_states"] += 1
+        err = _launcher("ssd_scan_bwd_chunks_launch", _BWD_CHUNKS_ARGTYPES,
+                        "ssd_scan_bwd")(
+            xf.data_ptr(), dyf.data_ptr(), dtf.data_ptr(), af.data_ptr(),
+            bm.data_ptr(), cm.data_ptr(), sbuf.data_ptr(), dbuf.data_ptr(),
+            sdot.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+            db32.data_ptr(), dc32.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            b, h, s_len, q, n, p, code, stream)
+        check_launch(err, "ssd_scan_bwd")
+        launch_counts["ssd_scan_bwd"] += 1
+    launch_counts["ssd_scan_bwd_copies"] += copies
+    return outs

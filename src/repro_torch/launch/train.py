@@ -6,8 +6,9 @@ population network, or the published config with ``--full``. Runs on the
 CUDA card; ``--device cpu`` runs on the CPU. Fault tolerance is on by
 default: atomic checkpoints every ``--ckpt-every`` steps and at the last,
 auto-resume from the latest committed one, SIGTERM-safe. One device: no
-mesh is built (sharding is ROADMAP Queue 1 item 13.5). On the card the
-Mamba2 and RG-LRU families do not train yet (item 13.6b).
+mesh is built (sharding is ROADMAP Queue 1 item 13.5). Every family
+trains on the card, the Mamba2 and RG-LRU scans through their backward
+kernels.
 """
 
 from __future__ import annotations

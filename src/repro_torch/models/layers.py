@@ -22,11 +22,11 @@ are XLA ops in the reference.
 Caches are dicts of tensors, one per layer, updated in place (the JAX
 package returns new caches instead).
 
-Parameters are trainable. On the card the gradients of RMSNorm and of the
-flash attention run through their hand-written backward kernels
-(``ops.rmsnorm``, ``ops.flash_attention``); the Mamba2 and RG-LRU scans
-have none yet and refuse a gradient on the card (ROADMAP Queue 1 item
-13.6b). On the CPU autograd differentiates the plain versions. With
+Parameters are trainable. On the card the gradients of RMSNorm, the flash
+attention and the Mamba2 and RG-LRU scans run through their hand-written
+backward kernels (``ops.rmsnorm``, ``ops.flash_attention``,
+``ops.ssd_scan``, ``ops.rglru_scan``). On the CPU autograd differentiates
+the plain versions. With
 gradients on, ``attention_blocked`` recomputes each chunk's scores in the
 backward pass, as the reference's ``jax.checkpoint`` of its chunk step
 does. The reference's ``grad_cast`` (an identity whose cotangent is cast

@@ -1127,6 +1127,7 @@ def test_store_and_cli_on_cuda_match_cpu(cuda_device, tmp_path):
 # kernels round their inputs' products once to bf16 at the end, and flash
 # recomputes P from a bf16 o); f32 within 1e-4.
 BWD_REL, BWD_FLOOR, BWD_F32 = 2.0**-6, 2.0**-10, 1e-4
+SSD_BWD_F32_FLOOR = 1e-5  # of a gradient's largest, beside BWD_F32 of each element
 
 
 def _within_bwd_limit(got, want, dtype, largest=None):
@@ -1223,17 +1224,155 @@ def test_flash_backward_reads_the_layer_layout_and_repeats_bitwise(cuda_device):
 
 
 @pytest.mark.cuda
-def test_scan_kernels_refuse_a_gradient_on_the_card(cuda_device):
-    a = torch.rand((1, 8, 16), device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="13.6b"):
-        ops.rglru_scan(a, a)
-    with torch.no_grad():
-        assert ops.rglru_scan(a, a).shape == a.shape
-    x = torch.zeros((1, 2, 32, 16), device=cuda_device, requires_grad=True)
-    dt = torch.zeros((1, 2, 32), device=cuda_device)
-    bc = torch.zeros((1, 32, 16), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="13.6b"):
-        ops.ssd_scan(x, dt, dt, bc, bc, chunk=16)
+@pytest.mark.parametrize("B,S,dr", [(1, 1, 1), (2, 37, 1000), (4, 2048, 4096)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_backward_matches_its_loop(cuda_device, B, S, dr, with_h0):
+    """The backward kernel rounds as ``rglru_scan_bwd_loop`` does (a product,
+    then a sum): bit-identical to it, from the forward's saved h, and within
+    1e-5 (rtol and atol: autograd sums in its own order) of f32 autograd of
+    the plain loop; a second launch gives the same bits."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda
+
+    rng = np.random.default_rng(2700 + S)  # seed 2700+S
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, dr)).astype(np.float32)
+                         ).to(cuda_device).requires_grad_(True)
+    b = _randn(rng, (B, S, dr), torch.float32, cuda_device).requires_grad_(True)
+    h0 = (_randn(rng, (B, dr), torch.float32, cuda_device).requires_grad_(True)
+          if with_h0 else None)
+    dh = _randn(rng, (B, S, dr), torch.float32, cuda_device)
+    before = launch_counts["rglru_scan_bwd"]
+    h = ops.rglru_scan(a, b, h0)
+    h.backward(dh)
+    assert launch_counts["rglru_scan_bwd"] == before + 1
+    loop = ref.rglru_scan_bwd_loop(a.detach(), h.detach(), h0, dh)
+    got = (a.grad, b.grad, None if h0 is None else h0.grad)
+    for g, w in zip(got, loop):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert torch.equal(g, w)
+    want = ref.rglru_scan_bwd_ref(a, b, h0, dh)
+    for g, w in zip(got, want):
+        if w is not None:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    again = rglru_scan_bwd_cuda(a.detach(), h.detach(), h0, dh)
+    assert all(w is None or torch.equal(g, w) for g, w in zip(again, got))
+
+
+def _ssd_operands(rng, B, H, S, P, N, dtype, device):
+    x = _randn(rng, (B, H, S, P), dtype, device)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.5, (B, H, S)).astype(np.float32)).to(device)
+    a_log = dt * -torch.from_numpy(rng.uniform(0.5, 8.0, (1, H, 1)).astype(np.float32)
+                                   ).to(device)
+    bmat, cmat = (_randn(rng, (B, S, N), dtype, device) for _ in range(2))
+    return x, dt, a_log, bmat, cmat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [(1, 1, 1, 4, 1, 16), (2, 3, 45, 16, 16, 16),
+                                             (1, 2, 100, 32, 64, 32),
+                                             (2, 4, 300, 64, 128, 128),
+                                             (1, 2, 77, 8, 256, 64)])
+def test_ssd_scan_backward_matches_plain(cuda_device, B, H, S, P, N, chunk, dtype):
+    """Both backward kernels through ``ops.ssd_scan``'s Function against f32
+    autograd of the plain scan (f32: 1e-4 of each element plus 1e-5 of the
+    gradient's largest, as ddt and da_log sum hundreds of terms of either
+    sign; bf16: 2^-6 of each element plus 2^-10 of the largest, the train
+    phase's limit) and, in f32, against ``ssd_scan_chunked_bwd`` at the
+    kernel's own chunk (the same algorithm, the sums in another order: the
+    f32 limit); a second call gives the same bits (no atomics)."""
+    from repro_torch.kernels.ssd_scan import bwd_chunk, ssd_scan_bwd_cuda
+
+    rng = np.random.default_rng(2800 + S + N)  # seed 2800+S+N
+    ops_in = [t.requires_grad_(True)
+              for t in _ssd_operands(rng, B, H, S, P, N, dtype, cuda_device)]
+    dy = _randn(rng, (B, H, S, P), dtype, cuda_device)
+    before = dict(launch_counts)
+    ops.ssd_scan(*ops_in, chunk=chunk).backward(dy)
+    for key in ("ssd_scan_bwd", "ssd_scan_bwd_states"):
+        assert launch_counts[key] == before.get(key, 0) + 1
+    got = [t.grad for t in ops_in]
+    assert [g.dtype for g in got] == [dtype, torch.float32, torch.float32, dtype, dtype]
+    want = ref.ssd_scan_bwd_ref(*ops_in, dy, chunk=chunk)
+    largest = max(float(w.abs().max()) for w in want)
+
+    def f32_close(g, w, against, out):
+        top = float(w.abs().max())
+        err = float((g - w).abs().max())
+        print(f"ssd_scan_bwd f32 {out} at {[B, H, S, P, N, chunk]} against {against}: "
+              f"max_abs_err {err:.3e}, largest {top:.3e} ({err / (top or 1):.2e} of it)")
+        torch.testing.assert_close(g, w, rtol=BWD_F32, atol=SSD_BWD_F32_FLOOR * top)
+
+    names = ("dx", "ddt", "da_log", "dB", "dC")
+    for g, w, out in zip(got, want, names):
+        if dtype == torch.float32:
+            f32_close(g, w, "autograd", out)
+        else:  # an all-zero gradient (da_log at S = 1) takes the call's largest
+            _within_bwd_limit(g.float(), w, dtype, float(w.abs().max()) or largest)
+    if dtype == torch.float32:
+        q = bwd_chunk(chunk, S, N, P)
+        plain = ref.ssd_scan_chunked_bwd(*(t.detach() for t in ops_in), dy, chunk=q)
+        for g, w, out in zip(got, plain, names):
+            f32_close(g, w, "its chunked loop", out)
+    again = ssd_scan_bwd_cuda(*(t.detach() for t in ops_in), dy, chunk=chunk)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_reads_the_layer_views(cuda_device):
+    """The layer's operands are views of its [B, S, *] activations: the
+    backward copies them (counted) and its gradients land at those views'
+    shapes, equal to the contiguous call's bits."""
+    rng = np.random.default_rng(2900)  # seed 2900
+    B, S, H, P, N = 2, 200, 4, 64, 128
+    act = _randn(rng, (B, S, H * P + 2 * N), torch.bfloat16, cuda_device)
+    dts = torch.from_numpy(rng.uniform(0.01, 0.5, (B, S, H)).astype(np.float32)
+                           ).to(cuda_device)
+    views = [act[..., :H * P].reshape(B, S, H, P).transpose(1, 2), dts.transpose(1, 2),
+             (-2.0 * dts).transpose(1, 2), act[..., H * P:H * P + N], act[..., H * P + N:]]
+    leaves = [v.detach().clone().requires_grad_(True) for v in views]
+    views = [v.detach().requires_grad_(True) for v in views]
+    dy = _randn(rng, (B, S, H, P), torch.bfloat16, cuda_device).transpose(1, 2)
+    before = launch_counts["ssd_scan_bwd_copies"]
+    ops.ssd_scan(*views, chunk=128).backward(dy)
+    assert launch_counts["ssd_scan_bwd_copies"] > before
+    ops.ssd_scan(*leaves, chunk=128).backward(dy.contiguous())
+    for v, t in zip(views, leaves):
+        assert v.grad.shape == v.shape and torch.equal(v.grad, t.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+def test_scan_family_gradients_on_cuda_match_cpu(cuda_device, arch):
+    """A reduced mamba2 / recurrentgemma in f32: every parameter's gradient
+    on the card, through the scans' backward kernels, against the CPU's
+    plain autograd within 1e-4 of the largest (the kernels and cuBLAS sum
+    in another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch_at
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = synthetic_batch_at(0, seed=7, batch_size=2, seq_len=45,
+                               vocab_size=cfg.vocab_size, device="cpu")
+    key = "ssd_scan_bwd" if arch.startswith("mamba") else "rglru_scan_bwd"
+    before = launch_counts[key]
+    grads = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        loss, _ = model.loss(batch)
+        named = list(model.named_parameters())
+        gs = torch.autograd.grad(loss, [p for _, p in named])
+        grads[name] = (float(loss), {n: g.cpu() for (n, _), g in zip(named, gs)})
+    assert launch_counts[key] > before
+    assert grads["gpu"][0] == pytest.approx(grads["cpu"][0], abs=1e-4)
+    largest = max(float(g.abs().max()) for g in grads["cpu"][1].values())
+    for n, g in grads["cpu"][1].items():
+        torch.testing.assert_close(grads["gpu"][1][n], g, rtol=1e-4, atol=1e-4 * largest,
+                                   msg=lambda m, n=n: f"{n}: {m}")
 
 
 @pytest.mark.cuda
@@ -1256,6 +1395,23 @@ def test_backward_wrappers_refuse_bad_operands(cuda_device):
         rmsnorm_bwd_cuda(x, w, x[:4], eps=1e-6, plus_one=True)
     with pytest.raises(ValueError):
         rmsnorm_bwd_cuda(x, w, x.bfloat16(), eps=1e-6, plus_one=True)
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    a = torch.zeros((2, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        rglru_scan_bwd_cuda(a, a[:, :4], None, a)
+    with pytest.raises(ValueError):
+        rglru_scan_bwd_cuda(a, a, torch.zeros((2, 8), device=cuda_device), a)
+    x = torch.zeros((1, 2, 32, 16), device=cuda_device)
+    dt = torch.zeros((1, 2, 32), device=cuda_device)
+    bc = torch.zeros((1, 32, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        ssd_scan_bwd_cuda(x, dt, dt, bc, bc, x[:, :, :8], chunk=16)
+    with pytest.raises(ValueError, match="power of two"):
+        ssd_scan_bwd_cuda(x, dt, dt, bc[..., :12], bc[..., :12], x, chunk=16)
+    with pytest.raises(TypeError):
+        ssd_scan_bwd_cuda(x, dt, dt, bc.bfloat16(), bc, x, chunk=16)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -1034,7 +1035,19 @@ def test_family_configs_cut_depth_only(smoke, capsys):
 
 TRAIN_CUT = {"TRAIN_BATCH": 2, "TRAIN_SEQ": 32, "TRAIN_STEPS": 3,
              "TRAIN_RESUME_STEPS": 4, "TRAIN_SERVE_PROMPT": 8, "TRAIN_SERVE_NEW": 3,
-             "TRAIN_F32_SHAPES": {"flash": (1, 2, 1, 40, 32), "rmsnorm": (16, 64)}}
+             "TRAIN_SCAN_STEPS": 3,
+             "TRAIN_F32_SHAPES": {"flash": (1, 2, 1, 40, 32), "rmsnorm": (16, 64),
+                                  "ssd": (1, 2, 45, 16, 16, 32), "rglru": (1, 33, 8)}}
+# the scans' plain versions as imported, before the smoke's PlainScanCalls
+# wraps them: the stand-ins below are the card's kernels, not its fallback
+_SSD_PLAIN, _RGLRU_PLAIN = ref.ssd_scan_heads_ref, ref.rglru_scan_ref
+
+
+def _bwd_chunk_standin(chunk: int, seq: int, n: int, p: int) -> int:
+    """The SSD backward's chunk where its blocks fit in shared memory, as
+    they do at these tests' shapes: ``ssd_scan.bwd_chunk`` asks the CUDA
+    library, which is not built here."""
+    return min(ssd_scan.kernel_chunk(chunk, seq), ssd_scan.BWD_MAX_CHUNK)
 
 
 def _bwd_standin(name: str, fault: str = "none"):
@@ -1046,6 +1059,15 @@ def _bwd_standin(name: str, fault: str = "none"):
             x, w, dy = args
             outs = list(ref.rmsnorm_bwd_ref(x, w, dy, **kwargs))
             outs[0] = outs[0].to(x.dtype)
+        elif name == "ssd_scan_bwd":  # the kernel's algorithm at its own chunk
+            x, dt, a_log, bmat, cmat, dy = args
+            q = _bwd_chunk_standin(kwargs["chunk"], x.shape[2], bmat.shape[-1],
+                                   x.shape[-1])
+            outs = list(ref.ssd_scan_chunked_bwd(*args, chunk=q))
+            for i, dtype in ((0, x.dtype), (3, bmat.dtype), (4, bmat.dtype)):
+                outs[i] = outs[i].to(dtype)
+        elif name == "rglru_scan_bwd":
+            outs = list(ref.rglru_scan_bwd_loop(*args))
         else:
             outs = [t.to(args[0].dtype) for t in ref.attention_bwd_ref(*args, **kwargs)]
         if fault == "zeros":
@@ -1058,6 +1080,10 @@ def _bwd_standin(name: str, fault: str = "none"):
 
 def _fwd_standin(name: str):
     def run(*args, **kwargs):
+        if name == "ssd_scan":
+            return _SSD_PLAIN(*(a.float() for a in args), **kwargs).to(args[0].dtype)
+        if name == "rglru_scan":
+            return _RGLRU_PLAIN(*args, **kwargs)
         return _plain32(name, args, kwargs).to(args[0].dtype)
     return run
 
@@ -1065,49 +1091,52 @@ def _fwd_standin(name: str):
 @pytest.fixture
 def train_smoke(smoke, monkeypatch):
     """``chip_smoke`` with its train constants cut and its device probes
-    stubbed; ``ops.rmsnorm`` and ``ops.flash_attention`` run through their
-    autograd Functions on the CPU, the CUDA wrappers stood in with counting
-    plain versions (``KernelInputs`` records the backward ones), and the
-    scans refusing a gradient as they do on the card."""
+    stubbed; ``ops.rmsnorm``, ``ops.flash_attention``, ``ops.ssd_scan`` and
+    ``ops.rglru_scan`` run through their autograd Functions on the CPU, the
+    CUDA wrappers stood in with counting plain versions (``KernelInputs``
+    records the backward ones; the SSD backward's stand-in also counts its
+    states kernel). Returns the reduced bf16 qwen3 (remat full), the two
+    scan families reduced in bf16 (remat full) and a 400-node network."""
     for name, value in TRAIN_CUT.items():
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "sync", lambda: None)
     monkeypatch.setattr(smoke, "device_line", lambda fields="": "cpu (stand-in)")
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
     monkeypatch.setattr(smoke, "cold_ms", lambda fn, iters: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "device_activity", lambda fn, iters: (fn(), {
+        "void (anonymous namespace)::ssd_bwd_states_kernel<bf16>": [iters, 100.0 * iters],
+        "void (anonymous namespace)::ssd_bwd_chunk_kernel<bf16>": [iters, 300.0 * iters],
+    })[1])
+    monkeypatch.setattr(ssd_scan, "bwd_chunk", _bwd_chunk_standin)
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    for name in ("flash_attention", "rmsnorm"):
+    for name in ("flash_attention", "rmsnorm", "ssd_scan", "rglru_scan"):
         monkeypatch.setattr(ops, f"{name}_cuda", _counting(name, _fwd_standin(name)))
-        monkeypatch.setattr(ops, f"{name}_bwd_cuda",
-                            _counting(f"{name}_bwd", _bwd_standin(f"{name}_bwd")))
+        bwd = _counting(f"{name}_bwd", _bwd_standin(f"{name}_bwd"))
+        if name == "ssd_scan":
+            bwd = _counting("ssd_scan_bwd_states", bwd)
+        monkeypatch.setattr(ops, f"{name}_bwd_cuda", bwd)
     monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, *, causal=True: (
         ops._FlashAttention.apply(q, k, v, q.shape[-1] ** -0.5, causal)))
     monkeypatch.setattr(ops, "rmsnorm", lambda x, w, *, eps, plus_one: (
         ops._RMSNorm.apply(x, w, eps, plus_one)))
-    ssd, rglru = ops.ssd_scan, ops.rglru_scan
-
-    def ssd_on_card(x, dt, a_log, bmat, cmat, *, chunk=128):
-        ops._no_backward_kernel("ssd_scan", (x, dt, a_log, bmat, cmat))
-        return ssd(x, dt, a_log, bmat, cmat, chunk=chunk)
-
-    def rglru_on_card(a, b, h0=None):
-        ops._no_backward_kernel("rglru_scan", (a, b, h0))
-        return rglru(a, b, h0)
-
-    monkeypatch.setattr(ops, "ssd_scan", ssd_on_card)
-    monkeypatch.setattr(ops, "rglru_scan", rglru_on_card)
+    monkeypatch.setattr(ops, "ssd_scan", lambda x, dt, a_log, bmat, cmat, *, chunk=128: (
+        ops._SSDScan.apply(x, dt, a_log, bmat, cmat, chunk)))
+    monkeypatch.setattr(ops, "rglru_scan", lambda a, b, h0=None: (
+        ops._RGLRUScan.apply(a, b, h0)))
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import demo_population_network
 
     cfg = get_config("qwen3-1.7b").reduced(dtype="bfloat16", remat="full")
-    return smoke, cfg, demo_population_network(400, seed=0, device="cpu")
+    scans = {arch: get_config(arch).reduced(dtype="bfloat16", remat="full")
+             for arch in smoke.TRAIN_SCAN_ARCHS}
+    return smoke, cfg, scans, demo_population_network(400, seed=0, device="cpu")
 
 
 def test_train_phase_rehearsed_on_the_cpu(train_smoke, capsys):
-    smoke, cfg, net = train_smoke
-    out = smoke.phase_train(net, torch.device("cpu"), 0, cfg)
+    smoke, cfg, scans, net = train_smoke
+    out = smoke.phase_train(net, torch.device("cpu"), 0, cfg, scans)
     text = capsys.readouterr().out
     steps, L = smoke.TRAIN_STEPS, cfg.n_layers
     # remat recomputes every group's forward in the backward pass: each
@@ -1116,23 +1145,44 @@ def test_train_phase_rehearsed_on_the_cpu(train_smoke, capsys):
     assert out["launches"]["flash_attention_bwd"] == L * steps
     assert out["launches"]["rmsnorm_bwd"] == (4 * L + 1) * steps
     assert len(out["losses"]) == steps and out["losses"][-1] < out["losses"][0]
-    assert set(out["worst"]) == {"rmsnorm_bwd", "flash_attention_bwd"}
+    assert set(out["worst"]) == {"rmsnorm_bwd", "flash_attention_bwd", "ssd_scan_bwd",
+                                 "rglru_scan_bwd"}
     assert "tensors differ" in text and "0 of" in text
     assert "restored params from step 4" in text
     assert "Model.apply's argmax" in text
-    for arch in smoke.TRAIN_SCAN_ARCHS:
-        assert f"a gradient through {arch}'s scan on the card raises" in text
+    for arch, scan_cfg in scans.items():
+        run = out["scans"]["runs"][arch]
+        n_scans = sum(kind != "attn" for kind in smoke_layer_kinds(scan_cfg))
+        key = "ssd_scan" if arch.startswith("mamba") else "rglru_scan"
+        assert run["launches"][f"{key}_bwd"] == n_scans * smoke.TRAIN_SCAN_STEPS
+        # remat recomputes a group's layers in the backward pass (not the tail's)
+        assert (n_scans * smoke.TRAIN_SCAN_STEPS < run["launches"][key]
+                <= 2 * n_scans * smoke.TRAIN_SCAN_STEPS)
+        assert run["losses"][-1] < run["losses"][0]
+        assert f"train: {arch} one step in parts (ms)" in text
+    assert "bit-identical to its loop: True" in text
     assert "one step in parts (ms)" in text
     records = smoke.train_timing(out)
-    assert [r["name"] for r in records] == ["rmsnorm_bwd", "flash_attention_bwd"]
+    assert ("ssd_bwd_states_kernel 0.1000 ms a call (3 events), ssd_bwd_chunk_kernel "
+            "0.3000 ms a call (3 events)") in capsys.readouterr().out
+    assert [r["name"] for r in records] == ["rmsnorm_bwd", "flash_attention_bwd",
+                                            "ssd_scan_bwd", "rglru_scan_bwd"]
+    for rec in records[2:]:
+        assert rec["library_ms"] is None and rec["launches"] > 0
+        assert rec["bound_by"] in ("bytes", "operations") and rec["bound_ms"] > 0
     flash = records[1]
     B, Hq, S, D = smoke.TRAIN_BATCH, cfg.n_heads, smoke.TRAIN_SEQ, cfg.head_dim
     ops_ms = 2.5 * 4 * B * Hq * D * S * (S + 1) / 2 / smoke.BF16_TENSOR_OPS_PER_S * 1e3
     assert flash["bound_ms"] == pytest.approx(max(ops_ms, flash["bound_ms"]))
     assert flash["bound_ms"] >= ops_ms and flash["library_ms"] is not None
-    assert records[0]["launches"] == out["launches"]["rmsnorm_bwd"]
+    assert records[0]["launches"] == (out["launches"]["rmsnorm_bwd"]
+                                      + out["scans"]["launches"]["rmsnorm_bwd"])
     assert {"route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"} <= set(flash)
+
+
+def smoke_layer_kinds(cfg) -> list:
+    return list(cfg.block_pattern) * cfg.n_groups + list(cfg.tail_pattern)
 
 
 def _bwd_seen(name: str) -> dict:
@@ -1142,15 +1192,26 @@ def _bwd_seen(name: str) -> dict:
         w = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(np.float32))
         args = [_bf16(rng, (16, 64), 3.0), w, _bf16(rng, (16, 64))]
         kwargs = dict(eps=1e-6, plus_one=True)
+    elif name == "ssd_scan_bwd":
+        dt = torch.from_numpy(rng.uniform(0.01, 0.5, (1, 2, 45)).astype(np.float32))
+        args = [_bf16(rng, (1, 2, 45, 16)), dt, -2.0 * dt, _bf16(rng, (1, 45, 16)),
+                _bf16(rng, (1, 45, 16)), _bf16(rng, (1, 2, 45, 16))]
+        kwargs = dict(chunk=32)
+    elif name == "rglru_scan_bwd":
+        a = torch.from_numpy(rng.uniform(0.5, 1.0, (2, 40, 8)).astype(np.float32))
+        b, dh = (torch.from_numpy(rng.standard_normal((2, 40, 8)).astype(np.float32))
+                 for _ in range(2))
+        args, kwargs = [a, ref.rglru_scan_ref(a, b), None, dh], {}
     else:
         args = [_bf16(rng, s) for s in ((1, 4, 40, 32), (1, 2, 40, 32), (1, 2, 40, 32),
                                         (1, 4, 40, 32))]
         kwargs = dict(scale=32**-0.5, causal=True)
-    shapes = tuple((tuple(a.shape), str(a.dtype)) for a in args)
+    shapes = tuple((tuple(a.shape), str(a.dtype)) for a in args if a is not None)
     return {(name, "train", shapes): (args, kwargs)}
 
 
-@pytest.mark.parametrize("name", ["rmsnorm_bwd", "flash_attention_bwd"])
+@pytest.mark.parametrize("name", ["rmsnorm_bwd", "flash_attention_bwd", "ssd_scan_bwd",
+                                  "rglru_scan_bwd"])
 @pytest.mark.parametrize("fault", ["none", "zeros", "scaled"])
 def test_train_phase_backward_check_rejects_a_faulty_kernel(smoke, monkeypatch, name,
                                                             fault):
@@ -1164,11 +1225,30 @@ def test_train_phase_backward_check_rejects_a_faulty_kernel(smoke, monkeypatch, 
         smoke.bwd_kernel_checks(_bwd_seen(name))
 
 
-def test_train_phase_refuses_a_scan_gradient_that_passes(train_smoke, monkeypatch):
-    smoke, cfg, _ = train_smoke
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+def test_train_scans_rehearsed_on_the_cpu(train_smoke, capsys, arch):
+    """``train_scans`` at ``reduced()`` size: the loss falls, the scans'
+    forward and backward stand-ins launch and their plain versions, the
+    CPU path of ``ops``, are never called."""
+    smoke, _, scans, _ = train_smoke
+    out = smoke.train_scans(torch.device("cpu"), 0, {arch: scans[arch]})
+    text = capsys.readouterr().out
+    run = out["runs"][arch]
+    assert run["losses"][-1] < run["losses"][0]
+    assert '"ssd_scan_heads_ref": 0' in text and '"rglru_scan_ref": 0' in text
+    assert [k[0] for k in out["seen"]] == (
+        ["ssd_scan_bwd"] if arch.startswith("mamba") else ["rglru_scan_bwd"])
+    assert "budget 35 s" in text
+
+
+def test_train_scans_refuse_the_plain_scan_on_the_card(train_smoke, monkeypatch):
+    """A scan that takes its plain version where the card's kernel should
+    run (the CPU path's call) fails the part."""
+    smoke, _, scans, _ = train_smoke
     monkeypatch.setattr(ops, "rglru_scan", lambda a, b, h0=None: ref.rglru_scan_ref(a, b, h0))
-    with pytest.raises(AssertionError, match="without a backward kernel"):
-        smoke.scan_gradients_refused(torch.device("cpu"), 0)
+    with pytest.raises(AssertionError, match="plain version ran on the card"):
+        smoke.train_scans(torch.device("cpu"), 0,
+                          {"recurrentgemma-9b": scans["recurrentgemma-9b"]})
 
 
 @pytest.mark.parametrize("losses", [[3.0, 2.5, float("nan")], [3.0, 3.1, 3.2],
@@ -1185,7 +1265,8 @@ def test_check_phase_time_refuses_a_phase_past_its_limit(smoke):
         smoke.check_phase_time("train", 150.1, smoke.TRAIN_PHASE_LIMIT_S)
 
 
-@pytest.mark.parametrize("name", ["rmsnorm_bwd", "flash_attention_bwd"])
+@pytest.mark.parametrize("name", ["rmsnorm_bwd", "flash_attention_bwd", "ssd_scan_bwd",
+                                  "rglru_scan_bwd"])
 def test_check_readings_refuses_a_backward_time_under_its_bound(smoke, name):
     rec = {"name": name, "ms": 0.5, "library_ms": 0.9, "bound_ms": 0.6}
     with pytest.raises(AssertionError, match="under its bound"):
