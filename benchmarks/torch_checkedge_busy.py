@@ -62,7 +62,7 @@ def main() -> int:
 
     calls = {f"{name} x{cs.POINT_PAIRS}": (name, u, v) for name, (u, v) in
              cs.edge_pairs(net, np.random.default_rng(cs.SEED + 2), device).items()}
-    (u, v), (du, dv) = cs.panel_pairs(panel, n, cs.SEED, device)
+    (u, v), (du, dv) = cs.panel_pairs(panel, min(cs.PANEL_NODES, n), cs.SEED, device)
     calls[f"Panel x{cs.POINT_PAIRS}"] = ("Panel", u, v)
     calls[f"Panel x{cs.DYAD_PAIRS} (dyad sample)"] = ("Panel", du, dv)
     for label, (name, u, v) in calls.items():

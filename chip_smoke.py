@@ -36,8 +36,10 @@ fails (non-zero exit) if any phase fails:
               torch's sort), recording the rows of the heaviest count-only
               launch;
 6. panel    — a Panel layer on the same nodes, register panel memberships
-              (1 + geometric, mean 20, cap 512, over n/20 groups: ~200M at
-              10M nodes), with its own launch counts: getedge and
+              for the first half of them (1 + geometric, mean 20, cap 512,
+              over n/40 groups: ~100M at 10M nodes; cut from all n for the
+              smoke's time), its pairs drawn among them, with its own
+              launch counts: getedge and
               checkedge x8192 and one checkedge x1,048,576 dyad sample,
               each with its wall time, device busy and idle share, busiest
               device activities and launches a call (intersect_rows once a
@@ -223,8 +225,9 @@ fails (non-zero exit) if any phase fails:
               network, 4 walks of 2,048 nodes over its four layers, drawn
               before the steps; counts reset before and read after
               (rmsnorm, flash_attention and their backward kernels
-              rmsnorm_bwd and flash_attention_bwd must launch; the copy and
-              FMA-route counts stay 0); each step's loss (finite, the last
+              rmsnorm_bwd and flash_attention_bwd must launch, the latter on
+              its tensor-core route from the forward's o, o_lo and lse; the
+              copy and FMA-route counts stay 0); each step's loss (finite, the last
               below the first), ms and tokens/s, one more step timed in parts
               (forward, backward, optimizer), max_memory_allocated. Then at 2
               of the 28 layers (full width and vocabulary) 4 steps without a
@@ -273,11 +276,19 @@ fails (non-zero exit) if any phase fails:
               its bound fails the phase. ``rglru_scan`` cold (CUDA events,
               the L2 flushed) at the lm_families phase's heaviest launch,
               bound by the bytes it moves, no library call. The backward
-              kernels cold at the train phase's heaviest recorded shape,
-              with the library's backward (SDPA's, ``F.rms_norm``'s autograd)
-              cold beside them; flash's bound is 2.5 times the forward's
-              causal flops at the bf16 tensor-core peak, rmsnorm's the bytes
-              of x, w and dy read and dx written; ``ssd_scan_bwd`` and
+              kernels cold at the train phase's heaviest recorded shape
+              (rmsnorm_bwd also at the q-norm width, 128), with the library's
+              backward (SDPA's, ``F.rms_norm``'s autograd) cold beside them
+              (both also printed with the card spun ahead of the host: the
+              device time alone, the gap the wrapper's host work);
+              flash's time is every launch of its backward from the saved
+              forward outputs, the Dd pass included, its bound the larger of
+              2.5 times the forward's causal flops at the bf16 tensor-core
+              peak and its bytes (q, k, v, dO, o, o_lo and lse read, dq, dk,
+              dv written); the flash forward under grad (o_lo and lse
+              written) is printed beside the ordinary call at the lm phase's
+              shape; rmsnorm's bound is the bytes of x, w and dy read and dx
+              written; ``ssd_scan_bwd`` and
               ``rglru_scan_bwd`` with no library call (none computes either
               gradient), the SSD's bound the larger of its bytes and 2.5
               times the chunked products at the backward's own chunk at the
@@ -340,11 +351,16 @@ HUB_ORACLE_QUERIES = 64
 # memberships/node" (src/repro/kernels/intersect.py:6-11). Random pairs then
 # fall ~11 % into the 8-wide bucket of max(deg u, deg v), ~54 % into the 32,
 # ~35 % into the 128 and ~0.3 % above. A run that must be cut lowers
-# PANEL_NODES (the nodes given memberships) only; the law per node stays.
+# PANEL_NODES (the nodes given memberships, among whom the Panel's pairs
+# are drawn) only; the law per node stays. Cut to half the nodes: with all
+# 10M (200M memberships) the whole smoke took 1,179.9-1,203.5 s of its
+# 1,200 on slow hosts (qwen3 decode 90-96 ms a step against 43 on others),
+# and the layer's build and pairs 196.9 s against 95.4 at half, on one
+# NVIDIA H100 80GB HBM3 host (benchmarks/torch_smoke_cuts.py).
 PANEL_MEAN = 20.0
 PANEL_CAP = 512
 PANEL_NODES_PER_GROUP = 20.0
-PANEL_NODES = N_NODES
+PANEL_NODES = N_NODES // 2
 DYAD_PAIRS = 1 << 20  # one dyad sample, as threadleR's sampling analyses draw
 PAIR_CHUNK = 1 << 16  # pairs drawn at a time by panel_pairs
 L2_FLUSH_BYTES = 256 << 20  # written between cold launches (the L2 is 50 MB)
@@ -424,10 +440,13 @@ TEMPORAL_WALKERS = 1024
 # 10,000 new incomes. They are batches of these sizes, not a measured
 # span of a register's churn. STORE_NODES sizes the network the durable
 # store and the CLI's savestore and recovernet run on (the same recipe
-# and changes): cut to 1M nodes. At 10M the store's zlib snapshot of
-# 1.4 GB took 103.9 s to write and 68.6 s to inflate and replay, and the
+# and changes): cut to 500,000 nodes. At 10M the store's zlib snapshot
+# of 1.4 GB took 103.9 s to write and 68.6 s to inflate and replay, and the
 # CLI's own savestore and recovernet 134.2 s, on an NVIDIA H100 80GB HBM3
-# host, where the phase has about 240 s.
+# host, where the phase has about 240 s; at 1M the store's part took
+# 78.3 s against 40.5 at 500,000 on one such host
+# (benchmarks/torch_smoke_cuts.py), in smokes of 1,179.9-1,203.5 s of
+# their 1,200 on slow hosts.
 REG_MOVES = 10_000
 REG_NEW_GROUPS = 100
 REG_NEW_MEMBERS = 1_000
@@ -436,7 +455,7 @@ REG_RANDOM_DELETES = 10_000
 REG_SCHOOL_JOINS = 10_000
 REG_FIRST_NEW_SCHOOL = 1 << 16
 REG_INCOME_UPDATES = 10_000
-STORE_NODES = 1_000_000
+STORE_NODES = 500_000
 STORAGE_WALK_STARTS = 65_536
 STORAGE_WALK_STEPS = 40
 STORAGE_REPEATS = 3
@@ -984,7 +1003,7 @@ def panel_membership_chunks(n_nodes: int, n_groups: int, seed: int):
 
 def build_panel(n_nodes: int, seed: int, device):
     """The Panel layer over ``n_nodes`` nodes, of which the first
-    PANEL_NODES hold memberships (all of them uncut), n/20 groups."""
+    PANEL_NODES hold memberships, one group for every 20 of them."""
     from repro_torch.core.layers import two_mode_from_membership_chunks
 
     members = min(PANEL_NODES, n_nodes)
@@ -1006,8 +1025,9 @@ def build_panel(n_nodes: int, seed: int, device):
 
 
 def panel_pairs(layer, n: int, seed: int, device) -> tuple:
-    """The Panel calls' ids: POINT_PAIRS pairs, then DYAD_PAIRS dyads drawn
-    PAIR_CHUNK at a time (``pair_ids``: half of each draw co-members)."""
+    """The Panel calls' ids among its first ``n`` nodes (those holding
+    memberships): POINT_PAIRS pairs, then DYAD_PAIRS dyads drawn PAIR_CHUNK
+    at a time (``pair_ids``: half of each draw co-members)."""
     rng = np.random.default_rng(seed + 12)
     point = pair_ids(layer, n, POINT_PAIRS, rng, device)
     parts = [pair_ids(layer, n, min(PAIR_CHUNK, DYAD_PAIRS - i), rng, device)
@@ -1138,7 +1158,7 @@ def phase_panel(net, seed: int, device) -> dict:
 
     layer = build_panel(net.n_nodes, seed, device)
     panel = api.createnetwork(net.nodeset).with_layer("Panel", layer)
-    (u, v), (du, dv) = panel_pairs(layer, net.n_nodes, seed, device)
+    (u, v), (du, dv) = panel_pairs(layer, min(PANEL_NODES, net.n_nodes), seed, device)
     calls = {
         f"getedge x{POINT_PAIRS}": Counted(lambda: api.getedge(panel, "Panel", u, v)),
         f"checkedge x{POINT_PAIRS}":
@@ -1429,11 +1449,17 @@ def phase_timing(net, queries: dict, seed: int, launches: dict, worst: dict,
     return records
 
 
-def cold_ms(fn, iters: int) -> float:
+HOST_AHEAD_CYCLES = 2_000_000  # about 1 ms of the H100's 1.98 GHz clock
+
+
+def cold_ms(fn, iters: int, host_ahead: bool = False) -> float:
     """Mean device time of one call of ``fn`` with the L2 flushed before
     each (L2_FLUSH_BYTES written, then CUDA events around the call alone),
     after a warm-up: the time a caller pays when the rows it reads are not
-    in the L2."""
+    in the L2 (host time that outlasts the flush on the card included).
+    ``host_ahead`` spins the card for HOST_AHEAD_CYCLES between the flush
+    and the start event, so the host has enqueued the call's launches
+    before the events open and they time the card's work alone."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -1442,6 +1468,8 @@ def cold_ms(fn, iters: int) -> float:
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        if host_ahead:
+            torch.cuda._sleep(HOST_AHEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -4313,6 +4341,7 @@ class KernelInputs:
         self.label = label
         self.names = self.NAMES if names is None else names
         self.seen = {}  # (kernel, label, shapes) -> (args, kwargs)
+        self.calls = collections.Counter()  # (kernel, label, shapes) -> calls
 
     def __enter__(self):
         import torch
@@ -4326,6 +4355,7 @@ class KernelInputs:
                 key = (name, self.label, tuple(
                     (tuple(a.shape), str(a.dtype)) for a in args
                     if isinstance(a, torch.Tensor)))
+                self.calls[key] += 1
                 if key not in self.seen:
                     self.seen[key] = (
                         [a.clone() if isinstance(a, torch.Tensor) else a
@@ -4970,6 +5000,8 @@ def lm_timing(lm: dict) -> list:
             nbytes, ops_count, shape, ops_rate=rate, library=library,
             library_none=library_none,
         ))
+        if name == "flash_attention":
+            flash_grad_forward(kernel_fn, args, kw, shape)
         del kernel, plain, library
         torch.cuda.empty_cache()
     _, label, args, kw = heaviest["rmsnorm"]
@@ -4979,6 +5011,16 @@ def lm_timing(lm: dict) -> list:
             rmsnorm_timing(args, kw, label, lm)  # printed, not a record
             break
     return records
+
+
+def flash_grad_forward(kernel_fn, args, kw, shape: str) -> None:
+    """Prints the flash forward under grad (o_lo and lse written for the
+    backward) beside an ordinary call at the same inputs, both cold."""
+    ordinary = cold_ms(lambda: kernel_fn(*args, **kw), 10)
+    grad = cold_ms(lambda: kernel_fn(*args, residuals=True, **kw), 10)
+    log(f"lm: flash_attention forward at {shape}: under grad (o_lo and lse written) "
+        f"{grad:.4f} ms cold, an ordinary call {ordinary:.4f} ms cold "
+        f"({grad / ordinary:.3f}x); {device_line(CLOCK_FIELDS)}")
 
 
 COLD_BUFFERS = 3  # input/output pairs of a cold rmsnorm timing
@@ -5121,7 +5163,9 @@ def bwd_plain(name: str, args, kwargs) -> list:
         return [(out, t) for out, t in zip(("da", "db", "dh0"),
                                            ref.rglru_scan_bwd_loop(*args))
                 if t is not None]
-    return list(zip(("dq", "dk", "dv"), ref.attention_bwd_ref(*args, **kwargs)))
+    # flash: q, k, v, dO, then the forward's o, o_lo and lse on the
+    # tensor-core route
+    return list(zip(("dq", "dk", "dv"), ref.attention_bwd_ref(*args[:4], **kwargs)))
 
 
 def bwd_kernel_checks(seen: dict) -> dict:
@@ -5452,18 +5496,19 @@ def train_full(batch_at, cfg, device, seed: int) -> dict:
         f"max_memory_allocated {peak} ({peak / 1e9:.2f} GB); {device_line()}")
     check_losses(cfg.name, losses)
     assert_launched("train", launches, TRAIN_KERNELS)
-    for key in ("flash_attention_fma", "flash_attention_copies",
-                "flash_attention_bwd_copies"):
+    for key in ("flash_attention_fma", "flash_attention_bwd_fma",
+                "flash_attention_copies", "flash_attention_bwd_copies"):
         if launches.get(key, 0):
             raise AssertionError(f"train: {key} read {launches[key]}: bf16 attention at "
-                                 "head dim 128 must read the layer's layout uncopied")
+                                 "head dim 128 must take the tensor-core routes and "
+                                 "read the layer's layout uncopied")
 
     split = step_parts(model, trainer, state, batch_at(0))
     log(f"train: one step in parts (ms): {json.dumps(split)}")
     del model, trainer, state
     torch.cuda.empty_cache()
     return {"losses": losses, "step_ms": step_ms, "launches": launches, "peak": peak,
-            "seen": rec.seen, "split": split}
+            "seen": rec.seen, "calls": rec.calls, "split": split}
 
 
 def train_resume(batch_at, cfg, device, seed: int) -> None:
@@ -5615,16 +5660,29 @@ def train_timing(train: dict) -> list:
         size = (args[0].numel(), args[0].shape[-1])
         if name not in heaviest or size > heaviest[name][0]:
             heaviest[name] = (size, label, args, kwargs)
+    entries = [(name, None) + heaviest[name][1:]
+               for name in TRAIN_RECORDED + TRAIN_SCAN_RECORDED]
+    # rmsnorm_bwd at qwen3's q/k-norm width too: by elements its heaviest
+    # call ties with the hidden norm's, which the choice above keeps
+    narrow = sorted(((args[0].numel(), label, args, kw) for (name, label, _), (args, kw)
+                     in seen.items() if name == "rmsnorm_bwd"
+                     and args[0].shape[-1] == QNORM_WIDTH), key=lambda e: e[0])
+    narrow_calls = sum(n for (name, _, shapes), n in train.get("calls", {}).items()
+                       if name == "rmsnorm_bwd" and shapes[0][0][-1] == QNORM_WIDTH)
+    if narrow and heaviest["rmsnorm_bwd"][2][0].shape[-1] != QNORM_WIDTH:
+        at = [e[0] for e in entries].index("rmsnorm_bwd")
+        entries[at] = entries[at][:1] + ("wide",) + entries[at][2:]
+        entries.insert(at + 1, ("rmsnorm_bwd", "narrow") + narrow[-1][1:])
     records = []
-    for name in TRAIN_RECORDED + TRAIN_SCAN_RECORDED:
-        _, label, args, kw = heaviest[name]
+    for name, part, label, args, kw in entries:
         kernel_fn = lm_kernel(name)
         el = args[0].element_size()
         library, source = None, name
         replaces = ("none: no TPU kernel (the JAX package differentiates its plain "
                     "path; forward {})")
+        launches_of = int(launches.get(name, 0))
         if name == "flash_attention_bwd":
-            q, k, v, do = args
+            q, k, v, do = args[:4]
             B, Hq, S, D = q.shape
             qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
             out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=kw["causal"],
@@ -5632,6 +5690,8 @@ def train_timing(train: dict) -> list:
             library = lambda: torch.autograd.grad(  # noqa: E731
                 out, (qr, kr, vr), do, retain_graph=True)
             nbytes = el * 3 * (q.numel() + k.numel())  # q, dO, dq; k, v, dk, dv
+            if len(args) > 4 and args[4] is not None:  # the forward's o, o_lo, lse
+                nbytes += 2 * el * q.numel() + 4 * B * Hq * S
             ops_count = 2.5 * 4 * B * Hq * D * S * (S + 1) / 2
             rate = BF16_TENSOR_OPS_PER_S
             shape = (f"q [{B},{Hq},{S},{D}], kv [{B},{k.shape[1]},{S},{D}] {q.dtype}, "
@@ -5650,6 +5710,12 @@ def train_timing(train: dict) -> list:
             ops_count = 8 * R * D
             rate = SCALAR_OPS_PER_S
             shape = f"[{R},{D}] {x.dtype}, cold ({label})"
+            if part == "narrow":
+                launches_of = narrow_calls
+                shape += f"; launches: width {QNORM_WIDTH}"
+            elif part == "wide":
+                launches_of -= narrow_calls
+                shape += f"; launches: every width but {QNORM_WIDTH}"
             replaces = replaces.format("src/repro/kernels/rmsnorm.py:33")
             source = "rmsnorm"
         elif name == "ssd_scan_bwd":
@@ -5685,16 +5751,21 @@ def train_timing(train: dict) -> list:
             raise AssertionError(f"timing: {name}: a second launch on the same inputs "
                                  "gave other bits")
         ms = cold_ms(lambda: kernel_fn(*args, **kw), 10)
-        if name == "ssd_scan_bwd":
-            ssd_bwd_split(lambda: kernel_fn(*args, **kw))
+        if name == "ssd_scan_bwd" or (name == "flash_attention_bwd" and len(args) > 4):
+            bwd_split(name, lambda: kernel_fn(*args, **kw))
         library_ms = None if library is None else cold_ms(library, 10)
+        # the same two readings with the card spun ahead of the host, so the
+        # events hold device time only (printed beside, not recorded): the
+        # gap to the reading above is the wrapper's host time
+        device_only = [cold_ms(f, 10, host_ahead=True) for f in
+                       (lambda: kernel_fn(*args, **kw), library) if f is not None]
         plain_ms = cuda_ms(lambda: bwd_plain(name, args, kw), 2)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops_count / rate * 1e3
         rec = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}.cu",
-            "replaces": replaces, "launches": int(launches.get(name, 0)),
+            "replaces": replaces, "launches": launches_of,
             "max_abs_err": train["worst"][name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -5706,7 +5777,9 @@ def train_timing(train: dict) -> list:
         log(f"timing: {name} at {shape}: kernel {ms:.4f} ms cold, "
             f"{ms / rec['bound_ms']:.2f}x its bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}: bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); plain "
-            f"{plain_ms:.4f} ms; {lib}; a second launch bit-identical; "
+            f"{plain_ms:.4f} ms; {lib}; device time only (the card spun ahead of the "
+            f"host): kernel {' library '.join(f'{t:.4f}' for t in device_only)} ms; "
+            f"a second launch bit-identical; "
             f"{rec['launches']} launches in the train phase; {device_line(CLOCK_FIELDS)}")
         records.append(check_readings(rec))
         del library
@@ -5714,23 +5787,30 @@ def train_timing(train: dict) -> list:
     return records
 
 
-def ssd_bwd_split(call) -> None:
-    """Prints the device time of the SSD backward's two kernels apart (the
-    profiler, 3 calls after a warm-up), or "not measured" where the window
-    lost them."""
+#: the backward kernels whose device time ``bwd_split`` prints apart
+BWD_SPLIT_KERNELS = {
+    "ssd_scan_bwd": ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel"),
+    "flash_attention_bwd": ("flash_bwd_dd_kernel", "flash_bwd_dkdv_kernel",
+                            "flash_bwd_dq_kernel"),
+}
+
+
+def bwd_split(name: str, call) -> None:
+    """Prints the device time of a backward's kernels apart (the profiler,
+    3 calls after a warm-up), or "not measured" where the window lost
+    them."""
     try:
         acts = device_activity(call, 3)
     except ProfilerLostEvents:
-        log("timing: ssd_scan_bwd kernels apart: not measured (profiler lost the "
-            "window)")
+        log(f"timing: {name} kernels apart: not measured (profiler lost the window)")
         return
-    parts = {k: [0, 0.0] for k in ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel")}
+    parts = {k: [0, 0.0] for k in BWD_SPLIT_KERNELS[name]}
     for act, (n, us) in acts.items():
         for k, tally in parts.items():
             if k in act:
                 tally[0] += n
                 tally[1] += us
-    log("timing: ssd_scan_bwd kernels apart (profiler, warm): " + ", ".join(
+    log(f"timing: {name} kernels apart (profiler, warm): " + ", ".join(
         f"{k} {us / max(n, 1) / 1e3:.4f} ms a call ({n} events)"
         for k, (n, us) in parts.items()))
 
@@ -5785,17 +5865,30 @@ def run() -> int:
     assert_no_sort_rows("main", launches)
     log(f"main: latencies ms {json.dumps(latencies, sort_keys=True)}")
 
+    def mark(phase: str) -> None:  # where the smoke's time goes, phase by phase
+        log(f"elapsed: {time.perf_counter() - t_start:.1f} s after {phase}")
+
+    mark("main")
     panel = phase_panel(net, SEED, device)
     phase_oracle(net, panel["net"], median_income, SEED, device)
+    mark("panel and oracle")
     phase_hubs(net, median_income, device)
     traversal = phase_traversal(net, median_income, SEED, device)
+    mark("hubs and traversal")
     sampling = phase_sampling(net, median_income, SEED, device)
+    mark("sampling")
     phase_storage(net, median_income, SEED, device)
+    mark("storage")
     phase_serving(net, median_income, device)
+    mark("serving")
     sharded = phase_sharded(net, median_income, SEED, device)
+    mark("sharded")
     lm = phase_lm(device, SEED)
+    mark("lm")
     families = phase_lm_families(device, SEED)
+    mark("lm_families")
     train = phase_train(net, device, SEED)
+    mark("train")
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
                            panel, traversal, sampling, lm, device)
     for rec in records:  # the launch columns include the later phases'

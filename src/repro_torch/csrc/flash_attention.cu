@@ -47,7 +47,12 @@
 // ragged tail when not causal) is masked; the others are full. The TMA
 // descriptors are 4-D (D, S, H, B) over the caller's strides, so q, k, v
 // are read in the layer's [B, S, H, D] layout and o is written straight
-// into it; rows past S are zero-filled by TMA and not stored.
+// into it; rows past S are zero-filled by TMA and not stored. Under grad
+// the epilogue also writes what the backward (flash_attention_bwd.cu) would
+// otherwise recompute: each row's log-sum-exp, from the running max and
+// sum, and o_lo = bf16(o_f32 - bf16(o_f32)), so that rowsum(dO o O) can be
+// formed from o + o_lo at 16 significant bits; an ordinary call passes null
+// pointers and writes neither. The products are in csrc/wgmma.cuh.
 //
 // flash_fma_kernel. One block of 128 threads per (q tile, b*hq). A q tile
 // is 64 rows (32 for D = 256, to keep the accumulator at 64 registers a
@@ -65,6 +70,7 @@
 #include <stdint.h>
 
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -365,10 +371,10 @@ constexpr int kWgBM = 128;  // q rows per block: two consumer warpgroups of 64
 constexpr int kWgBN = 128;  // keys per K/V tile (== kWgBM: one diagonal tile)
 constexpr int kStages = 2;  // K/V ring depth
 constexpr int kWgThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kBoxCols = 64;  // head-dim columns per TMA box: one 128-byte row,
-                              // the span of the 128-byte swizzle
-constexpr int kBoxRowBytes = kBoxCols * 2;
+using wg::kBoxCols;
+constexpr int kBoxRowBytes = wg::kRowBytes;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory: Q [D/64 boxes][128 rows][64], then per stage K and V tiles
 // of the same shape, then the mbarriers. Every box is 1024-byte aligned, as
@@ -388,161 +394,22 @@ using tma::mbar_init;
 using tma::mbar_wait;
 using tma::smem_u32;
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`:
-// lbo / sbo in bytes (the stride between 64-column boxes along the MN axis
-// of an MN-major operand; the stride between groups of 8 rows).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous issue and the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// d[0:64] (+)= A B for A [64 x 16] and B [16 x 128], both K-major in shared
-// memory (descriptors), f32 accumulators; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d[0:64] += A B for A [64 x 16] bf16 in registers (the m16n8k16 A
-// fragment of each warp's 16 rows) and B [16 x 128] MN-major in shared memory
-// (transposed descriptor), f32 accumulators.
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(1));
-}
-
-// d[0:32] += A B for A [64 x 16] bf16 in registers (the m16n8k16 A
-// fragment of each warp's 16 rows) and B [16 x 64] MN-major in shared memory
-// (transposed descriptor), f32 accumulators.
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* p, uint64_t b) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(o, p, b);
-  } else {
-    static_assert(D == 64, "head dim 64 or 128");
-    wgmma_rs_n64(o, p, b);
-  }
-}
-
 // q, k, v: 4-D (D, S, H, B) bf16 maps with 64 x 128 x 1 x 1 boxes; out:
 // bf16 at out + b*o_sb + s*o_ss + h*o_sh + d. Block x: (q tile, b*heads),
-// heaviest q tiles first.
+// heaviest q tiles first. Under grad the caller also passes o_lo (o's
+// layout: bf16(o_f32 - bf16(o_f32)), the part of the f32 output that the
+// bf16 o drops) and lse (f32 [b*heads][s_len], each row's natural
+// log-sum-exp of its scaled scores); both are null otherwise and nothing
+// more is written.
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ out, int64_t o_sb,
-                       int64_t o_ss, int64_t o_sh, int heads, int bhq, int s_len,
-                       int group, int n_qt, float scale_log2, int causal) {
+                       __nv_bfloat16* __restrict__ out,
+                       __nv_bfloat16* __restrict__ o_lo, float* __restrict__ lse,
+                       int64_t o_sb, int64_t o_ss, int64_t o_sh, int heads, int bhq,
+                       int s_len, int group, int n_qt, float scale_log2, int causal) {
   using SM = WgSmem<D>;
   constexpr int kBoxes = D / kBoxCols;
   extern __shared__ uint8_t smem_raw[];
@@ -631,18 +498,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int k0 = (n_kv - 1 - it) * kWgBN;
 
       mbar_wait(k_full(st), ph);
-      fence_regs<kWgBN / 2>(s);
-      wgmma_fence();
+      wg::fence_regs<kWgBN / 2>(s);
+      wg::fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         // 16 head-dim columns: box kk / 4, 32 bytes further per step
-        const uint32_t off = (kk / 4) * SM::kBoxBytes + (kk % 4) * 32;
-        wgmma_ss_n128(s, sw128_desc(q_rows + off, 16, 8 * kBoxRowBytes),
-                      sw128_desc(k_tile(st) + off, 16, 8 * kBoxRowBytes), kk > 0);
+        wg::ss_n128(s, wg::kmajor(q_rows, kk, SM::kBoxBytes),
+                    wg::kmajor(k_tile(st), kk, SM::kBoxBytes), kk > 0);
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs<kWgBN / 2>(s);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs<kWgBN / 2>(s);
 
       if (it == 0) {
 #pragma unroll
@@ -702,23 +568,22 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i % 4) / 2];
 
       mbar_wait(v_full(st), ph);
-      fence_regs<D / 2>(o);
-      wgmma_fence();
+      wg::fence_regs<D / 2>(o);
+      wg::fence();
 #pragma unroll
       for (int kk = 0; kk < kWgBN / 16; ++kk) {
         // 16 keys: rows 16kk.. of every 64-column box of V
-        const uint64_t vd = sw128_desc(v_tile(st) + kk * 16 * kBoxRowBytes,
-                                       SM::kBoxBytes, 8 * kBoxRowBytes);
-        wgmma_pv<D>(o, p_hi[kk], vd);
-        wgmma_pv<D>(o, p_lo[kk], vd);
+        const uint64_t vd = wg::mnmajor(v_tile(st), kk, SM::kBoxBytes);
+        wg::rs<D>(o, p_hi[kk], vd);
+        wg::rs<D>(o, p_lo[kk], vd);
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs<D / 2>(o);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs<D / 2>(o);
 #pragma unroll
       for (int kk = 0; kk < kWgBN / 16; ++kk) {
-        fence_regs<4>(p_hi[kk]);
-        fence_regs<4>(p_lo[kk]);
+        wg::fence_regs<4>(p_hi[kk]);
+        wg::fence_regs<4>(p_lo[kk]);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(st));
@@ -732,48 +597,39 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const float inv = 1.f / fmaxf(sum, 1e-30f);
       const int row = r + 8 * hh;
       if (row < s_len) {
-        __nv_bfloat16* orow = out + b * o_sb + row * o_ss + h * o_sh + col;
+        const int64_t at = b * o_sb + row * o_ss + h * o_sh + col;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
-              o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+          const float a = o[4 * j + 2 * hh] * inv;
+          const float c = o[4 * j + 2 * hh + 1] * inv;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+          *reinterpret_cast<__nv_bfloat162*>(out + at + 8 * j) = hi;
+          if (o_lo != nullptr) {
+            const float2 back = __bfloat1622float2(hi);
+            *reinterpret_cast<__nv_bfloat162*>(o_lo + at + 8 * j) =
+                __floats2bfloat162_rn(a - back.x, c - back.y);
+          }
+        }
+        // m is the row's largest raw score: P = 2^((s - m) scale log2 e)
+        if (lse != nullptr && lane % 4 == 0) {
+          lse[static_cast<int64_t>(bh) * s_len + row] =
+              (m[hh] * scale_log2 + log2f(sum)) * kLn2;
         }
       }
     }
   }
 }
 
-// A (D, S, H, B) bf16 map of the tensor at `ptr` with element strides
-// (b, h, s) and unit stride along D, boxes of 64 x 128 x 1 x 1.
-bool encode(CUtensorMap* map, const void* ptr, int batch, int heads, int s_len,
-            int d, const int64_t* strides) {
-  const tma::EncodeTiled fn = tma::encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(s_len),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
-                               static_cast<cuuint64_t>(strides[1]) * 2,
-                               static_cast<cuuint64_t>(strides[0]) * 2};
-  const cuuint32_t box[4] = {kBoxCols, kWgBN, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-            bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int batch,
-                 int heads, int kv_heads, int s_len, const int64_t* qs,
-                 const int64_t* ks, const int64_t* vs, const int64_t* os,
-                 float scale, int causal, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, void* o_lo,
+                 float* lse, int batch, int heads, int kv_heads, int s_len,
+                 const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                 const int64_t* os, float scale, int causal, cudaStream_t stream) {
   using SM = WgSmem<D>;
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, batch, heads, s_len, D, qs) ||
-      !encode(&tk, k, batch, kv_heads, s_len, D, ks) ||
-      !encode(&tv, v, batch, kv_heads, s_len, D, vs)) {
+  if (!wg::encode_bshd(&tq, q, batch, heads, s_len, D, qs, kWgBM) ||
+      !wg::encode_bshd(&tk, k, batch, kv_heads, s_len, D, ks, kWgBN) ||
+      !wg::encode_bshd(&tv, v, batch, kv_heads, s_len, D, vs, kWgBN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t e = cudaFuncSetAttribute(
@@ -786,8 +642,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int bat
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   flash_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kWgThreads, SM::kBytes,
                           stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), os[0], os[2], os[1], heads,
-      static_cast<int>(bhq), s_len, heads / kv_heads, n_qt, scale * kLog2e, causal);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(o_lo),
+      lse, os[0], os[2], os[1], heads, static_cast<int>(bhq), s_len, heads / kv_heads,
+      n_qt, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -797,12 +654,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int bat
 // kv_heads, s_len, d] bf16, out: [batch, heads, s_len, d] bf16, each at any
 // element strides (b, h, s) given in *_strides, with unit stride along d,
 // 16-byte-aligned bases and strides of a multiple of 16 bytes (TMA's rule);
-// d in {64, 128}; heads a multiple of kv_heads. Launches on `stream`;
-// returns cudaGetLastError() (or the attribute call's error, or
-// cudaErrorInvalidValue when a tensor map cannot be encoded).
+// d in {64, 128}; heads a multiple of kv_heads. o_lo (out's strides) and
+// lse (f32 [batch * heads, s_len]) are null, or, under grad, where the
+// kernel also writes the residual of o and each row's log-sum-exp for the
+// backward. Launches on `stream`; returns cudaGetLastError() (or the
+// attribute call's error, or cudaErrorInvalidValue when a tensor map cannot
+// be encoded).
 extern "C" int flash_attention_wgmma_launch(
-    const void* q, const void* k, const void* v, void* out, int batch, int heads,
-    int kv_heads, int s_len, int d, const int64_t* q_strides,
+    const void* q, const void* k, const void* v, void* out, void* o_lo, float* lse,
+    int batch, int heads, int kv_heads, int s_len, int d, const int64_t* q_strides,
     const int64_t* k_strides, const int64_t* v_strides, const int64_t* o_strides,
     float scale, int causal, cudaStream_t stream) {
   if (batch < 0 || s_len < 0 || kv_heads < 1 || heads < kv_heads ||
@@ -811,11 +671,13 @@ extern "C" int flash_attention_wgmma_launch(
   }
   if (batch == 0 || s_len == 0) return 0;
   if (d == 64) {
-    return launch_wgmma<64>(q, k, v, out, batch, heads, kv_heads, s_len, q_strides,
+    return launch_wgmma<64>(q, k, v, out, o_lo, lse, batch, heads, kv_heads, s_len,
+                            q_strides,
                             k_strides, v_strides, o_strides, scale, causal, stream);
   }
   if (d == 128) {
-    return launch_wgmma<128>(q, k, v, out, batch, heads, kv_heads, s_len, q_strides,
+    return launch_wgmma<128>(q, k, v, out, o_lo, lse, batch, heads, kv_heads, s_len,
+                             q_strides,
                              k_strides, v_strides, o_strides, scale, causal, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);

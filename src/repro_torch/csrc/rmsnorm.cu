@@ -25,21 +25,26 @@
 // take rmsnorm_any_kernel: a warp per row and a second pass over the row,
 // from cache. 8 warps a block either way.
 //
-// Backward (rmsnorm_bwd_kernel, rmsnorm_dw_kernel). Replaces no TPU kernel:
-// the JAX package trains through its plain path (no custom_vjp on the
-// Pallas kernel), so this gradient is new. For y = x * r * (w + plus),
-// r = rsqrt(mean(x^2) + eps):
+// Backward (rmsnorm_bwd_rows_kernel or rmsnorm_bwd_any_kernel, then
+// rmsnorm_dw_kernel). Replaces no TPU kernel: the JAX package trains
+// through its plain path (no custom_vjp on the Pallas kernel), so this
+// gradient is new. For y = x * r * (w + plus), r = rsqrt(mean(x^2) + eps):
 //   dx = r * (dy * (w + plus)) - x * r^3 * mean(dy * (w + plus) * x)
 //   dw = sum over rows of dy * x * r
 // with f32 statistics; dx is rounded once to x's dtype, dw stays f32.
-// Bound on this card: memory (read x, w, dy; write dx). One warp per row,
-// two passes over the row (the second from cache): the first reduces the
-// sum of squares and the dot, the second writes dx and adds dy * x * r
-// into the warp's own f32 row of dw partials in shared memory (each lane
-// owns fixed columns, so no atomics). A fixed number of blocks walks the
-// rows in a fixed order; each block then sums its warps' partials in warp
-// order into one row of a [blocks, D] buffer, which rmsnorm_dw_kernel sums
-// over the blocks in block order. The result is the same run to run.
+// Bound on this card: memory (read x, w, dy; write dx). At the widths of
+// the training path, one pass from registers (rmsnorm_bwd_rows_kernel): a
+// lane keeps its share of each row's x and dy as the forward does (rows of
+// 128 two to a warp), several rows' worth in flight, and adds its fixed
+// columns of dy * x * r into registers over every row its warp takes; the
+// block's warps meet once, at the end, in shared memory laid out so that
+// no access conflicts. Other widths and unaligned rows take a warp per row
+// and two passes (rmsnorm_bwd_any_kernel), with conflict-free per-warp
+// partial rows in shared memory. Either way a number of blocks fixed by the
+// shape (bwd_plan below: at most kBwdBlocks = 528, whatever the card)
+// writes one row each of a [blocks, d] buffer, and rmsnorm_dw_kernel sums
+// it in a fixed order over d / 32 blocks of 512 threads. No atomics: the
+// same dx and dw run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -255,25 +260,176 @@ int launch(const void* xv, const float* w, void* outv, int64_t rows, int d,
 // Backward
 // ---------------------------------------------------------------------------
 
-// blocks of the backward: a constant, so the order of dw's sums depends
-// on the shape alone and not on the card
-constexpr int kBwdMaxBlocks = 528;
-constexpr int kBwdSmemBytes = 200 * 1024;  // the warps' dw partials
+constexpr int kBwdWarps = 4;  // warps a block of rmsnorm_bwd_rows_kernel
+constexpr int kBwdAnySmemBytes = 200 * 1024;  // rmsnorm_bwd_any_kernel's partials
+// The backward's blocks at most, each one row of dw partials: a constant, so
+// the order of dw's sums depends on the shape alone, not on the card (four
+// blocks of kBwdWarps warps for each of an H100's 132 SMs).
+constexpr int kBwdBlocks = 528;
+constexpr int kDwCols = 32;   // columns a block of rmsnorm_dw_kernel
+constexpr int kDwSplit = 16;  // interleaved runs of partial rows it sums apart
 
-// Rows of x, dy and dx are [rows, d] contiguous. kVecPath: d is a multiple
-// of the 16-byte vector and the bases are 16-byte aligned.
+// Four weights through the read-only cache, reloaded at every use: the
+// compiler may not hoist this load out of the row loop, where the weights of
+// a 2,048-wide row (64 a lane) would hold registers beside the lane's dw
+// sums and spill.
+__device__ __forceinline__ float4 ldg_weights(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// Rows of exactly kV * kLanes * Vec<T>::kN elements with 16-byte-aligned
+// bases, as the forward's rmsnorm_kernel: kLanes lanes a row (kG = 32 /
+// kLanes rows a warp at once), kV 16-byte vectors of x and of dy a lane,
+// and kU such row groups loaded before the first reduction (kU * kV vectors
+// of each in flight a lane), so each row is read from device memory once.
+// A warp takes rows base + u * kG + g (u < kU, g its lane group) of each
+// block of kG * kU rows, blocks grid-strided over the warps in a fixed
+// order. Each lane owns the same columns in every row it takes, so it adds
+// dy * x * r into registers; at the end the lane groups fold, then the
+// block's warps are summed in warp order into one row of `partial`, in
+// element-major order (element e of vector v at e * nvec + v: consecutive
+// lanes store and read consecutive floats, no bank conflict).
+template <typename T, int kV, int kLanes, int kU>
+__global__ void __launch_bounds__(32 * kBwdWarps)
+    rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                            const T* __restrict__ dy, T* __restrict__ dx,
+                            float* __restrict__ partial, int64_t rows, float eps,
+                            float plus) {
+  constexpr int kN = Vec<T>::kN;
+  constexpr int kNvec = kV * kLanes;  // vectors a row
+  constexpr int kD = kNvec * kN;
+  constexpr int kG = 32 / kLanes;
+  constexpr int kR = kG * kU;
+  __shared__ float red[kBwdWarps * kD];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane / kLanes;
+  const int sub = lane % kLanes;
+  const float inv_d = 1.f / static_cast<float>(kD);
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float acc[kV][kN];
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) acc[i][e] = 0.f;
+  }
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kBwdWarps * kR;
+  for (int64_t base = (static_cast<int64_t>(blockIdx.x) * kBwdWarps + warp) * kR;
+       base < rows; base += stride) {
+    uint4 xr[kU][kV], gr[kU][kV];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int64_t row = base + u * kG + g;
+      const bool live = row < rows;
+      const uint4* xp = reinterpret_cast<const uint4*>(x + (live ? row : 0) * kD);
+      const uint4* gp = reinterpret_cast<const uint4*>(dy + (live ? row : 0) * kD);
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        xr[u][i] = live ? __ldg(xp + sub + i * kLanes) : make_uint4(0, 0, 0, 0);
+        gr[u][i] = live ? __ldg(gp + sub + i * kLanes) : make_uint4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int64_t row = base + u * kG + g;
+      float ss = 0.f, dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        const T* xv = reinterpret_cast<const T*>(&xr[u][i]);
+        const T* gv = reinterpret_cast<const T*>(&gr[u][i]);
+        const int vec = sub + i * kLanes;
+#pragma unroll
+        for (int f = 0; f < kN / 4; ++f) {
+          const float4 t = ldg_weights(w4 + vec * (kN / 4) + f);
+          const float wv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float xf = to_f32(xv[4 * f + e]);
+            ss += xf * xf;
+            dot += to_f32(gv[4 * f + e]) * (wv[e] + plus) * xf;
+          }
+        }
+      }
+      ss = group_sum<kLanes>(ss);
+      dot = group_sum<kLanes>(dot);
+      const float r = rsqrtf(ss * inv_d + eps);
+      const float c = r * r * r * dot * inv_d;
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        const T* xv = reinterpret_cast<const T*>(&xr[u][i]);
+        const T* gv = reinterpret_cast<const T*>(&gr[u][i]);
+        const int vec = sub + i * kLanes;
+        uint4 res;
+        T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+        for (int f = 0; f < kN / 4; ++f) {
+          const float4 t = ldg_weights(w4 + vec * (kN / 4) + f);
+          const float wv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float xf = to_f32(xv[4 * f + e]);
+            const float gf = to_f32(gv[4 * f + e]);
+            o[4 * f + e] = from_f32<T>(r * (gf * (wv[e] + plus)) - c * xf);
+            // a row past the end holds zeros: it adds 0
+            acc[i][4 * f + e] += gf * xf * r;
+          }
+        }
+        if (row < rows) reinterpret_cast<uint4*>(dx + row * kD)[vec] = res;
+      }
+    }
+  }
+  // the lane groups of a warp hold the same columns: fold them into group 0
+#pragma unroll
+  for (int off = kLanes; off < 32; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        acc[i][e] += __shfl_down_sync(0xffffffffu, acc[i][e], off);
+      }
+    }
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        red[warp * kD + e * kNvec + sub + i * kLanes] = acc[i][e];
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < kD; j += blockDim.x) {
+    float s = red[j];
+#pragma unroll
+    for (int k = 1; k < kBwdWarps; ++k) s += red[k * kD + j];
+    partial[static_cast<int64_t>(blockIdx.x) * kD + j] = s;
+  }
+}
+
+// Any width and alignment: a warp per row, two passes over the row (the
+// second from cache); each warp adds dy * x * r into its own f32 row of
+// partials in shared memory (each lane owns fixed columns, so no atomics),
+// element-major where the row is read in 16-byte vectors (nvec = d / kN,
+// no bank conflict), as it lies otherwise (nvec = d); the block then sums
+// its warps' rows in warp order into one row of `partial`.
 template <typename T, bool kVecPath>
-__global__ void rmsnorm_bwd_kernel(const T* __restrict__ x,
-                                   const float* __restrict__ w,
-                                   const T* __restrict__ dy, T* __restrict__ dx,
-                                   float* __restrict__ partial, int64_t rows,
-                                   int d, float eps, float plus) {
+__global__ void rmsnorm_bwd_any_kernel(const T* __restrict__ x,
+                                       const float* __restrict__ w,
+                                       const T* __restrict__ dy, T* __restrict__ dx,
+                                       float* __restrict__ partial, int64_t rows,
+                                       int d, float eps, float plus) {
   extern __shared__ float4 smem4[];
   float* acc_all = reinterpret_cast<float*>(smem4);  // [warps][d]
   constexpr int kN = Vec<T>::kN;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int nvec = d / kN;
   for (int i = threadIdx.x; i < warps * d; i += blockDim.x) acc_all[i] = 0.f;
   __syncthreads();
   float* acc = acc_all + static_cast<int64_t>(warp) * d;
@@ -322,7 +478,7 @@ __global__ void rmsnorm_bwd_kernel(const T* __restrict__ x,
           const float xf = to_f32(xv[e]);
           const float gf = to_f32(gv[e]);
           o[e] = from_f32<T>(r * (gf * (__ldg(w + i + e) + plus)) - c * xf);
-          acc[i + e] += gf * xf * r;
+          acc[e * nvec + i / kN] += gf * xf * r;
         }
         *reinterpret_cast<uint4*>(dr + i) = res;
       }
@@ -343,87 +499,172 @@ __global__ void rmsnorm_bwd_kernel(const T* __restrict__ x,
   }
 }
 
-// dw[j] = sum over the blocks, in block order, of partial[b][j].
-__global__ void rmsnorm_dw_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ dw, int blocks, int d) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= d) return;
+// dw from the [blocks, d] partials: a block per kDwCols columns, kDwSplit
+// warps; warp k sums partial rows k, k + kDwSplit, ... in order (coalesced
+// rows of 32 floats), then one thread a column sums the kDwSplit runs in
+// order. Column j of the partials is element (j % nvec) * (d / nvec) +
+// j / nvec of the row.
+__global__ void __launch_bounds__(kDwCols * kDwSplit)
+    rmsnorm_dw_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                      int blocks, int d, int nvec) {
+  __shared__ float runs[kDwSplit][kDwCols];
+  const int tx = threadIdx.x % kDwCols;
+  const int ty = threadIdx.x / kDwCols;
+  const int j = blockIdx.x * kDwCols + tx;
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[static_cast<int64_t>(b) * d + j];
-  dw[j] = s;
+  if (j < d) {
+    for (int b = ty; b < blocks; b += kDwSplit) s += partial[static_cast<int64_t>(b) * d + j];
+  }
+  runs[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && j < d) {
+    float t = runs[0][tx];
+#pragma unroll
+    for (int k = 1; k < kDwSplit; ++k) t += runs[k][tx];
+    dw[(j % nvec) * (d / nvec) + j / nvec] = t;
+  }
+}
+
+template <typename T, int kV, int kLanes, int kU>
+int launch_bwd_rows(const T* x, const float* w, const T* dy, T* dx, float* partial,
+                    int64_t rows, int blocks, float eps, float plus,
+                    cudaStream_t stream) {
+  rmsnorm_bwd_rows_kernel<T, kV, kLanes, kU><<<blocks, 32 * kBwdWarps, 0, stream>>>(
+      x, w, dy, dx, partial, rows, eps, plus);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kVecPath>
-int launch_bwd_rows(const T* x, const float* w, const T* dy, T* dx,
-                    float* partial, int64_t rows, int d, int warps, int blocks,
-                    float eps, float plus, cudaStream_t stream) {
+int launch_bwd_any(const T* x, const float* w, const T* dy, T* dx, float* partial,
+                   int64_t rows, int d, int warps, int blocks, float eps, float plus,
+                   cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(warps) * d * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      rmsnorm_bwd_kernel<T, kVecPath>,
+      rmsnorm_bwd_any_kernel<T, kVecPath>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_bwd_kernel<T, kVecPath><<<blocks, 32 * warps, smem, stream>>>(
+  rmsnorm_bwd_any_kernel<T, kVecPath><<<blocks, 32 * warps, smem, stream>>>(
       x, w, dy, dx, partial, rows, d, eps, plus);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The register route's instantiations, X(vectors a lane, lanes a row, row
+// groups a warp loads at once): the forward's register widths with at most
+// 8 vectors a lane, about 8 vectors of x and 8 of dy in flight a lane.
+#define RMSNORM_BWD_ROUTES(X) \
+  X(1, 16, 8) X(1, 32, 8) X(2, 32, 4) X(3, 32, 2) X(4, 32, 2) X(6, 32, 1) X(8, 32, 1)
+
+// The backward's launch plan: the register route (lanes > 0, `vecs`
+// vectors a lane, `unroll` row groups a warp iteration) for 16-byte-aligned
+// rows of nvec = d / (16 / element size) vectors that a route above takes,
+// else the any-width route with `warps` warps a block; `blocks` partial
+// rows of nvec interleaved vectors (nvec = d where the rows are read element
+// by element).
+struct BwdPlan {
+  int lanes, vecs, unroll, warps, blocks, nvec;
+};
+
+int bwd_plan(int64_t rows, int d, int element_size, bool aligned, BwdPlan* p) {
+  if (rows < 1 || d < 1 || (element_size != 2 && element_size != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n = 16 / element_size;
+  *p = BwdPlan{0, 0, 0, 0, 0, aligned && d % n == 0 ? d / n : d};
+  if (p->nvec != d) {
+#define RMSNORM_BWD_PICK(V, L, U) \
+  if (p->lanes == 0 && p->nvec == V * L) *p = BwdPlan{L, V, U, kBwdWarps, 0, p->nvec};
+    RMSNORM_BWD_ROUTES(RMSNORM_BWD_PICK)
+#undef RMSNORM_BWD_PICK
+  }
+  int64_t per_block = 0;
+  if (p->lanes > 0) {
+    per_block = static_cast<int64_t>(kBwdWarps) * (32 / p->lanes) * p->unroll;
+  } else {
+    const int64_t fit = kBwdAnySmemBytes / (4 * static_cast<int64_t>(d));
+    if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+    p->warps = static_cast<int>(fit < kWarpsPerBlock ? fit : kWarpsPerBlock);
+    per_block = p->warps;
+  }
+  const int64_t need = (rows + per_block - 1) / per_block;
+  p->blocks = static_cast<int>(need < kBwdBlocks ? need : kBwdBlocks);
+  return 0;
+}
+
 template <typename T>
 int launch_bwd(const void* xv, const float* w, const void* dyv, void* dxv,
-               float* partial, float* dw, int64_t rows, int d, int warps,
-               int blocks, float eps, float plus, cudaStream_t stream) {
-  constexpr int kN = Vec<T>::kN;
+               float* partial, int partial_rows, float* dw, int64_t rows, int d,
+               float eps, float plus, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   const T* dy = static_cast<const T*>(dyv);
   T* dx = static_cast<T*>(dxv);
-  const bool vec = d % kN == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  const int err = vec ? launch_bwd_rows<T, true>(x, w, dy, dx, partial, rows, d,
-                                                 warps, blocks, eps, plus, stream)
-                      : launch_bwd_rows<T, false>(x, w, dy, dx, partial, rows, d,
-                                                  warps, blocks, eps, plus, stream);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  BwdPlan p;
+  int err = bwd_plan(rows, d, sizeof(T), aligned, &p);
   if (err != 0) return err;
-  rmsnorm_dw_kernel<<<(d + 255) / 256, 256, 0, stream>>>(partial, dw, blocks, d);
+  if (p.blocks > partial_rows) return static_cast<int>(cudaErrorInvalidValue);
+  err = static_cast<int>(cudaErrorInvalidValue);
+  if (p.lanes > 0) {
+#define RMSNORM_BWD_LAUNCH(V, L, U)                                               \
+  if (p.vecs == V && p.lanes == L) {                                             \
+    err = launch_bwd_rows<T, V, L, U>(x, w, dy, dx, partial, rows, p.blocks, eps, \
+                                      plus, stream);                             \
+  }
+    RMSNORM_BWD_ROUTES(RMSNORM_BWD_LAUNCH)
+#undef RMSNORM_BWD_LAUNCH
+  } else if (p.nvec != d) {
+    err = launch_bwd_any<T, true>(x, w, dy, dx, partial, rows, d, p.warps, p.blocks,
+                                  eps, plus, stream);
+  } else {
+    err = launch_bwd_any<T, false>(x, w, dy, dx, partial, rows, d, p.warps, p.blocks,
+                                   eps, plus, stream);
+  }
+  if (err != 0) return err;
+  rmsnorm_dw_kernel<<<(d + kDwCols - 1) / kDwCols, kDwCols * kDwSplit, 0, stream>>>(
+      partial, dw, p.blocks, d, p.nvec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The backward's launch shape for rows of width d: the blocks (the rows of
-// the [blocks, d] f32 partial buffer the caller allocates) and the warps a
-// block. Returns 0, or cudaErrorInvalidValue for a width whose partials do
-// not fit in shared memory.
-extern "C" int rmsnorm_bwd_shape(int64_t rows, int d, int* blocks, int* warps) {
-  if (rows < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t fit = kBwdSmemBytes / (static_cast<int64_t>(d) * 4);
-  if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
-  *warps = static_cast<int>(fit < kWarpsPerBlock ? fit : kWarpsPerBlock);
-  const int64_t need = (rows + *warps - 1) / *warps;
-  *blocks = static_cast<int>(need < kBwdMaxBlocks ? need : kBwdMaxBlocks);
+// The plan rmsnorm_bwd_launch runs for `rows` rows of width d, bf16 (dtype
+// 1) or f32 (dtype 0), with 16-byte-aligned operands or not: out = {lanes,
+// vecs, unroll, warps, blocks, nvec, dw's interleaved runs}, what the
+// kernels' order of dw sums needs (kernels/ref.py::rmsnorm_bwd_blocked).
+// Returns cudaErrorInvalidValue for a width no route takes.
+extern "C" int rmsnorm_bwd_plan(int64_t rows, int d, int dtype, int aligned, int* out) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  BwdPlan p;
+  const int err = bwd_plan(rows, d, dtype == 1 ? 2 : 4, aligned != 0, &p);
+  if (err != 0) return err;
+  const int plan[7] = {p.lanes, p.vecs, p.unroll, p.warps, p.blocks, p.nvec, kDwSplit};
+  for (int i = 0; i < 7; ++i) out[i] = plan[i];
   return 0;
 }
 
+// The most partial rows any plan takes.
+extern "C" int rmsnorm_bwd_max_blocks() { return kBwdBlocks; }
+
 // x, dy, dx: [rows, d] contiguous, bf16 (dtype 1) or f32 (dtype 0); w:
-// f32[d]; partial: f32[blocks, d] scratch; dw: f32[d]. blocks and warps
-// as rmsnorm_bwd_shape gives them. Launches two kernels on `stream`;
-// returns cudaGetLastError().
+// f32[d]; partial: f32[partial_rows, d] scratch, at least the plan's blocks
+// (min(rows, rmsnorm_bwd_max_blocks()) always is); dw: f32[d], every entry
+// written. The route is bwd_plan's for the operands' alignment. Launches two
+// kernels on `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a shape no route takes.
 extern "C" int rmsnorm_bwd_launch(const void* x, const float* w, const void* dy,
-                                  void* dx, float* partial, float* dw,
-                                  int64_t rows, int d, int blocks, int warps,
-                                  float eps, int plus_one, int dtype,
-                                  cudaStream_t stream) {
-  if (rows < 1 || d < 1 || blocks < 1 || warps < 1 || warps > kWarpsPerBlock ||
-      static_cast<int64_t>(warps) * d * 4 > kBwdSmemBytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                  void* dx, float* partial, int partial_rows,
+                                  float* dw, int64_t rows, int d, float eps,
+                                  int plus_one, int dtype, cudaStream_t stream) {
   const float plus = plus_one ? 1.f : 0.f;
   if (dtype == 1) {
-    return launch_bwd<__nv_bfloat16>(x, w, dy, dx, partial, dw, rows, d, warps,
-                                     blocks, eps, plus, stream);
+    return launch_bwd<__nv_bfloat16>(x, w, dy, dx, partial, partial_rows, dw, rows, d,
+                                     eps, plus, stream);
   }
   if (dtype == 0) {
-    return launch_bwd<float>(x, w, dy, dx, partial, dw, rows, d, warps, blocks,
-                             eps, plus, stream);
+    return launch_bwd<float>(x, w, dy, dx, partial, partial_rows, dw, rows, d, eps,
+                             plus, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

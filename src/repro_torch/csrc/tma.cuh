@@ -1,9 +1,10 @@
 // tma.cuh: the Hopper pieces shared by the tensor-core kernels
-// (flash_attention.cu, ssd_scan.cu): shared-memory addresses, mbarriers,
-// TMA box loads whose completion is counted in bytes on an mbarrier, and
-// libcuda's cuTensorMapEncodeTiled. The encoder is fetched through the
-// runtime (cudaGetDriverEntryPoint), so no library links -lcuda; cuda.h
-// is included for CUtensorMap and its enums only.
+// (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu): shared-memory
+// addresses, mbarriers, TMA box and bulk loads whose completion is counted
+// in bytes on an mbarrier, and libcuda's cuTensorMapEncodeTiled. The
+// encoder is fetched through the runtime (cudaGetDriverEntryPoint), so no
+// library links -lcuda; cuda.h is included for CUtensorMap and its enums
+// only.
 
 #pragma once
 
@@ -65,6 +66,17 @@ __device__ __forceinline__ void load_4d(uint32_t dst, const CUtensorMap* map,
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes at the 16-byte-aligned global
+// address `src` into shared memory at `dst`, counted on `bar`.
+__device__ __forceinline__ void load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                        uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

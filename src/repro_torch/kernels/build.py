@@ -26,17 +26,19 @@ dims 32 and 256), ``"ssd_scan"`` (the bf16 tensor-core route) and
 ``"ssd_scan_fma"`` (the CUDA-core route: f32, and the shapes the first
 cannot take); operands flash's tensor-core route had to copy for TMA count
 under ``"flash_attention_copies"``; the RG-LRU recurrence counts under
-``"rglru_scan"``. The gradients count under ``"rmsnorm_bwd"`` and
-``"flash_attention_bwd"`` (one a call, each call two and three launches),
-operands the flash backward had to copy under
-``"flash_attention_bwd_copies"``; the SSD scan's under
+``"rglru_scan"``. The gradients count under ``"rmsnorm_bwd"``,
+``"flash_attention_bwd"`` (the bf16 tensor-core route) and
+``"flash_attention_bwd_fma"`` (the CUDA-core route: f32, and bf16 at head
+dims 32 and 256), one a call (each call two and three launches), operands
+the flash backward had to copy under ``"flash_attention_bwd_copies"``; the SSD scan's under
 ``"ssd_scan_bwd_states"`` and ``"ssd_scan_bwd"`` (its two kernels, one
 each a call), operands it had to copy under ``"ssd_scan_bwd_copies"``;
 the RG-LRU scan's under ``"rglru_scan_bwd"``. The sampling path's threefry kernels
 count under ``"threefry_bits"``, ``"randint"`` and ``"csr_row_sample"``.
 
-No source needs a flag of its own: ``flash_attention.cu`` and
-``ssd_scan.cu`` share ``csrc/tma.cuh``, which fetches libcuda's
+No source needs a flag of its own: ``flash_attention.cu``,
+``flash_attention_bwd.cu`` and ``ssd_scan.cu`` share ``csrc/tma.cuh`` (the
+attention kernels also ``csrc/wgmma.cuh``), which fetches libcuda's
 ``cuTensorMapEncodeTiled`` through the runtime (``cudaGetDriverEntryPoint``)
 and takes only the toolkit's ``cuda.h`` for its types, so nothing links
 ``-lcuda`` and the hash of source, headers and flags covers every choice.

@@ -309,28 +309,33 @@ def flash_attention(
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.is_cuda:
+    if not q.is_cuda:
+        return ref.attention_heads_ref(q, k, v, scale=scale, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, scale, causal)
-    return ref.attention_heads_ref(q, k, v, scale=scale, causal=causal)
+    return flash_attention_cuda(q, k, v, scale=scale, causal=causal)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The flash kernel with the hand-written backward. Saves q, k and v as
-    they lie (the layer's transposed views of [B, S, H, D]): the backward
-    kernels read them, and dO, at their strides, and recompute what they
-    need of o."""
+    """The flash kernel with the hand-written backward, for calls under
+    grad (an ordinary call launches the forward alone and writes nothing
+    more). Saves q, k and v as they lie (the layer's transposed views of
+    [B, S, H, D]), which the backward kernels read at their strides, with
+    the forward's o and, on the tensor-core route, its o_lo and lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        ctx.save_for_backward(q, k, v)
+        o, o_lo, lse = flash_attention_cuda(q, k, v, scale=scale, causal=causal,
+                                            residuals=True)
+        ctx.save_for_backward(q, k, v, o, o_lo, lse)
         ctx.scale, ctx.causal = scale, causal
-        return flash_attention_cuda(q, k, v, scale=scale, causal=causal)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, o, o_lo, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, do.to(q.dtype), scale=ctx.scale, causal=ctx.causal)
+            q, k, v, do.to(q.dtype), o, o_lo, lse, scale=ctx.scale, causal=ctx.causal)
         return dq, dk, dv, None, None
 
 

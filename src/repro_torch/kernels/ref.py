@@ -457,6 +457,120 @@ def attention_bwd_ref(
         return torch.autograd.grad(o, (qf, kf, vf), do.float())
 
 
+def attention_residuals_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the tensor-core forward writes under grad, in plain torch: the
+    output o in q's dtype, o_lo = (o_f32 - o) rounded to q's dtype, and each
+    row's natural log-sum-exp of its scaled, masked scores, f32 [B·Hq, S]
+    (q (B, Hq, S, D), k, v (B, Hkv, S, D))."""
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    kf = torch.repeat_interleave(k.float(), group, dim=1)
+    vf = torch.repeat_interleave(v.float(), group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if causal:
+        s = torch.where(torch.ones((S, S), dtype=torch.bool, device=q.device).tril(),
+                        s, -1e30)
+    o32 = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vf)
+    o = o32.to(q.dtype)
+    return o, (o32 - o.float()).to(q.dtype), torch.logsumexp(s, dim=-1).reshape(B * Hq, S)
+
+
+def _bf16_pair(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernels feed it to a bf16 product: hi = bf16(x) plus lo =
+    bf16(x − hi), 16 significant bits, in f32."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
+def attention_bwd_blocked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    o: torch.Tensor, o_lo: torch.Tensor, lse: torch.Tensor, *, scale: float,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tensor-core flash backward's algorithm in plain torch, from the
+    forward's o, o_lo and lse (``attention_residuals_ref``): Dd =
+    rowsum(dO ∘ (o + o_lo)) in f32; S and dP = dO Vᵀ in f32; P =
+    exp(S·scale − LSE), 0 where masked; dS = P ∘ (dP − Dd); P and dS each
+    split into two bf16 parts, hi = bf16(x) and lo = bf16(x − hi), before the
+    products dV = Pᵀ dO, dK = scale·dSᵀ Q and dQ = scale·dS K (f32 sums,
+    the group's q heads summed into their kv head) -> (dq, dk, dv) in q's
+    dtype. A single bf16 P or dS errs by 2^-9 of each term, which on
+    gradients of standard-normal inputs reaches 1.8 times the backward's
+    limit (2^-6 of each value plus 2^-10 of the largest)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    qf, dof = q.float(), do.float()
+    kf = torch.repeat_interleave(k.float(), group, dim=1)
+    vf = torch.repeat_interleave(v.float(), group, dim=1)
+    dd = (dof * (o.float() + o_lo.float())).sum(-1, keepdim=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    p = torch.exp(s * scale - lse.reshape(B, Hq, S, 1))
+    if causal:
+        p = torch.where(torch.ones((S, S), dtype=torch.bool, device=q.device).tril(),
+                        p, 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - dd)
+    p16, ds16 = _bf16_pair(p), _bf16_pair(ds)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p16, dof)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds16, qf) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds16, kf) * scale
+    dk, dv = (t.reshape(B, Hkv, group, S, D).sum(2) for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def rmsnorm_bwd_blocked(
+    x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-6,
+    plus_one: bool = False, lanes: int, unroll: int, warps: int, blocks: int,
+    split: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The register route of the RMSNorm backward (``rmsnorm_bwd_rows_kernel``
+    then ``rmsnorm_dw_kernel``) in plain torch, with its launch plan
+    (``rmsnorm.bwd_plan``, ``split`` its runs of partial rows): dx per
+    row in f32, rounded once to x's dtype; dw = Σ dy·x·r summed in the
+    kernels' order, each step rounded to f32. Row ((t·blocks + b)·warps +
+    w)·G·unroll + u·G + g (G = 32 / lanes rows a warp at once) goes to lane
+    group g of warp w of block b, which adds its rows t-major, u-minor; the
+    lane groups fold in order, then the warps, into one partial row a
+    block; run j of ``split`` sums partial rows j, j + split, ... in order,
+    and dw is the runs summed in order -> (dx, dw f32)."""
+    d = x.shape[-1]
+    xf, gf = x.reshape(-1, d).float(), dy.reshape(-1, d).float()
+    wf = w.float() + (1.0 if plus_one else 0.0)
+    rows = xf.shape[0]
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    c = r ** 3 * (gf * wf * xf).mean(-1, keepdim=True)
+    dx = (r * (gf * wf) - c * xf).to(x.dtype).reshape(x.shape)
+    g = 32 // lanes
+    per = blocks * warps * g * unroll
+    n_it = -(-rows // per)
+    terms = torch.zeros((n_it * per, d), dtype=torch.float32, device=x.device)
+    terms[:rows] = gf * xf * r
+    terms = terms.reshape(n_it, blocks, warps, unroll, g, d)
+    acc = torch.zeros((blocks, warps, g, d), dtype=torch.float32, device=x.device)
+    for t in range(n_it):
+        for u in range(unroll):
+            acc = acc + terms[t, :, :, u]
+    lane = acc[:, :, 0]
+    for k in range(1, g):
+        lane = lane + acc[:, :, k]
+    partial = lane[:, 0]
+    for k in range(1, warps):
+        partial = partial + lane[:, k]
+    runs = []
+    for j in range(split):
+        run = torch.zeros((d,), dtype=torch.float32, device=x.device)
+        for b in range(j, blocks, split):
+            run = run + partial[b]
+        runs.append(run)
+    dw = runs[0]
+    for run in runs[1:]:
+        dw = dw + run
+    return dx, dw
+
+
 def rglru_scan_ref(
     a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
 ) -> torch.Tensor:

@@ -1189,7 +1189,11 @@ def test_flash_attention_backward_matches_plain(cuda_device, S, Hq, Hkv, causal,
     do = _randn(rng, (B, Hq, S, D), dtype, cuda_device)
     before = dict(launch_counts)
     ops.flash_attention(q, k, v, causal=causal).backward(do)
-    assert launch_counts["flash_attention_bwd"] == before.get("flash_attention_bwd", 0) + 1
+    # bf16 at D 64 and 128 takes the tensor-core backward, the rest the FMA one
+    route = "flash_attention_bwd" if uses_wgmma(dtype, D) else "flash_attention_bwd_fma"
+    other = "flash_attention_bwd_fma" if uses_wgmma(dtype, D) else "flash_attention_bwd"
+    assert launch_counts[route] == before.get(route, 0) + 1
+    assert launch_counts[other] == before.get(other, 0)
     assert launch_counts["flash_attention_bwd_copies"] == before.get(
         "flash_attention_bwd_copies", 0)
     want = ref.attention_bwd_ref(q, k, v, do, scale=D**-0.5, causal=causal)
@@ -1221,6 +1225,154 @@ def test_flash_backward_reads_the_layer_layout_and_repeats_bitwise(cuda_device):
     want = ref.attention_bwd_ref(q, k, v, do, scale=D**-0.5, causal=True)
     for got, w in zip(first, want):
         _within_bwd_limit(got.transpose(1, 2).float(), w, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("S", [1, 17, 128, 200, 300, 2048])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_backward_matches_plain(cuda_device, D, S, group, causal):
+    """The tensor-core backward from the forward's o, o_lo and lse against
+    f32 autograd within the bf16 limit, and against its algorithm in plain
+    torch (``ref.attention_bwd_blocked`` on the kernel's own residuals); a
+    second call on the same inputs gives the same bits (no atomics)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    rng = np.random.default_rng(2800 + S + D + group)  # seed 2800+S+D+group
+    B, Hkv = 1, 2
+    Hq = Hkv * group
+    q, do = (_randn(rng, (B, Hq, S, D), torch.bfloat16, cuda_device) for _ in range(2))
+    k, v = (_randn(rng, (B, Hkv, S, D), torch.bfloat16, cuda_device) for _ in range(2))
+    kw = dict(scale=D**-0.5, causal=causal)
+    o, o_lo, lse = flash_attention_cuda(q, k, v, residuals=True, **kw)
+    before = dict(launch_counts)
+    got = flash_attention_bwd_cuda(q, k, v, do, o, o_lo, lse, **kw)
+    assert launch_counts["flash_attention_bwd"] == before.get("flash_attention_bwd", 0) + 1
+    assert launch_counts["flash_attention_bwd_fma"] == before.get(
+        "flash_attention_bwd_fma", 0)
+    assert launch_counts["flash_attention_bwd_copies"] == before.get(
+        "flash_attention_bwd_copies", 0)
+    again = flash_attention_bwd_cuda(q, k, v, do, o, o_lo, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.attention_bwd_ref(q, k, v, do, **kw)
+    largest = max(float(w.abs().max()) for w in want)
+    blocked = ref.attention_bwd_blocked(q, k, v, do, o, o_lo, lse, **kw)
+    for g, w, a in zip(got, want, blocked):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _within_bwd_limit(g.float(), w, torch.bfloat16, largest)
+        _within_bwd_limit(g.float(), a.float(), torch.bfloat16, largest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [17, 300])
+def test_flash_wgmma_residuals_match_plain(cuda_device, S, D):
+    """Under grad the tensor-core forward also writes o_lo, the rest of its
+    f32 output (o + o_lo within 2^-14 of the largest f32 output), and each
+    row's log-sum-exp (within 1e-5 of f32's), and its o is the bits of an
+    ordinary call."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    rng = np.random.default_rng(2900 + S + D)  # seed 2900+S+D
+    q = _randn(rng, (2, 4, S, D), torch.bfloat16, cuda_device)
+    k, v = (_randn(rng, (2, 2, S, D), torch.bfloat16, cuda_device) for _ in range(2))
+    o, o_lo, lse = flash_attention_cuda(q, k, v, scale=D**-0.5, causal=True,
+                                        residuals=True)
+    assert torch.equal(o, flash_attention_cuda(q, k, v, scale=D**-0.5, causal=True))
+    assert o_lo.stride() == o.stride() and lse.shape == (8, S)
+    _, _, want_lse = ref.attention_residuals_ref(q.float(), k.float(), v.float(),
+                                                 scale=D**-0.5)
+    o32 = ref.attention_heads_ref(q.float(), k.float(), v.float(), scale=D**-0.5)
+    top = float(o32.abs().max())
+    assert float((o.float() + o_lo.float() - o32).abs().max()) <= 2.0**-14 * top
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_forward_writes_residuals_only_under_grad(cuda_device, monkeypatch):
+    """``ops.flash_attention`` asks the forward for o_lo and lse only where a
+    backward can follow: not under ``no_grad``, nor for inputs that need no
+    gradient; the output is the same bits either way."""
+    rng = np.random.default_rng(2950)  # seed 2950
+    q, k, v = (_randn(rng, (1, 2, 100, 128), torch.bfloat16, cuda_device)
+               for _ in range(3))
+    asked = []
+    inner = ops.flash_attention_cuda
+
+    def record(*args, **kwargs):
+        asked.append(kwargs.get("residuals", False))
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "flash_attention_cuda", record)
+    plain = ops.flash_attention(q, k, v)
+    with torch.no_grad():
+        no_grad = ops.flash_attention(q.requires_grad_(True), k, v)
+    grad = ops.flash_attention(q, k, v)
+    assert asked == [False, False, True]
+    assert torch.equal(plain, no_grad) and torch.equal(plain, grad.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,offset", [(131072, 128, 0), (4096, 768, 0),
+                                           (4096, 1536, 0), (8192, 2048, 0),
+                                           (1000, 2048, 1), (3000, 128, 1)])
+def test_rmsnorm_backward_widths_repeat_bitwise(cuda_device, rows, d, offset):
+    """The backward at the training path's widths (qwen3's q/k norm over
+    4 x 2,048 tokens and 16 heads, mamba2's hidden and gate, qwen3's hidden)
+    and from a base one element past 16-byte alignment (the any-width
+    route): within the bf16 limit of f32 autograd, dw within it of the
+    register route's algorithm in plain torch, and the same bits again."""
+    from repro_torch.kernels.rmsnorm import bwd_plan, rmsnorm_bwd_cuda
+
+    rng = np.random.default_rng(3100 + d + offset)  # seed 3100+d+offset
+    flat = _randn(rng, (rows * d + offset,), torch.bfloat16, cuda_device, 3.0)
+    x = flat[offset:].view(rows, d)
+    dy = _randn(rng, (rows, d), torch.bfloat16, cuda_device)
+    w = _randn(rng, (d,), torch.float32, cuda_device, 0.1)
+    before = launch_counts["rmsnorm_bwd"]
+    dx, dw = rmsnorm_bwd_cuda(x, w, dy, eps=1e-6, plus_one=True)
+    dx2, dw2 = rmsnorm_bwd_cuda(x, w, dy, eps=1e-6, plus_one=True)
+    assert launch_counts["rmsnorm_bwd"] == before + 2
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6, plus_one=True)
+    _within_bwd_limit(dx.float(), want_dx, torch.bfloat16)
+    _within_bwd_limit(dw, want_dw, torch.bfloat16)
+    plan = bwd_plan(rows, d, torch.bfloat16, offset == 0)
+    assert bool(plan["lanes"]) == (offset == 0)
+    if plan["lanes"]:
+        _, algo_dw = ref.rmsnorm_bwd_blocked(
+            x, w, dy, eps=1e-6, plus_one=True, lanes=plan["lanes"],
+            unroll=plan["unroll"], warps=plan["warps"], blocks=plan["blocks"],
+            split=plan["split"])
+        _within_bwd_limit(dw, algo_dw, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,elem,aligned,lanes,vecs,unroll", [
+    (128, 2, True, 16, 1, 8), (768, 2, True, 32, 3, 2), (1536, 2, True, 32, 6, 1),
+    (2048, 2, True, 32, 8, 1), (4096, 2, True, 0, 0, 0), (2048, 4, True, 0, 0, 0),
+    (128, 4, True, 32, 1, 8), (2048, 2, False, 0, 0, 0), (96, 2, True, 0, 0, 0)])
+def test_rmsnorm_bwd_plan_routes_each_width(cuda_device, d, elem, aligned, lanes, vecs,
+                                            unroll):
+    """The backward's plan, which the kernels' library computes: the
+    register route takes the forward's register widths with at most 8
+    vectors a lane (all the training path's), 4 warps a block; wider,
+    unaligned and other rows take the any-width route; at most 528 blocks,
+    their partial rows summed in 16 runs (the plan the CPU algorithm test in
+    tests/test_torch_bwd_algorithms.py runs at the training widths)."""
+    from repro_torch.kernels.rmsnorm import bwd_plan
+
+    dtype = {2: torch.bfloat16, 4: torch.float32}[elem]
+    plan = bwd_plan(1 << 20, d, dtype, aligned)
+    assert (plan["lanes"], plan["vecs"], plan["unroll"]) == (lanes, vecs, unroll)
+    assert (plan["blocks"], plan["split"]) == (528, 16)
+    assert plan["nvec"] == (d * elem // 16 if aligned and (d * elem) % 16 == 0 else d)
+    assert plan["warps"] == (4 if lanes else min(8, 200 * 1024 // (4 * d)))
+    small = bwd_plan(5, d, dtype, aligned)
+    per_block = small["warps"] * ((32 // lanes) * unroll if lanes else 1)
+    assert small["blocks"] == -(-5 // per_block)
 
 
 @pytest.mark.cuda
@@ -1444,7 +1596,7 @@ def test_training_gradients_on_cuda_match_cpu(cuda_device, remat):
         named = list(model.named_parameters())
         gs = torch.autograd.grad(loss, [p for _, p in named])
         grads[name] = (float(loss), {n: g.cpu() for (n, _), g in zip(named, gs)})
-    for key in ("flash_attention_bwd", "rmsnorm_bwd"):
+    for key in ("flash_attention_bwd_fma", "rmsnorm_bwd"):  # f32: the FMA backward
         assert launch_counts[key] > before.get(key, 0)
     assert grads["gpu"][0] == pytest.approx(grads["cpu"][0], abs=1e-4)
     largest = max(float(g.abs().max()) for g in grads["cpu"][1].values())

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan
+from repro_torch.kernels.flash_attention import uses_wgmma
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -71,6 +72,8 @@ def _standin(name: str, fault: str):
     """A stand-in for ``ops.<name>_cuda``: the plain version in f32 rounded
     once to x's dtype, then the planted ``fault``."""
     def run(*args, **kwargs):
+        if kwargs.pop("residuals", False):  # the flash forward under grad
+            return _flash_residuals(args, kwargs)
         y = _plain32(name, args, kwargs)
         if fault == "zeros":
             y = torch.zeros_like(y)
@@ -926,7 +929,7 @@ def families_smoke(smoke, monkeypatch):
     monkeypatch.setattr(smoke, "device_activity", lambda fn, iters: (
         fn(), {"void rmsnorm_any_kernel<__nv_bfloat16>": [1, 2.0]})[1])
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
-    monkeypatch.setattr(smoke, "cold_ms", lambda fn, iters: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "cold_ms", lambda fn, iters, **kw: (fn(), 1.0)[1])
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
@@ -1069,7 +1072,8 @@ def _bwd_standin(name: str, fault: str = "none"):
         elif name == "rglru_scan_bwd":
             outs = list(ref.rglru_scan_bwd_loop(*args))
         else:
-            outs = [t.to(args[0].dtype) for t in ref.attention_bwd_ref(*args, **kwargs)]
+            outs = [t.to(args[0].dtype)
+                    for t in ref.attention_bwd_ref(*args[:4], **kwargs)]
         if fault == "zeros":
             outs[0] = torch.zeros_like(outs[0])
         elif fault == "scaled":  # a dropped factor: the gradient doubled
@@ -1078,8 +1082,20 @@ def _bwd_standin(name: str, fault: str = "none"):
     return run
 
 
+def _flash_residuals(args, kwargs):
+    """What ``flash_attention_cuda(..., residuals=True)`` returns, in plain
+    torch: (o, o_lo, lse) on the tensor-core route, (o, None, None) on the
+    CUDA-core route, whose backward recomputes them."""
+    q = args[0]
+    if uses_wgmma(q.dtype, q.shape[-1]):
+        return ref.attention_residuals_ref(*args, **kwargs)
+    return _plain32("flash_attention", args, kwargs).to(q.dtype), None, None
+
+
 def _fwd_standin(name: str):
     def run(*args, **kwargs):
+        if kwargs.pop("residuals", False):
+            return _flash_residuals(args, kwargs)
         if name == "ssd_scan":
             return _SSD_PLAIN(*(a.float() for a in args), **kwargs).to(args[0].dtype)
         if name == "rglru_scan":
@@ -1102,7 +1118,7 @@ def train_smoke(smoke, monkeypatch):
     monkeypatch.setattr(smoke, "sync", lambda: None)
     monkeypatch.setattr(smoke, "device_line", lambda fields="": "cpu (stand-in)")
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
-    monkeypatch.setattr(smoke, "cold_ms", lambda fn, iters: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "cold_ms", lambda fn, iters, **kw: (fn(), 1.0)[1])
     monkeypatch.setattr(smoke, "device_activity", lambda fn, iters: (fn(), {
         "void (anonymous namespace)::ssd_bwd_states_kernel<bf16>": [iters, 100.0 * iters],
         "void (anonymous namespace)::ssd_bwd_chunk_kernel<bf16>": [iters, 300.0 * iters],
@@ -1223,6 +1239,71 @@ def test_train_phase_backward_check_rejects_a_faulty_kernel(smoke, monkeypatch, 
         return
     with pytest.raises(AssertionError, match="backward kernel checks failed"):
         smoke.bwd_kernel_checks(_bwd_seen(name))
+
+
+def test_train_timing_records_rmsnorm_bwd_at_the_qnorm_width(smoke, monkeypatch):
+    """Where the train phase launched ``rmsnorm_bwd`` at the q/k-norm width
+    (128) besides a heavier width, the timing keeps a record of each, the
+    narrow one right after the other; their launches split the phase's
+    count by width (the recorded calls), summing to it."""
+    import collections
+
+    for stub in ("cold_ms", "cuda_ms"):
+        monkeypatch.setattr(smoke, stub, lambda fn, iters, **kw: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "device_line", lambda fields="": "cpu (stand-in)")
+    monkeypatch.setattr(smoke, "device_activity", lambda fn, iters: (fn(), {})[1])
+    monkeypatch.setattr(ssd_scan, "bwd_chunk", _bwd_chunk_standin)
+    seen = {}
+    for name in ("rmsnorm_bwd", "flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd"):
+        monkeypatch.setattr(ops, f"{name}_cuda", _bwd_standin(name))
+        seen.update(_bwd_seen(name))
+    rng = np.random.default_rng(2620)  # seed 2620
+    narrow = [_bf16(rng, (6, smoke.QNORM_WIDTH), 3.0),
+              torch.from_numpy((rng.standard_normal(smoke.QNORM_WIDTH) * 0.1
+                                ).astype(np.float32)),
+              _bf16(rng, (6, smoke.QNORM_WIDTH))]
+    key = ("rmsnorm_bwd", "train", tuple((tuple(a.shape), str(a.dtype)) for a in narrow))
+    seen[key] = (narrow, dict(eps=1e-6, plus_one=True))
+    calls = collections.Counter({key: 3})
+    train = {"seen": seen, "calls": calls, "launches": {"rmsnorm_bwd": 7,
+             "flash_attention_bwd": 2}, "worst": {n: 0.0 for n, _, _ in seen},
+             "scans": {"seen": {}, "launches": {"rmsnorm_bwd": 4, "ssd_scan_bwd": 1,
+                                                "rglru_scan_bwd": 1}}}
+    records = smoke.train_timing(train)
+    assert [r["name"] for r in records] == ["rmsnorm_bwd", "rmsnorm_bwd",
+                                            "flash_attention_bwd", "ssd_scan_bwd",
+                                            "rglru_scan_bwd"]
+    assert "[16,64]" in records[0]["shape"] and "[6,128]" in records[1]["shape"]
+    assert (records[0]["launches"], records[1]["launches"]) == (11 - 3, 3)
+
+
+@pytest.mark.parametrize("fault", ["none", "zeros"])
+def test_train_phase_backward_check_takes_the_forward_residuals(smoke, monkeypatch,
+                                                                fault):
+    """On the tensor-core route the flash backward's recorded call carries
+    the forward's o, o_lo and lse after q, k, v and dO: the check holds dq,
+    dk and dv against f32 autograd of the first four, passes the route's
+    algorithm (``ref.attention_bwd_blocked``) and rejects a zeroed dq."""
+    rng = np.random.default_rng(2610)  # seed 2610
+    q, do = (_bf16(rng, (1, 4, 40, 64)) for _ in range(2))
+    k, v = (_bf16(rng, (1, 2, 40, 64)) for _ in range(2))
+    kwargs = dict(scale=64**-0.5, causal=True)
+    args = [q, k, v, do, *ref.attention_residuals_ref(q, k, v, **kwargs)]
+    shapes = tuple((tuple(a.shape), str(a.dtype)) for a in args)
+
+    def kernel(*a, **kw):
+        outs = list(ref.attention_bwd_blocked(*a, **kw))
+        if fault == "zeros":
+            outs[0] = torch.zeros_like(outs[0])
+        return tuple(outs)
+
+    monkeypatch.setattr(ops, "flash_attention_bwd_cuda", kernel)
+    seen = {("flash_attention_bwd", "train", shapes): (args, kwargs)}
+    if fault == "none":
+        assert set(smoke.bwd_kernel_checks(seen)) == {"flash_attention_bwd"}
+        return
+    with pytest.raises(AssertionError, match="backward kernel checks failed"):
+        smoke.bwd_kernel_checks(seen)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
