@@ -250,10 +250,11 @@ fails (non-zero exit) if any phase fails:
               of 4 x 2,048 synthetic tokens (``launch/train.py --data
               synthetic``); loss
               finite and falling, the forward and backward scan kernels
-              launched (``ssd_scan_bwd_states``, ``ssd_scan_bwd``;
-              ``rglru_scan_bwd``), the scans' plain versions called 0 times
-              in the steps, ms a step in parts, tokens/s, peak GB. At most
-              150 s;
+              launched (``ssd_scan_bwd_states``, ``ssd_scan_bwd``: the SSD
+              backward's tensor-core route, its FMA route's counts and
+              ``ssd_scan_bwd_copies`` 0; ``rglru_scan_bwd``), the scans'
+              plain versions called 0 times in the steps, ms a step in
+              parts, tokens/s, peak GB. At most 150 s;
 17. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
@@ -5118,6 +5119,12 @@ TRAIN_SCAN_KERNELS = {
               "ssd_scan_bwd"),
     "rglru": ("rmsnorm", "rmsnorm_bwd", "rglru_scan", "rglru_scan_bwd"),
 }
+#: counts that must read 0 in a family's steps: mamba2's bf16 SSD backward
+#: takes the tensor-core route and reads the layer's views uncopied
+TRAIN_SCAN_ABSENT = {
+    "mamba": ("ssd_scan_fma", "ssd_scan_bwd_states_fma", "ssd_scan_bwd_fma",
+              "ssd_scan_bwd_copies"),
+}
 TRAIN_BITWISE = ("rglru_scan_bwd",)  # equal to its plain loop bit for bit
 TRAIN_BYTES_A_PARAM = 16  # bf16 weight and gradient, f32 master, mu and nu
 
@@ -5425,6 +5432,12 @@ def train_scan_family(cfg, device, seed: int) -> dict:
     kinds = set(cfg.block_pattern) | set(cfg.tail_pattern)
     assert_launched(f"train {cfg.name}", launches, sorted(
         {k for kind in kinds & set(TRAIN_SCAN_KERNELS) for k in TRAIN_SCAN_KERNELS[kind]}))
+    for key in sorted({k for kind in kinds & set(TRAIN_SCAN_ABSENT)
+                       for k in TRAIN_SCAN_ABSENT[kind]}):
+        if launches.get(key, 0):
+            raise AssertionError(f"train: {cfg.name}: {key} read {launches[key]}: the "
+                                 "bf16 SSD scan must take the tensor-core routes and read "
+                                 "the layer's views uncopied")
     split = step_parts(model, trainer, state, batches[0])
     log(f"train: {cfg.name} one step in parts (ms): {json.dumps(split)}")
     del model, trainer, state, batches
@@ -5650,7 +5663,7 @@ def train_timing(train: dict) -> list:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd_scan import bwd_chunk, kernel_chunk
+    from repro_torch.kernels.ssd_scan import bwd_chunk, bwd_uses_tensor_cores, kernel_chunk
 
     heaviest = {}
     seen = {**train["seen"], **train["scans"]["seen"]}
@@ -5728,9 +5741,10 @@ def train_timing(train: dict) -> list:
             rate = BF16_TENSOR_OPS_PER_S
             # x, dy, dx; dt, a_log, ddt, da_log; B, C, dB, dC
             nbytes = 3 * el * x.numel() + 16 * dt.numel() + 4 * el * bm.numel()
+            route = "tensor cores" if bwd_uses_tensor_cores(x.dtype, P, N) else "FMA"
             shape = (f"x [{B},{H},{S},{P}], B/C [{B},{S},{N}] {x.dtype}, the backward's "
-                     f"chunk {Q} (the forward's {kernel_chunk(kw['chunk'], S)}), cold "
-                     f"({label})")
+                     f"chunk {Q} (the forward's {kernel_chunk(kw['chunk'], S)}), {route} "
+                     f"route, cold ({label})")
             replaces = replaces.format("src/repro/kernels/ssd_scan.py:93")
         else:
             a, h, h0, dh = args
@@ -5789,7 +5803,7 @@ def train_timing(train: dict) -> list:
 
 #: the backward kernels whose device time ``bwd_split`` prints apart
 BWD_SPLIT_KERNELS = {
-    "ssd_scan_bwd": ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel"),
+    "ssd_scan_bwd": ("ssd_bwd_tc_states_kernel", "ssd_bwd_tc_grads_kernel"),
     "flash_attention_bwd": ("flash_bwd_dd_kernel", "flash_bwd_dkdv_kernel",
                             "flash_bwd_dq_kernel"),
 }

@@ -31,8 +31,10 @@ under ``"flash_attention_copies"``; the RG-LRU recurrence counts under
 ``"flash_attention_bwd_fma"`` (the CUDA-core route: f32, and bf16 at head
 dims 32 and 256), one a call (each call two and three launches), operands
 the flash backward had to copy under ``"flash_attention_bwd_copies"``; the SSD scan's under
-``"ssd_scan_bwd_states"`` and ``"ssd_scan_bwd"`` (its two kernels, one
-each a call), operands it had to copy under ``"ssd_scan_bwd_copies"``;
+``"ssd_scan_bwd_states"`` and ``"ssd_scan_bwd"`` (the bf16 tensor-core
+route's two kernels, one each a call) or ``"ssd_scan_bwd_states_fma"`` and
+``"ssd_scan_bwd_fma"`` (the CUDA-core route: f32, and the shapes the first
+cannot take), operands it had to copy under ``"ssd_scan_bwd_copies"``;
 the RG-LRU scan's under ``"rglru_scan_bwd"``. The sampling path's threefry kernels
 count under ``"threefry_bits"``, ``"randint"`` and ``"csr_row_sample"``.
 

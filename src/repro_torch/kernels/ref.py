@@ -648,10 +648,11 @@ def ssd_scan_chunked_bwd(
     *,
     chunk: int,
 ) -> tuple[torch.Tensor, ...]:
-    """The SSD backward kernels' algorithm (``csrc/ssd_scan_bwd.cu``) in
-    plain torch, explicit formulas and no autograd -> (dx, ddt, da_log, dB,
-    dC) f32, dB and dC summed over the heads. Steps past S are zero-padded
-    up to a multiple of ``chunk`` and take no gradient.
+    """The SSD backward FMA kernels' algorithm (``csrc/ssd_scan_bwd.cu``,
+    ``ssd_bwd_states_kernel`` and ``ssd_bwd_chunk_kernel``) in plain torch,
+    explicit formulas and no autograd -> (dx, ddt, da_log, dB, dC) f32, dB
+    and dC summed over the heads. Steps past S are zero-padded up to a
+    multiple of ``chunk`` and take no gradient.
 
     Per chunk of Q steps (l the inclusive cumsum of a_log in the chunk,
     l_Q its last, B̃ = B dt, S_c the state entering the chunk, D the
@@ -668,6 +669,34 @@ def ssd_scan_chunked_bwd(
       B̃_j·(D x_j), and dl_Q also takes Σ_j w_j + exp(l_Q) <D, S_c>;
       da_log is dl summed from the end of the chunk back.
     """
+    return _ssd_chunked_bwd(x, dt, a_log, bmat, cmat, dy, chunk, lambda t, kind: t)
+
+
+def ssd_scan_bwd_blocked(
+    x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, bmat: torch.Tensor,
+    cmat: torch.Tensor, dy: torch.Tensor, *, chunk: int, single: tuple = (),
+) -> tuple[torch.Tensor, ...]:
+    """The SSD backward's tensor-core route (``ssd_bwd_tc_states_kernel``,
+    ``ssd_bwd_tc_grads_kernel``) in plain torch: ``ssd_scan_chunked_bwd``'s
+    formulas with x, dy, B and C entering every product exactly (they are
+    bf16) and each f32 operand of a product split into two bf16 parts, hi =
+    bf16(v) and lo = bf16(v − hi), sums in f32; dx, dB and dC rounded once
+    to x's dtype, ddt and da_log f32. The operands by kind: "weights" (the
+    states passes' decay-weighted B and C), "states" (the stored S_c and D)
+    and "scores" (the masked tiles M, E and E ∘ dt); the kinds named in
+    ``single`` are rounded once to bf16 instead of split (to show what a
+    single rounding costs) -> (dx, ddt, da_log, dB, dC)."""
+    def rnd(t, kind):
+        return t.bfloat16().float() if kind in single else _bf16_pair(t)
+
+    dx, ddt, da, db, dc = _ssd_chunked_bwd(x, dt, a_log, bmat, cmat, dy, chunk, rnd)
+    return dx.to(x.dtype), ddt, da, db.to(bmat.dtype), dc.to(bmat.dtype)
+
+
+def _ssd_chunked_bwd(x, dt, a_log, bmat, cmat, dy, chunk, rnd):
+    """``ssd_scan_chunked_bwd``'s formulas, each f32 operand of a product
+    passed through ``rnd(t, kind)`` (kind "weights", "states" or "scores",
+    as ``ssd_scan_bwd_blocked`` names them) -> the five gradients in f32."""
     Bn, H, S, P = x.shape
     N = bmat.shape[-1]
     Q = max(int(chunk), 1)
@@ -687,20 +716,21 @@ def ssd_scan_chunked_bwd(
     el, dec, eq = torch.exp(l), torch.exp(lq - l), torch.exp(lq[..., 0])
     bt = bc * dtc[..., None]
 
-    local = torch.einsum("bhcqn,bhcqp->bhcnp", bt * dec[..., None], xc)
+    local = torch.einsum("bhcqn,bhcqp->bhcnp",
+                         rnd(bt * dec[..., None], "weights"), xc)
     s = torch.zeros((Bn, H, N, P), dtype=f32, device=x.device)
     states = []
     for c in range(nc):
         states.append(s)
         s = eq[:, :, c, None, None] * s + local[:, :, c]
-    sc = torch.stack(states, dim=2) if states else local
-    into = torch.einsum("bhcqn,bhcqp->bhcnp", cc * el[..., None], dyc)
+    sc = rnd(torch.stack(states, dim=2) if states else local, "states")
+    into = torch.einsum("bhcqn,bhcqp->bhcnp", rnd(cc * el[..., None], "weights"), dyc)
     d = torch.zeros_like(s)
     ends = [d] * nc
     for c in reversed(range(nc)):
         ends[c] = d
         d = eq[:, :, c, None, None] * d + into[:, :, c]
-    dend = torch.stack(ends, dim=2) if ends else into
+    dend = rnd(torch.stack(ends, dim=2) if ends else into, "states")
 
     lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
     L = torch.exp(torch.where(lower, l[..., :, None] - l[..., None, :], -torch.inf))
@@ -710,13 +740,13 @@ def ssd_scan_chunked_bwd(
     R = torch.where(lower.tril(-1), E * G * dtc[..., None, :], 0.0)
     V = torch.einsum("bhcnp,bhcip->bhcin", sc, dyc)
     W = torch.einsum("bhcnp,bhcjp->bhcjn", dend, xc)
-    dbt = torch.einsum("bhcij,bhcin->bhcjn", E, cc) + dec[..., None] * W
+    dbt = torch.einsum("bhcij,bhcin->bhcjn", rnd(E, "scores"), cc) + dec[..., None] * W
     w = dec * dtc * (bc * W).sum(-1)
     dl = R.sum(-1) - R.sum(-2) + el * (cc * V).sum(-1) - w
     dl[..., -1] += w.sum(-1) + eq * (dend * sc).sum((-1, -2))
-    dx = torch.einsum("bhcij,bhcip->bhcjp", M, dyc) + (dec * dtc)[..., None] * (
+    dx = torch.einsum("bhcij,bhcip->bhcjp", rnd(M, "scores"), dyc) + (dec * dtc)[..., None] * (
         torch.einsum("bhcjn,bhcnp->bhcjp", bc.expand(-1, H, -1, -1, -1), dend))
-    dc = (torch.einsum("bhcij,bhcjn->bhcin", E * dtc[..., None, :], bc)
+    dc = (torch.einsum("bhcij,bhcjn->bhcin", rnd(E * dtc[..., None, :], "scores"), bc)
           + el[..., None] * V)
     da = torch.flip(torch.cumsum(torch.flip(dl, (-1,)), -1), (-1,))
     ddt = (dbt * bc).sum(-1)

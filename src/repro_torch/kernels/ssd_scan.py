@@ -24,20 +24,35 @@ shapes:
   on the CUDA cores on contiguous [B·H, S, P] copies, exact to f32
   rounding. Launches count under ``launch_counts["ssd_scan_fma"]``.
 
-:func:`ssd_scan_bwd_cuda` is the gradient (``csrc/ssd_scan_bwd.cu``), for
-f32 and bf16 alike: ``ssd_bwd_states_kernel`` (counted under
-``launch_counts["ssd_scan_bwd_states"]``) writes each chunk's entering
-state and the gradient of its leaving state, then ``ssd_bwd_chunk_kernel``
-(``launch_counts["ssd_scan_bwd"]``) the five gradients, at its own chunk
-(:func:`bwd_chunk`). It reads contiguous copies of its operands; each
-operand it had to copy counts under ``launch_counts["ssd_scan_bwd_copies"]``.
-Its plain versions are ``kernels/ref.py::ssd_scan_chunked_bwd`` (the same
-algorithm) and ``ssd_scan_bwd_ref`` (f32 autograd).
+:func:`ssd_scan_bwd_cuda` is the gradient (``csrc/ssd_scan_bwd.cu``), at
+its own chunk (:func:`bwd_chunk`), on two routes picked by
+:func:`bwd_uses_tensor_cores`:
+
+- bf16 with P 32 or 64 and N one of ``TC_STATES`` (mamba2's training
+  call): ``ssd_bwd_tc_states_kernel`` (counted under
+  ``launch_counts["ssd_scan_bwd_states"]``) writes each chunk's entering
+  state and the gradient of its leaving state, then
+  ``ssd_bwd_tc_grads_kernel`` (``launch_counts["ssd_scan_bwd"]``) the five
+  gradients, every product on the tensor cores. Both read x, dy, dt, a_log,
+  B and C at their own strides (the layer's views, dy a transposed view);
+  an x, dy, B or C whose strides or base 16-byte loads cannot take
+  (:func:`tma_ready`) is copied first, counted under
+  ``launch_counts["ssd_scan_bwd_copies"]``.
+- f32, and the shapes the first cannot take: ``ssd_bwd_states_kernel``
+  (``launch_counts["ssd_scan_bwd_states_fma"]``), then
+  ``ssd_bwd_chunk_kernel`` (``launch_counts["ssd_scan_bwd_fma"]``), f32 FMAs
+  on contiguous copies of the operands; each operand it had to copy counts
+  under ``launch_counts["ssd_scan_bwd_copies"]``.
+
+Their plain versions are ``kernels/ref.py::ssd_scan_bwd_blocked`` (the
+tensor-core route's algorithm and roundings), ``ssd_scan_chunked_bwd``
+(the FMA route's) and ``ssd_scan_bwd_ref`` (f32 autograd).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -51,6 +66,7 @@ BWD_MAX_CHUNK = 64  # the backward's chunk, halved until its block fits
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 TC_HEAD_TILE = 32  # head-dim columns per block of the tensor-core route
 TC_STATES = (16, 32, 64, 128)  # state sizes the tensor-core route is built for
+TC_BWD_HEAD_DIMS = (32, 64)  # head dims the backward's tensor-core route is built for
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _FMA_ARGTYPES = [
@@ -90,13 +106,26 @@ def smem_bytes(q: int, n: int, p: int) -> int:
     return 4 * (2 * q * p + n * p + q * q + 2 * q * 16 + 4 * q)
 
 
+def bwd_uses_tensor_cores(dtype: torch.dtype, p: int, n: int) -> bool:
+    """Whether the SSD backward of x's ``dtype``, head dim ``p`` and state
+    ``n`` takes the tensor-core route: bf16, ``p`` one of
+    ``TC_BWD_HEAD_DIMS`` and ``n`` one of ``TC_STATES`` (its chunk,
+    :func:`bwd_chunk`, is then a multiple of 16)."""
+    return dtype == torch.bfloat16 and p in TC_BWD_HEAD_DIMS and n in TC_STATES
+
+
 def bwd_chunk(chunk: int, seq: int, n: int, p: int) -> int:
     """The backward's chunk: :func:`kernel_chunk`, at most
-    ``BWD_MAX_CHUNK``, halved until both of its kernels' blocks fit in
-    shared memory, as ``csrc/ssd_scan_bwd.cu``'s ``ssd_scan_bwd_chunk``
-    counts them (this loads, and on first use builds, that library)."""
+    ``BWD_MAX_CHUNK``. At the tensor-core route's widths that is the chunk
+    of both routes (the FMA kernels' blocks fit at 64 there); elsewhere it
+    is halved until the FMA kernels' blocks fit in shared memory, as
+    ``csrc/ssd_scan_bwd.cu``'s ``ssd_scan_bwd_chunk`` counts them (this
+    loads, and on first use builds, that library)."""
+    q = min(kernel_chunk(chunk, seq), BWD_MAX_CHUNK)
+    if bwd_uses_tensor_cores(torch.bfloat16, p, n):
+        return q
     query = _launcher("ssd_scan_bwd_chunk", [ctypes.c_int] * 3, "ssd_scan_bwd")
-    q = query(min(kernel_chunk(chunk, seq), BWD_MAX_CHUNK), n, p)
+    q = query(q, n, p)
     if q < 1:
         raise ValueError(f"state {n}, head dim {p}: the SSD backward's blocks do not "
                          "fit in shared memory at any chunk")
@@ -104,10 +133,11 @@ def bwd_chunk(chunk: int, seq: int, n: int, p: int) -> int:
 
 
 def tma_ready(t: torch.Tensor) -> bool:
-    """Whether the tensor-core route's TMA can read ``t`` (x, B or C) as
-    it lies: unit stride along the last axis, a 16-byte-aligned base and
-    every other stride a positive multiple of 16 bytes (a stride of an axis
-    of size 1 is never used)."""
+    """Whether the tensor-core routes can read ``t`` (x, dy, B or C) as it
+    lies, the forward by TMA and the backward by 16-byte ``cp.async``: unit
+    stride along the last axis, a 16-byte-aligned base and every other
+    stride a positive multiple of 16 bytes (a stride of an axis of size 1 is
+    never used)."""
     es = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
         n == 1 or (st > 0 and (st * es) % 16 == 0)
@@ -233,6 +263,11 @@ def _ssd_fma(x, dt, a_log, bmat, cmat, q):
 
 _BWD_STATES_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWD_CHUNKS_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_TC_OPERANDS = [ctypes.c_void_p, _I64P] * 6
+_BWD_TC_STATES_ARGTYPES = (_BWD_TC_OPERANDS + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p])
+_BWD_TC_GRADS_ARGTYPES = (_BWD_TC_OPERANDS + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                          + [ctypes.c_void_p])
 
 
 def ssd_scan_bwd_cuda(
@@ -240,9 +275,9 @@ def ssd_scan_bwd_cuda(
     bmat: torch.Tensor, cmat: torch.Tensor, dy: torch.Tensor, *, chunk: int,
 ) -> tuple[torch.Tensor, ...]:
     """The gradient of ``ssd_scan_cuda`` for an output gradient ``dy`` of
-    x's shape and dtype, the operands as the forward takes them -> (dx in
-    x's dtype [B, H, S, P], ddt and da_log f32 [B, H, S], dB and dC in B's
-    dtype [B, S, N], summed over the heads)."""
+    x's shape and dtype, the operands as the forward takes them, at any
+    strides -> (dx in x's dtype [B, H, S, P], ddt and da_log f32 [B, H, S],
+    dB and dC in B's dtype [B, S, N], summed over the heads), contiguous."""
     _check_scan_operands(x, dt, a_log, bmat, cmat)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} must match "
@@ -254,15 +289,60 @@ def ssd_scan_bwd_cuda(
                          "up to 512")
     q = bwd_chunk(chunk, s_len, n, p)
     dev, f32 = x.device, torch.float32
-    dx = torch.empty((b * h, s_len, p), dtype=x.dtype, device=dev)
-    ddt = torch.empty((b * h, s_len), dtype=f32, device=dev)
-    da = torch.empty((b * h, s_len), dtype=f32, device=dev)
+    dx = torch.empty((b, h, s_len, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, h, s_len), dtype=f32, device=dev)
+    da = torch.empty((b, h, s_len), dtype=f32, device=dev)
     db = torch.empty((b, s_len, n), dtype=bmat.dtype, device=dev)
     dc = torch.empty((b, s_len, n), dtype=bmat.dtype, device=dev)
-    outs = (dx.reshape(b, h, s_len, p), ddt.reshape(b, h, s_len),
-            da.reshape(b, h, s_len), db, dc)
+    outs = (dx, ddt, da, db, dc)
     if b * h * s_len == 0:
         return outs
+    if bwd_uses_tensor_cores(x.dtype, p, n):
+        _ssd_bwd_tc(x, dt, a_log, bmat, cmat, dy, q, outs)
+    else:
+        _ssd_bwd_fma(x, dt, a_log, bmat, cmat, dy, q, outs)
+    return outs
+
+
+@functools.cache
+def _bwd_tc_launchers():
+    """The tensor-core route's two C entry points (argtypes set once)."""
+    return (_launcher("ssd_scan_bwd_tc_states_launch", _BWD_TC_STATES_ARGTYPES,
+                      "ssd_scan_bwd"),
+            _launcher("ssd_scan_bwd_tc_grads_launch", _BWD_TC_GRADS_ARGTYPES,
+                      "ssd_scan_bwd"))
+
+
+def _ssd_bwd_tc(x, dt, a_log, bmat, cmat, dy, q, outs):
+    b, h, s_len, p = x.shape
+    n = bmat.shape[-1]
+    ready = [tma_ready(t) for t in (x, dy, bmat, cmat)]
+    x, dy, bmat, cmat = (t if ok else aligned16(t)
+                         for t, ok in zip((x, dy, bmat, cmat), ready))
+    nc = -(-s_len // q)
+    sbuf = torch.empty((b * h, nc, 2, n, p), dtype=torch.bfloat16, device=x.device)
+    dbuf = torch.empty_like(sbuf)
+    operands = (x.data_ptr(), _strides(x, 3), dy.data_ptr(), _strides(dy, 3),
+                dt.data_ptr(), _strides(dt, 3), a_log.data_ptr(), _strides(a_log, 3),
+                bmat.data_ptr(), _strides(bmat, 2), cmat.data_ptr(), _strides(cmat, 2))
+    shape = (b, h, s_len, q, n, p)
+    states, grads = _bwd_tc_launchers()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = states(*operands, sbuf.data_ptr(), dbuf.data_ptr(), *shape, stream)
+        check_launch(err, "ssd_scan_bwd_states")
+        launch_counts["ssd_scan_bwd_states"] += 1
+        err = grads(*operands, sbuf.data_ptr(), dbuf.data_ptr(),
+                    *(t.data_ptr() for t in outs), *shape, stream)
+        check_launch(err, "ssd_scan_bwd")
+        launch_counts["ssd_scan_bwd"] += 1
+    launch_counts["ssd_scan_bwd_copies"] += ready.count(False)
+
+
+def _ssd_bwd_fma(x, dt, a_log, bmat, cmat, dy, q, outs):
+    b, h, s_len, p = x.shape
+    n = bmat.shape[-1]
+    dev, f32 = x.device, torch.float32
     copies = 0
 
     def flat(t, shape):
@@ -279,6 +359,7 @@ def ssd_scan_bwd_cuda(
     sdot = torch.empty((b * h, nc), dtype=f32, device=dev)
     db32 = torch.empty((b, s_len, n), dtype=f32, device=dev)
     dc32 = torch.empty_like(db32)
+    dx, ddt, da, db, dc = outs
     code = float_code(x.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -287,8 +368,8 @@ def ssd_scan_bwd_cuda(
             xf.data_ptr(), dyf.data_ptr(), dtf.data_ptr(), af.data_ptr(),
             bm.data_ptr(), cm.data_ptr(), sbuf.data_ptr(), dbuf.data_ptr(),
             sdot.data_ptr(), b, h, s_len, q, n, p, code, stream)
-        check_launch(err, "ssd_scan_bwd_states")
-        launch_counts["ssd_scan_bwd_states"] += 1
+        check_launch(err, "ssd_scan_bwd_states_fma")
+        launch_counts["ssd_scan_bwd_states_fma"] += 1
         err = _launcher("ssd_scan_bwd_chunks_launch", _BWD_CHUNKS_ARGTYPES,
                         "ssd_scan_bwd")(
             xf.data_ptr(), dyf.data_ptr(), dtf.data_ptr(), af.data_ptr(),
@@ -296,7 +377,6 @@ def ssd_scan_bwd_cuda(
             sdot.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
             db32.data_ptr(), dc32.data_ptr(), db.data_ptr(), dc.data_ptr(),
             b, h, s_len, q, n, p, code, stream)
-        check_launch(err, "ssd_scan_bwd")
-        launch_counts["ssd_scan_bwd"] += 1
+        check_launch(err, "ssd_scan_bwd_fma")
+        launch_counts["ssd_scan_bwd_fma"] += 1
     launch_counts["ssd_scan_bwd_copies"] += copies
-    return outs

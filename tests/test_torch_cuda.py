@@ -1419,6 +1419,35 @@ def _ssd_operands(rng, B, H, S, P, N, dtype, device):
     return x, dt, a_log, bmat, cmat
 
 
+SSD_BWD_ROUTES = {True: ("ssd_scan_bwd_states", "ssd_scan_bwd"),
+                  False: ("ssd_scan_bwd_states_fma", "ssd_scan_bwd_fma")}
+SSD_BWD_BF16_REL, SSD_BWD_BLOCKED_F32 = 2.0**-7, 1e-3  # against ssd_scan_bwd_blocked
+
+
+def _ssd_bwd_launched(before: dict, tc: bool) -> None:
+    """The route's two kernels launched once each, the other route's not."""
+    for key in SSD_BWD_ROUTES[tc]:
+        assert launch_counts[key] == before.get(key, 0) + 1, key
+    for key in SSD_BWD_ROUTES[not tc]:
+        assert launch_counts[key] == before.get(key, 0), key
+
+
+def _close_to_blocked(got, plain, largest_of, where):
+    """The tensor-core route against its algorithm in plain torch on the same
+    bf16 inputs (``ref.ssd_scan_bwd_blocked``): the sums run in another
+    order, so dx, dB and dC (both rounded once to bf16) may differ by one
+    bf16 rounding, 2^-7 of each value, plus 2^-12 of the largest; ddt and
+    da_log (f32) within 1e-3 of each value plus 1e-5 of the largest."""
+    for g, w, out in zip(got, plain, ("dx", "ddt", "da_log", "dB", "dC")):
+        top = largest_of(w)
+        rel, floor = ((SSD_BWD_BF16_REL, 2.0**-12) if w.dtype == torch.bfloat16
+                      else (SSD_BWD_BLOCKED_F32, SSD_BWD_F32_FLOOR))
+        err = float((g.float() - w.float()).abs().max())
+        print(f"ssd_scan_bwd tensor cores {out} at {where} against ssd_scan_bwd_blocked: "
+              f"max_abs_err {err:.3e}, largest {top:.3e}")
+        torch.testing.assert_close(g.float(), w.float(), rtol=rel, atol=floor * top)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,S,P,N,chunk", [(1, 1, 1, 4, 1, 16), (2, 3, 45, 16, 16, 16),
@@ -1426,23 +1455,30 @@ def _ssd_operands(rng, B, H, S, P, N, dtype, device):
                                              (2, 4, 300, 64, 128, 128),
                                              (1, 2, 77, 8, 256, 64)])
 def test_ssd_scan_backward_matches_plain(cuda_device, B, H, S, P, N, chunk, dtype):
-    """Both backward kernels through ``ops.ssd_scan``'s Function against f32
+    """Both backward kernels of the call's route through ``ops.ssd_scan``'s
+    Function (the tensor-core route for bf16 at P 32/64 and N up to 128, the
+    FMA route otherwise; the other route's counts do not move) against f32
     autograd of the plain scan (f32: 1e-4 of each element plus 1e-5 of the
     gradient's largest, as ddt and da_log sum hundreds of terms of either
     sign; bf16: 2^-6 of each element plus 2^-10 of the largest, the train
     phase's limit) and, in f32, against ``ssd_scan_chunked_bwd`` at the
     kernel's own chunk (the same algorithm, the sums in another order: the
-    f32 limit); a second call gives the same bits (no atomics)."""
-    from repro_torch.kernels.ssd_scan import bwd_chunk, ssd_scan_bwd_cuda
+    f32 limit); the tensor-core route also against its algorithm
+    ``ssd_scan_bwd_blocked`` (``_close_to_blocked``); a second call gives
+    the same bits (no atomics)."""
+    from repro_torch.kernels.ssd_scan import (
+        bwd_chunk, bwd_uses_tensor_cores, ssd_scan_bwd_cuda,
+    )
 
     rng = np.random.default_rng(2800 + S + N)  # seed 2800+S+N
     ops_in = [t.requires_grad_(True)
               for t in _ssd_operands(rng, B, H, S, P, N, dtype, cuda_device)]
     dy = _randn(rng, (B, H, S, P), dtype, cuda_device)
+    tc = bwd_uses_tensor_cores(dtype, P, N)
+    assert tc == (dtype == torch.bfloat16 and P in (32, 64) and N <= 128)
     before = dict(launch_counts)
     ops.ssd_scan(*ops_in, chunk=chunk).backward(dy)
-    for key in ("ssd_scan_bwd", "ssd_scan_bwd_states"):
-        assert launch_counts[key] == before.get(key, 0) + 1
+    _ssd_bwd_launched(before, tc)
     got = [t.grad for t in ops_in]
     assert [g.dtype for g in got] == [dtype, torch.float32, torch.float32, dtype, dtype]
     want = ref.ssd_scan_bwd_ref(*ops_in, dy, chunk=chunk)
@@ -1461,20 +1497,74 @@ def test_ssd_scan_backward_matches_plain(cuda_device, B, H, S, P, N, chunk, dtyp
             f32_close(g, w, "autograd", out)
         else:  # an all-zero gradient (da_log at S = 1) takes the call's largest
             _within_bwd_limit(g.float(), w, dtype, float(w.abs().max()) or largest)
+    q = bwd_chunk(chunk, S, N, P)
     if dtype == torch.float32:
-        q = bwd_chunk(chunk, S, N, P)
         plain = ref.ssd_scan_chunked_bwd(*(t.detach() for t in ops_in), dy, chunk=q)
         for g, w, out in zip(got, plain, names):
             f32_close(g, w, "its chunked loop", out)
+    if tc:
+        plain = ref.ssd_scan_bwd_blocked(*(t.detach() for t in ops_in), dy, chunk=q)
+        _close_to_blocked(got, plain, lambda w: float(w.float().abs().max()) or largest,
+                          [B, H, S, P, N, q])
     again = ssd_scan_bwd_cuda(*(t.detach() for t in ops_in), dy, chunk=chunk)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 64, 150])
+@pytest.mark.parametrize("P", [32, 64])
+@pytest.mark.parametrize("N", [16, 32, 64, 128])
+def test_ssd_scan_backward_tensor_cores_every_state(cuda_device, N, P, S):
+    """The tensor-core route at every state size and head dim it is built
+    for, S a multiple of its chunk of 64 and not, and S = 1: against f32
+    autograd at the train limit and against ``ssd_scan_bwd_blocked``
+    (``_close_to_blocked``); a second call gives the same bits."""
+    from repro_torch.kernels.ssd_scan import bwd_chunk, ssd_scan_bwd_cuda
+
+    rng = np.random.default_rng(3600 + S + N + P)  # seed 3600+S+N+P
+    x, dt, a_log, bm, cm = _ssd_operands(rng, 2, 3, S, P, N, torch.bfloat16, cuda_device)
+    dy = _randn(rng, (2, 3, S, P), torch.bfloat16, cuda_device)
+    before = dict(launch_counts)
+    got = ssd_scan_bwd_cuda(x, dt, a_log, bm, cm, dy, chunk=128)
+    _ssd_bwd_launched(before, True)
+    want = ref.ssd_scan_bwd_ref(x, dt, a_log, bm, cm, dy, chunk=128)
+    largest = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        _within_bwd_limit(g.float(), w, torch.bfloat16, float(w.abs().max()) or largest)
+    q = bwd_chunk(128, S, N, P)
+    assert q == min(kernel_chunk(128, S), 64)
+    plain = ref.ssd_scan_bwd_blocked(x, dt, a_log, bm, cm, dy, chunk=q)
+    _close_to_blocked(got, plain, lambda w: float(w.float().abs().max()) or largest,
+                      [2, 3, S, P, N, q])
+    again = ssd_scan_bwd_cuda(x, dt, a_log, bm, cm, dy, chunk=128)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,P,N", [(torch.float32, 64, 128), (torch.bfloat16, 16, 64),
+                                       (torch.bfloat16, 64, 256), (torch.bfloat16, 128, 128)])
+def test_ssd_scan_backward_other_shapes_stay_on_the_fma_kernels(cuda_device, dtype, P, N):
+    """f32, and bf16 at head dims or states the tensor-core route is not
+    built for, launch the FMA kernels and not the tensor-core ones."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    rng = np.random.default_rng(3700 + P + N)  # seed 3700+P+N
+    x, dt, a_log, bm, cm = _ssd_operands(rng, 1, 2, 70, P, N, dtype, cuda_device)
+    dy = _randn(rng, (1, 2, 70, P), dtype, cuda_device)
+    before = dict(launch_counts)
+    got = ssd_scan_bwd_cuda(x, dt, a_log, bm, cm, dy, chunk=64)
+    _ssd_bwd_launched(before, False)
+    want = ref.ssd_scan_bwd_ref(x, dt, a_log, bm, cm, dy, chunk=64)
+    for g, w in zip(got, want):
+        _within_bwd_limit(g.float(), w, dtype)
+
+
+@pytest.mark.cuda
 def test_ssd_scan_backward_reads_the_layer_views(cuda_device):
-    """The layer's operands are views of its [B, S, *] activations: the
-    backward copies them (counted) and its gradients land at those views'
-    shapes, equal to the contiguous call's bits."""
+    """The layer's operands are views of its [B, S, *] activations and dy
+    arrives as a transposed view: the tensor-core route reads them as they
+    lie, no copy counted, and its gradients land at those views' shapes,
+    equal to the contiguous call's bits."""
     rng = np.random.default_rng(2900)  # seed 2900
     B, S, H, P, N = 2, 200, 4, 64, 128
     act = _randn(rng, (B, S, H * P + 2 * N), torch.bfloat16, cuda_device)
@@ -1485,12 +1575,32 @@ def test_ssd_scan_backward_reads_the_layer_views(cuda_device):
     leaves = [v.detach().clone().requires_grad_(True) for v in views]
     views = [v.detach().requires_grad_(True) for v in views]
     dy = _randn(rng, (B, S, H, P), torch.bfloat16, cuda_device).transpose(1, 2)
-    before = launch_counts["ssd_scan_bwd_copies"]
+    before = dict(launch_counts)
     ops.ssd_scan(*views, chunk=128).backward(dy)
-    assert launch_counts["ssd_scan_bwd_copies"] > before
+    _ssd_bwd_launched(before, True)
+    assert launch_counts["ssd_scan_bwd_copies"] == before.get("ssd_scan_bwd_copies", 0)
     ops.ssd_scan(*leaves, chunk=128).backward(dy.contiguous())
     for v, t in zip(views, leaves):
         assert v.grad.shape == v.shape and torch.equal(v.grad, t.grad)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_copies_an_operand_it_cannot_read(cuda_device):
+    """A dy at an odd offset (not 16-byte aligned) is copied and counted;
+    the gradients equal the aligned call's bits."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    rng = np.random.default_rng(2901)  # seed 2901
+    x, dt, a_log, bm, cm = _ssd_operands(rng, 1, 2, 70, 64, 128, torch.bfloat16,
+                                         cuda_device)
+    dy = _randn(rng, (1, 2, 70, 64), torch.bfloat16, cuda_device)
+    dy_odd = torch.empty(dy.numel() + 1, dtype=dy.dtype, device=cuda_device)[1:]
+    dy_odd = dy_odd.view(dy.shape).copy_(dy)
+    before = launch_counts["ssd_scan_bwd_copies"]
+    got = ssd_scan_bwd_cuda(x, dt, a_log, bm, cm, dy_odd, chunk=64)
+    assert launch_counts["ssd_scan_bwd_copies"] == before + 1
+    want = ssd_scan_bwd_cuda(x, dt, a_log, bm, cm, dy, chunk=64)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -1499,7 +1609,7 @@ def test_scan_family_gradients_on_cuda_match_cpu(cuda_device, arch):
     """A reduced mamba2 / recurrentgemma in f32: every parameter's gradient
     on the card, through the scans' backward kernels, against the CPU's
     plain autograd within 1e-4 of the largest (the kernels and cuBLAS sum
-    in another order)."""
+    in another order; f32 takes the SSD backward's FMA route)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import synthetic_batch_at
     from repro_torch.models.model import Model
@@ -1511,7 +1621,7 @@ def test_scan_family_gradients_on_cuda_match_cpu(cuda_device, arch):
     gpu.load_state_dict(cpu.state_dict())
     batch = synthetic_batch_at(0, seed=7, batch_size=2, seq_len=45,
                                vocab_size=cfg.vocab_size, device="cpu")
-    key = "ssd_scan_bwd" if arch.startswith("mamba") else "rglru_scan_bwd"
+    key = "ssd_scan_bwd_fma" if arch.startswith("mamba") else "rglru_scan_bwd"
     before = launch_counts[key]
     grads = {}
     for name, model in (("cpu", cpu), ("gpu", gpu)):

@@ -29,7 +29,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import kernel_chunk, tma_ready, uses_tensor_cores
+from repro_torch.kernels.ssd_scan import (
+    bwd_chunk, bwd_uses_tensor_cores, kernel_chunk, tma_ready, uses_tensor_cores,
+)
 
 F32_TOL = 2e-5
 BF16_TOL = 2.0**-6
@@ -267,6 +269,60 @@ def test_mamba_layer_hands_the_tensor_core_route_views_tma_reads(monkeypatch):
     assert all(tma_ready(t) for t in (xh, bm, cm))
     q = kernel_chunk(kw["chunk"], xh.shape[2])
     assert uses_tensor_cores(xh.dtype, xh.shape[-1], bm.shape[-1], q)
+
+
+@pytest.mark.parametrize("dtype,p,n,want", [
+    (torch.bfloat16, 64, 128, True),  # mamba2-130m's training call
+    (torch.bfloat16, 32, 16, True),
+    (torch.bfloat16, 32, 128, True),
+    (torch.bfloat16, 64, 64, True),
+    (torch.float32, 64, 128, False),  # f32 stays exact on the CUDA cores
+    (torch.bfloat16, 16, 16, False),  # the reduced configs' head dim
+    (torch.bfloat16, 96, 128, False),  # head dims past 64
+    (torch.bfloat16, 64, 256, False),  # N not one of 16, 32, 64, 128
+    (torch.bfloat16, 64, 48, False),
+])
+def test_ssd_bwd_route_choice(dtype, p, n, want):
+    assert bwd_uses_tensor_cores(dtype, p, n) is want
+    if want:  # the route's chunk: the forward's, at most 64, asked of no library
+        for chunk, seq in ((128, 2048), (128, 45), (16, 100), (128, 1)):
+            q = bwd_chunk(chunk, seq, n, p)
+            assert q == min(kernel_chunk(chunk, seq), 64) and q % 16 == 0
+
+
+def test_mamba_layer_hands_the_backward_views_it_reads(monkeypatch):
+    """At mamba2-130m's width the SSD backward gets the forward's views and
+    dy as a transposed view of the layer's [B, S, H, P] gradient: all of x,
+    dy, B and C readable as they lie (no copy), on the tensor-core route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import Mamba
+
+    cfg = get_config("mamba2-130m")
+    layer = Mamba(cfg, device="cpu")
+    layer.init(torch.Generator().manual_seed(0))
+    seen = []
+
+    def bwd(x, dt, a_log, bmat, cmat, dy, *, chunk):
+        seen.append((x, dt, a_log, bmat, cmat, dy, chunk))
+        grads = tref.ssd_scan_bwd_ref(x, dt, a_log, bmat, cmat, dy, chunk=chunk)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, (x, dt, a_log, bmat, cmat)))
+
+    monkeypatch.setattr(tops, "ssd_scan_cuda", lambda x, dt, a_log, bmat, cmat, *, chunk: (
+        tref.ssd_scan_heads_ref(x, dt, a_log, bmat, cmat, chunk=chunk)))
+    monkeypatch.setattr(tops, "ssd_scan_bwd_cuda", bwd)
+    monkeypatch.setattr(tops, "ssd_scan", lambda x, dt, a_log, bmat, cmat, *, chunk=128: (
+        tops._SSDScan.apply(x, dt, a_log, bmat, cmat, chunk)))
+    x = torch.from_numpy(np.random.default_rng(91).normal(  # seed 91
+        size=(2, 130, cfg.d_model)).astype(np.float32)).bfloat16().requires_grad_(True)
+    out, _ = layer(x)
+    out.float().square().sum().backward()
+    assert len(seen) == 1 and bool(torch.isfinite(x.grad.float()).all())
+    xh, dt, a_log, bm, cm, dy, chunk = seen[0]
+    assert dy.dtype == xh.dtype == bm.dtype == torch.bfloat16 and dy.shape == xh.shape
+    assert not dy.is_contiguous() and not xh.is_contiguous() and not bm.is_contiguous()
+    assert all(tma_ready(t) for t in (xh, dy, bm, cm))
+    assert bwd_uses_tensor_cores(xh.dtype, xh.shape[-1], bm.shape[-1])
+    assert bwd_chunk(chunk, xh.shape[2], bm.shape[-1], xh.shape[-1]) == 64
 
 
 def test_tma_ready_refuses_what_tma_cannot_read():

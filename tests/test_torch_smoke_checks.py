@@ -1120,8 +1120,8 @@ def train_smoke(smoke, monkeypatch):
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 1.0)[1])
     monkeypatch.setattr(smoke, "cold_ms", lambda fn, iters, **kw: (fn(), 1.0)[1])
     monkeypatch.setattr(smoke, "device_activity", lambda fn, iters: (fn(), {
-        "void (anonymous namespace)::ssd_bwd_states_kernel<bf16>": [iters, 100.0 * iters],
-        "void (anonymous namespace)::ssd_bwd_chunk_kernel<bf16>": [iters, 300.0 * iters],
+        "void (anonymous namespace)::tc::ssd_bwd_tc_states_kernel<8>": [iters, 100.0 * iters],
+        "void (anonymous namespace)::tc::ssd_bwd_tc_grads_kernel<8, 2>": [iters, 300.0 * iters],
     })[1])
     monkeypatch.setattr(ssd_scan, "bwd_chunk", _bwd_chunk_standin)
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
@@ -1179,7 +1179,7 @@ def test_train_phase_rehearsed_on_the_cpu(train_smoke, capsys):
     assert "bit-identical to its loop: True" in text
     assert "one step in parts (ms)" in text
     records = smoke.train_timing(out)
-    assert ("ssd_bwd_states_kernel 0.1000 ms a call (3 events), ssd_bwd_chunk_kernel "
+    assert ("ssd_bwd_tc_states_kernel 0.1000 ms a call (3 events), ssd_bwd_tc_grads_kernel "
             "0.3000 ms a call (3 events)") in capsys.readouterr().out
     assert [r["name"] for r in records] == ["rmsnorm_bwd", "flash_attention_bwd",
                                             "ssd_scan_bwd", "rglru_scan_bwd"]
@@ -1195,6 +1195,17 @@ def test_train_phase_rehearsed_on_the_cpu(train_smoke, capsys):
                                       + out["scans"]["launches"]["rmsnorm_bwd"])
     assert {"route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"} <= set(flash)
+
+
+@pytest.mark.parametrize("key", ["ssd_scan_bwd_fma", "ssd_scan_bwd_copies"])
+def test_train_scans_refuse_the_ssd_fma_backward_and_copies(train_smoke, monkeypatch, key):
+    """mamba2's bf16 SSD backward must take the tensor-core route and read
+    the layer's views as they lie: a stand-in that also counts an FMA-route
+    launch or an operand copy fails the family's steps."""
+    smoke, _, scans, _ = train_smoke
+    monkeypatch.setattr(ops, "ssd_scan_bwd_cuda", _counting(key, ops.ssd_scan_bwd_cuda))
+    with pytest.raises(AssertionError, match=key):
+        smoke.train_scans(torch.device("cpu"), 0, {"mamba2-130m": scans["mamba2-130m"]})
 
 
 def smoke_layer_kinds(cfg) -> list:
