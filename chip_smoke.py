@@ -272,8 +272,13 @@ fails (non-zero exit) if any phase fails:
               back-to-back calls. RMSNorm runs on a rotation of buffers
               larger than the L2 (cold rows, as in a prefill), at the
               hidden and the q-norm shape. The threefry kernels at the
-              sampling phase's heaviest launch of each, csr_row_sample
-              cold with its sector count. A kernel or library time under
+              sampling phase's heaviest launch of each, their hashes'
+              integer instructions bound at 4 warp instructions a clock
+              an SM at the card's maximum SM clock; csr_row_sample cold
+              with its sector count, and cold and on the card alone (the
+              card spun ahead of the host) at that launch and the phase's
+              three most frequent launch shapes, each with its launch
+              count. A kernel or library time under
               its bound fails the phase. ``rglru_scan`` cold (CUDA events,
               the L2 flushed) at the lm_families phase's heaviest launch,
               bound by the bytes it moves, no library call. The backward
@@ -368,6 +373,10 @@ L2_FLUSH_BYTES = 256 << 20  # written between cold launches (the L2 is 50 MB)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor peak (float32 table entry)
+# 32-bit integer instructions: an SM issues at most 4 warp instructions a
+# clock (one a scheduler), 32 lanes each; the float32 entry above counts a
+# fused multiply-add as two flops, so it is twice the integer rate
+INT_LANE_OPS_PER_CLOCK = 4 * 32
 
 POINT_PAIRS = 8192
 ALTERS_NODES = 2048
@@ -423,8 +432,11 @@ BFS_CHECK_FRONTIER = 32_768
 SUBNET_SHARE = 0.01
 # processing runs on a smaller directed, valued layer: symmetrize sorts
 # and dedups twice the edges in host numpy, a cost that grows with the
-# edges past what the phase can spend at Random's 50M
-PROCESSING_NODES = 1_000_000
+# edges past what the phase can spend at Random's 50M. Cut from 1M to
+# 500,000 nodes after a whole smoke of 1,158.6 s of its 1,200 on a slow
+# host, where symmetrize, dichotomize and filter_edges took 36.7 s at 1M
+# (NVIDIA H100 80GB HBM3, 700.00 W)
+PROCESSING_NODES = 500_000
 PROCESSING_DEGREE = 10.0
 TEMPORAL_NODES = 100_000
 TEMPORAL_YEARS = (2019, 2020, 2021)
@@ -733,6 +745,21 @@ def rotating(call, inputs: list, keep: int):
         return out
 
     return run
+
+
+def int_ops_per_s(sms: int, max_sm_mhz: float) -> float:
+    """The card's peak rate of integer instructions, counted a lane each:
+    ``sms`` SMs issuing INT_LANE_OPS_PER_CLOCK a clock at ``max_sm_mhz``."""
+    return sms * INT_LANE_OPS_PER_CLOCK * max_sm_mhz * 1e6
+
+
+def card_int_ops_per_s() -> float:
+    """``int_ops_per_s`` of the card: its SM count, and its maximum SM
+    clock as nvidia-smi reads it (``clocks.max.sm``, MHz)."""
+    import torch
+
+    mhz = float(device_line("clocks.max.sm").split()[0])
+    return int_ops_per_s(torch.cuda.get_device_properties(0).multi_processor_count, mhz)
 
 
 def check_readings(rec: dict) -> dict:
@@ -2100,11 +2127,14 @@ def draw_shape(name, args, kwargs) -> tuple:
             kwargs.get("overlay") is not None)
 
 
-# integer operations of one threefry-2x32 hash in csrc/threefry.cu: 2 key
-# adds, 20 rounds of add, rotate and xor, 5 injections of 2 adds, the xor
-# of the output words; of one int32 randint: two hashes and the reduction
-# (span, multiplier, 3 remainders, a product, 2 adds)
-HASH_OPS = 2 + 20 * 3 + 5 * 2 + 1
+# integer instructions of one threefry-2x32 hash in csrc/threefry.cu, the
+# fewest it compiles to: 2 key adds, 20 rounds of an add, a rotate and an
+# xor, 5 injections of one add to x1 each, the last injection's add to x0
+# (the other four fold into the next round's three-input add), the xor of
+# the output words; of one int32 randint: two hashes and at least 9 for the
+# reduction (span, multiplier, remainders, a product, adds).
+# benchmarks/torch_draw_bwd_ab.py counts them in the built library's SASS.
+HASH_OPS = 2 + 20 * 3 + 5 + 1 + 1
 RANDINT_OPS = 2 * HASH_OPS + 9
 
 
@@ -2463,7 +2493,8 @@ def phase_sampling(net, median_income: int, seed: int, device) -> dict:
     log(f"sampling: each threefry kernel equals its plain version at all "
         f"{len(rec.first)} launch shapes of the phase")
     sampling_checks(net, layers, sel, ins, list(outputs.values()), seed, device)
-    return {"launches": launches, "heaviest": rec.heaviest, "worst": worst}
+    return {"launches": launches, "heaviest": rec.heaviest, "worst": worst,
+            "shapes": rec.shapes, "first": rec.first}
 
 
 def sampling_checks(net, layers, sel, ins, outs, seed: int, device) -> None:
@@ -2638,12 +2669,20 @@ def small_sampling_check(device, seed: int, bad: list) -> None:
 def draw_timing(sampling: dict) -> list:
     """The threefry kernels at the sampling phase's heaviest launch of each:
     ``threefry_bits`` and ``randint`` by ``kernel_record`` (bound: the
-    output bytes or the hashes' integer operations, the larger);
+    output bytes or the hashes' integer instructions at
+    ``card_int_ops_per_s``, the larger);
     ``csr_row_sample`` cold (the rows lie at random in a layer larger than
     the L2), CUDA events with the L2 flushed before each launch, its bytes
-    bound with the same reads in 32-byte sectors beside it."""
+    bound with the same reads in 32-byte sectors beside it; printed beside
+    it, the same launch on the card alone (``cold_ms(host_ahead=True)``)
+    and both readings at the phase's three most frequent launch shapes,
+    each with its launch count and launches x (device time - bound)."""
     records = []
     launches, worst = sampling["launches"], sampling["worst"]
+    int_rate = card_int_ops_per_s()
+    log(f"timing: integer instructions at {int_rate:.4g} a second ("
+        f"{INT_LANE_OPS_PER_CLOCK} lane instructions a clock an SM at the maximum SM "
+        f"clock); a hash counted {HASH_OPS}, a randint {RANDINT_OPS}")
     for name, ops_per, replaces in (
         ("threefry_bits", HASH_OPS,
          "none: XLA fuses jax.random's threefry2x32 on the TPU (the layer "
@@ -2662,6 +2701,7 @@ def draw_timing(sampling: dict) -> list:
             launches.get(name, 0), max(err, worst.get(name, 0)), kernel, plain, 50,
             draw_bytes(name, args, kwargs), n * ops_per,
             f"{draw_shape(name, args, kwargs)} (the sampling phase's heaviest)",
+            ops_rate=int_rate,
             library_none="no torch call draws threefry bits (torch's generators "
                          "are Philox)",
         ))
@@ -2674,7 +2714,7 @@ def draw_timing(sampling: dict) -> list:
     nbytes = draw_bytes("csr_row_sample", args, kwargs)
     n = args[2].numel()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * RANDINT_OPS / SCALAR_OPS_PER_S * 1e3
+    ops_ms = n * RANDINT_OPS / int_rate * 1e3
     sectors = draw_sector_bytes(args, kwargs)
     rec = {
         "name": "csr_row_sample", "route": "cuda",
@@ -2690,14 +2730,50 @@ def draw_timing(sampling: dict) -> list:
                  "phase's heaviest)",
         "ms_from": "cuda events, cold: L2 flushed before each launch",
     }
+    device_ms = cold_ms(kernel, 20, host_ahead=True)
     log(f"timing: csr_row_sample at {rec['shape']}: kernel {ms:.4f} ms cold, "
+        f"{device_ms:.4f} ms on the card alone, "
         f"{ms / rec['bound_ms']:.2f}x its bound {rec['bound_ms']:.4f} ms ({nbytes} "
         f"bytes, operations {ops_ms:.4f} ms; the same reads in whole 32-byte sectors "
         f"{sectors} bytes, {sectors / HBM_BYTES_PER_S * 1e3:.4f} ms); plain "
         f"{plain_ms:.4f} ms; no library call (no torch call draws a threefry row "
         f"sample); {rec['launches']} launches in its phase; {device_line(CLOCK_FIELDS)}")
     records.append(check_readings(rec))
+    row_sample_shapes(sampling, int_rate)
     return records
+
+
+ROW_SAMPLE_SHAPES = 3  # the most frequent launch shapes row_sample_shapes times
+
+
+def row_sample_shapes(sampling: dict, int_rate: float) -> float:
+    """``csr_row_sample`` cold and on the card alone at the sampling
+    phase's ``ROW_SAMPLE_SHAPES`` most frequent launch shapes (the inputs
+    of the first launch of each), each with its launch count, bound and
+    launches x (device time - bound) -> that sum over the shapes, ms. A
+    reading under its bound fails, as ``check_readings`` fails one."""
+    counts = [(count, shape[1:]) for shape, count in sampling["shapes"].items()
+              if shape[0] == "csr_row_sample"]
+    loss = 0.0
+    for count, shape in sorted(counts, key=lambda c: -c[0])[:ROW_SAMPLE_SHAPES]:
+        args, kwargs = sampling["first"][("csr_row_sample", shape)]
+        kernel = lambda a=args, k=kwargs: draw_kernel("csr_row_sample", a, k)  # noqa: E731
+        ms = cold_ms(kernel, 20)
+        device_ms = cold_ms(kernel, 20, host_ahead=True)
+        n = args[2].numel()
+        bound = max(draw_bytes("csr_row_sample", args, kwargs) / HBM_BYTES_PER_S,
+                    n * RANDINT_OPS / int_rate) * 1e3
+        sectors_ms = draw_sector_bytes(args, kwargs) / HBM_BYTES_PER_S * 1e3
+        check_readings({"name": f"csr_row_sample at {shape}", "ms": device_ms,
+                        "library_ms": None, "bound_ms": bound})
+        loss += count * (device_ms - bound)
+        log(f"timing: csr_row_sample at {shape}: {count} launches in the sampling "
+            f"phase; kernel {ms:.4f} ms cold, {device_ms:.4f} ms on the card alone; "
+            f"bound {bound:.4f} ms, 32-byte sectors {sectors_ms:.4f} ms; launches x "
+            f"(time on the card - bound) {count * (device_ms - bound):.4f} ms")
+    log(f"timing: csr_row_sample at the {ROW_SAMPLE_SHAPES} most frequent shapes: "
+        f"launches x (time on the card - bound) {loss:.4f} ms in all")
+    return loss
 
 
 # ---------------------------------------------------------------------------

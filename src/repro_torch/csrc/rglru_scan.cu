@@ -30,11 +30,25 @@
 // Replaces no TPU kernel either: the reference differentiates its
 // associative scan with autodiff. Bound: bytes, a, h and dh read and da and
 // db written, 20 bytes an element (671 MB at recurrentgemma's training
-// shape [4, 2,048, 4,096], 0.200 ms at 3.35 TB/s). Same layout as the
-// forward: one thread per (batch row, channel) walking t backward,
-// kBwdUnroll steps of loads in flight; a rounded multiply, then a rounded
-// add, as
-// kernels/ref.py::rglru_scan_bwd_loop rounds, so the two agree bit for bit.
+// shape [4, 2,048, 4,096], 0.200 ms at 3.35 TB/s).
+//
+// Design of the backward: a shared-memory ring feeds the chains. Training's
+// batch of 4 gives only B x dr = 16,384 chains, so a thread a chain that
+// loads its own steps cannot keep enough bytes in flight (a batch of loads,
+// then the chain that consumes them, then the next batch). Here one block
+// takes a batch row and kBwdChannels channels (128 blocks at the training
+// shape, one an SM) and one thread a channel. The block walks the sequence
+// downward in stages of kBwdSteps steps: stage k holds a and dh at steps
+// [S - (k + 1) kBwdSteps, S - k kBwdSteps) and h one step earlier, as
+// [tensor][step][channel] tiles, so every warp's copies and reads are
+// consecutive words. kBwdStages stages form a ring: while the threads run
+// the chains through one stage, the cp.async copies of the next
+// kBwdStages - 1 are in flight (16 bytes a copy where dr is a multiple of 4
+// and the three inputs are 16-byte aligned, else 4), one barrier a stage.
+// Each chain keeps its order and rounding exactly: a rounded multiply, then
+// a rounded add, as kernels/ref.py::rglru_scan_bwd_loop rounds, so the two
+// agree bit for bit; da and db are stored straight from the chain, each
+// step's 128 channels one coalesced row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,9 +57,12 @@ namespace {
 
 constexpr int kThreads = 64;
 constexpr int kUnroll = 8;
-// the backward's batch: three loads a step, and at training's batch of 4
-// half the forward's threads, so twice the steps in flight
-constexpr int kBwdUnroll = 16;
+// the backward: channels (threads) a block, steps a stage, stages a ring
+constexpr int kBwdChannels = 128;
+constexpr int kBwdSteps = 32;
+constexpr int kBwdStages = 4;
+constexpr int kBwdStageFloats = 3 * kBwdSteps * kBwdChannels;  // a, dh, h tiles
+constexpr int kBwdSmemBytes = kBwdStages * kBwdStageFloats * 4;  // 196,608
 
 __global__ void __launch_bounds__(kThreads)
     rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -80,53 +97,129 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One copy of V floats into shared memory: 16 bytes through the L2 only
+// (cg), or 4.
+template <int V>
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (V == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage k's copies into its ring slot: rows a[t], dh[t] and h[t - 1] for
+// the stage's steps t >= 0 (h[-1] is h0 or 0, taken from a register), the
+// block's channels below dr. Always commits a group, empty past the last
+// stage, so the count of groups in flight stays fixed.
+template <int V>
+__device__ __forceinline__ void bwd_stage_copy(float* ring, int64_t k, int64_t stages,
+                                               const float* a, const float* dh,
+                                               const float* h, int64_t base,
+                                               int64_t seq, int64_t dr, int64_t c0) {
+  if (k < stages) {
+    float* slot = ring + (k % kBwdStages) * kBwdStageFloats;
+    const int64_t t0 = seq - (k + 1) * kBwdSteps;
+    constexpr int kRowCopies = kBwdChannels / V;
+    constexpr int kCopies = 3 * kBwdSteps * kRowCopies;
+#pragma unroll 4
+    for (int q = threadIdx.x; q < kCopies; q += kBwdChannels) {
+      const int r = q / kRowCopies;  // tensor * kBwdSteps + step
+      const int cc = (q - r * kRowCopies) * V;
+      const int tensor = r / kBwdSteps;
+      const int64_t t = t0 + (r - tensor * kBwdSteps) - (tensor == 2 ? 1 : 0);
+      if (t >= 0 && c0 + cc < dr) {
+        const float* src = tensor == 0 ? a : (tensor == 1 ? dh : h);
+        copy_async<V>(slot + r * kBwdChannels + cc, src + base + t * dr + c0 + cc);
+      }
+    }
+  }
+  copy_commit();
+}
+
+template <int V>
+__global__ void __launch_bounds__(kBwdChannels, 1)
     rglru_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
                           const float* __restrict__ h0, const float* __restrict__ dh,
                           float* __restrict__ da, float* __restrict__ db,
-                          float* __restrict__ dh0, int64_t batch, int64_t seq,
-                          int64_t dr) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= batch * dr) return;
-  const int64_t row = idx / dr;
-  const int64_t c = idx - row * dr;
-  const int64_t base = row * seq * dr + c;
-  const float* ap = a + base;
-  const float* hp = h + base;
-  const float* gp = dh + base;
-  float* dap = da + base;
-  float* dbp = db + base;
-  const float start = h0 != nullptr ? h0[idx] : 0.f;
+                          float* __restrict__ dh0, int64_t seq, int64_t dr,
+                          int64_t channel_blocks) {
+  extern __shared__ __align__(16) float ring[];
+  const int64_t row = blockIdx.x / channel_blocks;
+  const int64_t c0 = (blockIdx.x - row * channel_blocks) * kBwdChannels;
+  const int64_t base = row * seq * dr;
+  const int64_t stages = (seq + kBwdSteps - 1) / kBwdSteps;
+  const int64_t c = c0 + threadIdx.x;
+  const bool live = c < dr;
+  const float start = live && h0 != nullptr ? h0[row * dr + c] : 0.f;
   float g = 0.f;
   float a_next = 0.f;
-  int64_t t = seq - 1;
-  // whole batches of steps t .. t - kBwdUnroll + 1, all past step 0, so
-  // every h_(s-1) is a load; the rest, step 0 with h0, in the tail loop
-  for (; t - kBwdUnroll >= 0; t -= kBwdUnroll) {
-    float av[kBwdUnroll], hv[kBwdUnroll], gv[kBwdUnroll];
+  for (int k = 0; k < kBwdStages - 1; ++k) {
+    bwd_stage_copy<V>(ring, k, stages, a, dh, h, base, seq, dr, c0);
+  }
+  for (int64_t k = 0; k < stages; ++k) {
+    copy_wait<kBwdStages - 2>();  // stage k has landed
+    __syncthreads();              // for every thread; stage k - 1's slot is free
+    bwd_stage_copy<V>(ring, k + kBwdStages - 1, stages, a, dh, h, base, seq, dr, c0);
+    if (!live) continue;
+    const float* slot = ring + (k % kBwdStages) * kBwdStageFloats + threadIdx.x;
+    const float* av = slot;
+    const float* gv = slot + kBwdSteps * kBwdChannels;
+    const float* hv = slot + 2 * kBwdSteps * kBwdChannels;
+    const int64_t t0 = seq - (k + 1) * kBwdSteps;
+    float* dbp = db + base + (t0 + kBwdSteps - 1) * dr + c;
+    float* dap = da + base + (t0 + kBwdSteps - 1) * dr + c;
+    if (t0 >= 1) {  // a whole stage, every h_(t-1) in the ring
 #pragma unroll
-    for (int u = 0; u < kBwdUnroll; ++u) {
-      const int64_t s = t - u;
-      av[u] = __ldg(ap + s * dr);
-      gv[u] = __ldg(gp + s * dr);
-      hv[u] = __ldg(hp + (s - 1) * dr);
-    }
-#pragma unroll
-    for (int u = 0; u < kBwdUnroll; ++u) {
-      const int64_t s = t - u;
-      g = __fadd_rn(gv[u], __fmul_rn(a_next, g));
-      dbp[s * dr] = g;
-      dap[s * dr] = __fmul_rn(g, hv[u]);
-      a_next = av[u];
+      for (int j = kBwdSteps - 1; j >= 0; --j) {
+        g = __fadd_rn(gv[j * kBwdChannels], __fmul_rn(a_next, g));
+        *dbp = g;
+        *dap = __fmul_rn(g, hv[j * kBwdChannels]);
+        a_next = av[j * kBwdChannels];
+        dbp -= dr;
+        dap -= dr;
+      }
+    } else {  // the stage holding step 0, whole or cut short
+      for (int j = kBwdSteps - 1; t0 + j >= 0; --j) {
+        g = __fadd_rn(gv[j * kBwdChannels], __fmul_rn(a_next, g));
+        *dbp = g;
+        *dap = __fmul_rn(g, t0 + j > 0 ? hv[j * kBwdChannels] : start);
+        a_next = av[j * kBwdChannels];
+        dbp -= dr;
+        dap -= dr;
+      }
     }
   }
-  for (; t >= 0; --t) {
-    g = __fadd_rn(__ldg(gp + t * dr), __fmul_rn(a_next, g));
-    dbp[t * dr] = g;
-    dap[t * dr] = __fmul_rn(g, t > 0 ? __ldg(hp + (t - 1) * dr) : start);
-    a_next = __ldg(ap + t * dr);
-  }
-  if (dh0 != nullptr) dh0[idx] = __fmul_rn(a_next, g);
+  if (live && dh0 != nullptr) dh0[row * dr + c] = __fmul_rn(a_next, g);
+}
+
+template <int V>
+int launch_bwd(const float* a, const float* h, const float* h0, const float* dh,
+               float* da, float* db, float* dh0, int64_t batch, int64_t seq,
+               int64_t dr, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      rglru_scan_bwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBwdSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t channel_blocks = (dr + kBwdChannels - 1) / kBwdChannels;
+  const int64_t blocks = batch * channel_blocks;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  rglru_scan_bwd_kernel<V><<<static_cast<unsigned>(blocks), kBwdChannels,
+                             kBwdSmemBytes, stream>>>(a, h, h0, dh, da, db, dh0, seq,
+                                                      dr, channel_blocks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -151,7 +244,8 @@ extern "C" int rglru_scan_launch(const float* a, const float* b, const float* h0
 
 // a, h, dh, da, db: f32 [batch, seq, dr] contiguous; h0, dh0: f32 [batch, dr]
 // contiguous, or null (no initial state: h_(-1) = 0 and no dh0). Launches
-// rglru_scan_bwd_kernel on `stream`; returns cudaGetLastError().
+// rglru_scan_bwd_kernel on `stream` (16-byte copies where dr is a multiple
+// of 4 and a, h, dh are 16-byte aligned); returns cudaGetLastError().
 extern "C" int rglru_scan_bwd_launch(const float* a, const float* h,
                                      const float* h0, const float* dh, float* da,
                                      float* db, float* dh0, int64_t batch,
@@ -159,11 +253,12 @@ extern "C" int rglru_scan_bwd_launch(const float* a, const float* h,
   if (batch < 0 || seq < 0 || dr < 0 || (h0 == nullptr) != (dh0 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t lanes = batch * dr;
-  if (lanes == 0) return 0;
-  const int64_t blocks = (lanes + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  rglru_scan_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      a, h, h0, dh, da, db, dh0, batch, seq, dr);
-  return static_cast<int>(cudaGetLastError());
+  if (batch * dr == 0) return 0;
+  const auto at16 = [](const float* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (dr % 4 == 0 && at16(a) && at16(h) && at16(dh)) {
+    return launch_bwd<4>(a, h, h0, dh, da, db, dh0, batch, seq, dr, stream);
+  }
+  return launch_bwd<1>(a, h, h0, dh, da, db, dh0, batch, seq, dr, stream);
 }

@@ -32,12 +32,16 @@
 // kernels instead of composing torch ops.
 //
 // Bound on this card. threefry_bits: the output (4 B an element) and the
-// hash's integer operations, 20 rounds of add, rotate and xor plus 5 key
-// injections of three adds, whichever takes longer. randint: twice the
-// hash plus the reduction, the output and any per-element bounds. A hash
-// is ~80 integer instructions, so at 4 B written an element both bounds
-// are of the same order; the kernel keeps the key in registers, reads
-// nothing else and writes each element once, coalesced.
+// hash's integer instructions, whichever takes longer. A hash compiles to
+// no fewer than 69 of them: 20 rounds of an add, a funnel-shift rotate
+// and an xor (60), the two key adds before the rounds, five injections
+// that each add one word to x1 and, but for the last, fold their x0 word
+// into the next round's add (a three-input IADD3), the last x0 add, and
+// the xor of the output words. The card issues 4 warp instructions a
+// clock on each SM, so at 4 B written an element the two bounds are of
+// the same order; the kernel keeps the key in registers, reads nothing
+// else and writes each element once, coalesced. randint: twice the hash
+// plus the reduction, the output and any per-element bounds.
 // csr_row_sample: memory, and random reads: it must read each row id
 // (4 B), two indptr entries a row (4 or 8 B each), the dirty byte with an
 // overlay, one stored id of each non-empty row (2 or 4 B), and write the
@@ -45,6 +49,15 @@
 // lie at random in a layer far larger than the L2, so each costs a whole
 // 32-byte sector; a thread issues its two indptr loads together, then
 // the hashes (which do not depend on them) overlap the loads' latency.
+// What holds it is the card's rate of random reads, not a thread's
+// latency: on an H100 a launch at 409,600 rows takes 1.4 times a plain
+// random gather of as many int32 (torch.take) and less than two
+// dependent ones, and a redesign with 1, 4 or 8 rows a thread (every
+// load of a link of the chain issued before any is consumed), one
+// resident wave, the widths as template arguments and one reciprocal for
+// the five remainders, with or without streaming loads, measured within
+// 7 % of this kernel either way (benchmarks/torch_draw_bwd_ab.py,
+// PERF.md), so it stays this simple.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

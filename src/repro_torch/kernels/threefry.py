@@ -22,12 +22,28 @@ from .build import check_launch, check_operand, launch_counts, library
 from .intersect import ID_DTYPES, INDPTR_DTYPES
 
 _U32 = ctypes.c_uint32
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+#: each launcher's C argument types
+ARGTYPES = {
+    "threefry_bits_launch": [_U32, _U32, _P, _I64, _P],
+    "randint_launch": [_U32, _U32, _U32, _U32, _P, ctypes.c_int32, _P, ctypes.c_int32,
+                       _P, _I64, _P],
+    "csr_row_sample_launch": [_U32, _U32, _U32, _U32, _P, _I, _P, _I, _I64, _P, _I64,
+                              _P, _I, _P, _I, _I64, _P, _P, _P, _I64, _P],
+}
+_launchers: dict = {}
 
 
-def _fn(name: str, argtypes):
-    fn = getattr(library("threefry"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+def _fn(name: str):
+    """The launcher ``name`` of the threefry library, its argument types
+    bound on the first call only, so a launch pays no ctypes setup."""
+    fn = _launchers.get(name)
+    if fn is None:
+        fn = getattr(library("threefry"), name)
+        fn.argtypes = ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _launchers[name] = fn
     return fn
 
 
@@ -53,8 +69,7 @@ def threefry_bits_cuda(key, n: int, device) -> torch.Tensor:
     out = torch.empty(int(n), dtype=torch.int32, device=device)
     if n == 0:
         return out
-    launch = _fn("threefry_bits_launch",
-                 [_U32, _U32, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])
+    launch = _fn("threefry_bits_launch")
     with torch.cuda.device(device):
         err = launch(int(key[0]), int(key[1]), out.data_ptr(), int(n),
                      _stream(device))
@@ -85,10 +100,7 @@ def randint_cuda(k1, k2, lo, hi, n: int, device) -> torch.Tensor:
     out = torch.empty(int(n), dtype=torch.int32, device=device)
     if n == 0:
         return out
-    launch = _fn("randint_launch", [
-        _U32, _U32, _U32, _U32, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p])
+    launch = _fn("randint_launch")
     with torch.cuda.device(device):
         err = launch(int(k1[0]), int(k1[1]), int(k2[0]), int(k2[1]),
                      lo_p, lo_s, hi_p, hi_s, out.data_ptr(), int(n),
@@ -144,13 +156,7 @@ def csr_row_sample_cuda(
     valid = torch.empty(n, dtype=torch.bool, device=rows.device)
     if n == 0:
         return out, valid
-    launch = _fn("csr_row_sample_launch", [
-        _U32, _U32, _U32, _U32,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p])
+    launch = _fn("csr_row_sample_launch")
     with torch.cuda.device(rows.device):
         err = launch(int(k1[0]), int(k1[1]), int(k2[0]), int(k2[1]),
                      *base, dirty, n_dirty, *delta, rows.data_ptr(),

@@ -16,6 +16,9 @@ loop does and must be bit-identical. Inputs come from
 ``np.random.default_rng`` with the seed named in each test.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -443,6 +446,38 @@ def test_csr_row_sample_kernel_matches_plain(cuda_device, ids_dtype, indptr_dtyp
     cbase, cov = _rows_layer(612, ids_dtype, indptr_dtype, overlay, cpu)
     rows = np.random.default_rng(613).integers(-3, 616, B).astype(np.int32)
     k1, k2 = prng.split(prng.key(614))
+    before = launch_counts["csr_row_sample"]
+    got, ok = ops.csr_row_sample(base, ov, torch.from_numpy(rows).to(cuda_device), k1, k2)
+    assert launch_counts["csr_row_sample"] == before + 1
+    want, wok = ref.csr_row_sample_ref(cbase, cov, torch.from_numpy(rows), k1, k2)
+    assert torch.equal(got.cpu(), want) and torch.equal(ok.cpu(), wok)
+
+
+def _sample_block() -> int:
+    """Threads (rows) a block of csr_row_sample_kernel, read from
+    csrc/threefry.cu."""
+    text = (Path(ops.__file__).parents[1] / "csrc" / "threefry.cu").read_text()
+    return int(re.search(r"constexpr int kThreads = (\d+);", text)[1])
+
+
+_SAMPLE_BLOCK = _sample_block()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, _SAMPLE_BLOCK - 1, _SAMPLE_BLOCK, _SAMPLE_BLOCK + 1,
+                               262_144])
+@pytest.mark.parametrize("overlay", [False, True])
+def test_csr_row_sample_kernel_at_block_edges(cuda_device, overlay, n):
+    """One row, one block of the kernel's rows less one, one block, one
+    more, and the walk fleet's 262,144 rows: bit-identical to the plain
+    version, with and without a delta overlay."""
+    from repro_torch.core import prng
+
+    cpu = torch.device("cpu")
+    base, ov = _rows_layer(616, np.int32, np.int32, overlay, cuda_device)
+    cbase, cov = _rows_layer(616, np.int32, np.int32, overlay, cpu)
+    rows = np.random.default_rng(617 + n).integers(-3, 616, n).astype(np.int32)
+    k1, k2 = prng.split(prng.key(618))
     before = launch_counts["csr_row_sample"]
     got, ok = ops.csr_row_sample(base, ov, torch.from_numpy(rows).to(cuda_device), k1, k2)
     assert launch_counts["csr_row_sample"] == before + 1
@@ -1408,6 +1443,46 @@ def test_rglru_scan_backward_matches_its_loop(cuda_device, B, S, dr, with_h0):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     again = rglru_scan_bwd_cuda(a.detach(), h.detach(), h0, dh)
     assert all(w is None or torch.equal(g, w) for g, w in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,dr,offset", [
+    (2, 25, 6, 0),      # S under one 32-step stage; dr % 4 != 0: 4-byte copies
+    (1, 64, 128, 0),    # S a multiple of the stage
+    (2, 101, 200, 0),   # a ragged last stage; dr past one 128-channel block
+    (1, 35, 132, 1),    # 16-byte-misaligned operands: 4-byte copies
+])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_backward_ring_at_ragged_shapes(cuda_device, B, S, dr, offset,
+                                                   with_h0):
+    """The ring of stages (csrc/rglru_scan.cu) at sequence lengths that
+    are not a multiple of its stage, widths that are not a multiple of its
+    block and operands that are not 16-byte aligned: bit-identical to
+    ``rglru_scan_bwd_loop``."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda
+
+    rng = np.random.default_rng(2710 + S)  # seed 2710+S
+
+    def operand(values):
+        flat = torch.empty(values.numel() + offset, device=cuda_device)
+        out = flat[offset:].view(values.shape)
+        out.copy_(values)
+        return out
+
+    a = operand(torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, dr)).astype(np.float32)))
+    b = _randn(rng, (B, S, dr), torch.float32, cuda_device)
+    h0 = _randn(rng, (B, dr), torch.float32, cuda_device) if with_h0 else None
+    h = operand(ops.rglru_scan(a, b, h0))
+    dh = operand(_randn(rng, (B, S, dr), torch.float32, cuda_device))
+    assert all((t.data_ptr() % 16 != 0) == bool(offset) for t in (a, h, dh))
+    before = launch_counts["rglru_scan_bwd"]
+    got = rglru_scan_bwd_cuda(a, h, h0, dh)
+    assert launch_counts["rglru_scan_bwd"] == before + 1
+    want = ref.rglru_scan_bwd_loop(a, h, h0, dh)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert torch.equal(g, w)
 
 
 def _ssd_operands(rng, B, H, S, P, N, dtype, device):

@@ -1364,3 +1364,72 @@ def test_check_readings_refuses_a_backward_time_under_its_bound(smoke, name):
     with pytest.raises(AssertionError, match="under its bound"):
         smoke.check_readings(rec)
     smoke.check_readings({**rec, "ms": 0.6})
+
+
+def test_integer_rate_counts_four_warp_instructions_a_clock_an_sm(smoke):
+    """The draw kernels' operations bound: 132 SMs x 4 warp instructions of
+    32 lanes a clock at the H100's maximum SM clock, 1,980 MHz, which is
+    half the float32 table entry (that counts a fused multiply-add as two
+    flops); a hash counted as the 69 instructions it compiles to at
+    least."""
+    rate = smoke.int_ops_per_s(132, 1980.0)
+    assert rate == pytest.approx(132 * 4 * 32 * 1980e6, rel=1e-12)
+    assert rate == pytest.approx(smoke.SCALAR_OPS_PER_S / 2, rel=2e-3)
+    assert smoke.HASH_OPS == 69 and smoke.RANDINT_OPS == 2 * 69 + 9
+    # threefry_bits at the sampling phase's 1,638,400 elements: bound by
+    # its instructions (0.0034 ms), not its 4 bytes an element (0.0020)
+    ops_ms = 1_638_400 * smoke.HASH_OPS / rate * 1e3
+    assert ops_ms == pytest.approx(0.003379, rel=1e-3)
+    assert ops_ms > 4 * 1_638_400 / smoke.HBM_BYTES_PER_S * 1e3
+
+
+def _row_sample_sampling(smoke, counts):
+    """A sampling record as the phase returns it: launch counts by shape
+    and the first launch's inputs of each, on a 64-row CSR (seed 2711)."""
+    import collections
+
+    rng = np.random.default_rng(2711)  # seed 2711
+    lengths = rng.integers(0, 9, 64)
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32))
+    ids = torch.from_numpy(rng.integers(0, 1000, int(indptr[-1])).astype(np.int32))
+    shapes, first = collections.Counter(), {}
+    for n, count in counts.items():
+        rows = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32))
+        shape = (n, "torch.int32", "torch.int32", False)
+        shapes[("csr_row_sample",) + shape] = count
+        first[("csr_row_sample", shape)] = ((indptr, ids, rows, (1, 2), (3, 4)), {})
+    shapes[("threefry_bits", 4096)] = 10**6  # another kernel's shape: not timed
+    return {"shapes": shapes, "first": first}
+
+
+def test_row_sample_shapes_times_the_most_frequent(smoke, monkeypatch):
+    """The three most frequent shapes are timed, each cold and on the card
+    alone, and the sum of launches x (time - bound) is returned."""
+    timed = []
+
+    def cold_ms(fn, iters, host_ahead=False):
+        out = fn()
+        timed.append((out[0].numel(), host_ahead))
+        return 0.05 if host_ahead else 0.08
+
+    monkeypatch.setattr(smoke, "cold_ms", cold_ms)
+    monkeypatch.setattr(smoke, "draw_kernel",
+                        lambda name, args, kwargs: smoke.draw_plain(name, args, kwargs))
+    counts = {5: 40, 17: 7, 300: 300, 1000: 2}
+    rate = smoke.int_ops_per_s(132, 1980.0)
+    loss = smoke.row_sample_shapes(_row_sample_sampling(smoke, counts), rate)
+    assert sorted(timed) == sorted((n, ahead) for n in (300, 5, 17)
+                                   for ahead in (False, True))
+    # each bound is the larger of the bytes (at most 21 a row) and the
+    # draws' instructions, both under 1e-6 ms at these sizes
+    assert loss == pytest.approx(sum(counts[n] * 0.05 for n in (300, 5, 17)), rel=1e-4)
+    assert loss < sum(counts[n] * 0.05 for n in (300, 5, 17))
+
+
+def test_row_sample_shapes_refuses_a_time_under_its_bound(smoke, monkeypatch):
+    monkeypatch.setattr(smoke, "cold_ms", lambda fn, iters, host_ahead=False: 1e-9)
+    monkeypatch.setattr(smoke, "draw_kernel",
+                        lambda name, args, kwargs: smoke.draw_plain(name, args, kwargs))
+    with pytest.raises(AssertionError, match="under its bound"):
+        smoke.row_sample_shapes(_row_sample_sampling(smoke, {300: 3}),
+                                smoke.int_ops_per_s(132, 1980.0))
