@@ -1,17 +1,34 @@
 #!/usr/bin/env python3
-"""Device time of ``csr_row_sample_kernel`` and ``rglru_scan_bwd_kernel``
+"""Device time of the threefry draw kernels (``threefry_bits_kernel``,
+``randint_kernel``, ``csr_row_sample_kernel``) and ``rglru_scan_bwd_kernel``
 built from this tree's ``csrc`` against the same C entries built from
 another tree's, on the same inputs in one process, and the SASS of both
 builds.
 
     python3 benchmarks/torch_draw_bwd_ab.py [--other-csrc DIR ...]
+        [--parts draws,sample,scan]
 
 Each ``DIR`` holds another commit's ``threefry.cu`` and ``rglru_scan.cu``
 (a ``git archive`` of its ``src/repro_torch/csrc`` into a gitignored
 directory), or a variant of them; the script compiles them with the
 port's own nvcc flags and names each build by its directory. The entries
-``csr_row_sample_launch`` and ``rglru_scan_bwd_launch`` must take the
-same arguments in every tree. Inputs, seeded:
+``threefry_bits_launch``, ``randint_launch``, ``csr_row_sample_launch``
+and ``rglru_scan_bwd_launch`` must take the same arguments in every
+tree. ``--parts`` picks what runs (all three by default). Inputs,
+seeded:
+
+- draws: ``threefry_bits`` at 1,638,400 elements (the sampling phase's
+  heaviest launch) and 65,536 (a walk step's); ``randint`` at 1,048,576
+  draws with scalar bounds (0, 10,000,000) (the mean-degree estimator:
+  one hash a draw, the high word is dead past a span of 2^16) and (0, 7)
+  (two hashes a draw), and at 65,536 with ``lo`` 0 and a per-element
+  ``hi`` of 1 + Poisson(3) (the sharded walk step's shape). Each build's
+  launch is timed by the profiler (the kernel's device time, launches
+  back to back, as ``chip_smoke.kernel_record`` times it) and on the
+  card alone after a written L2 flush, in turns, beside two yardsticks
+  on the same card: ``fill_(0)`` of as many int32 (launch and store) and
+  ``torch.randint`` of as many int32 (PyTorch's Philox); then each
+  build's launcher host time a call at 65,536;
 
 - a CSR of ``N_ROWS`` = 10,000,000 rows (the smoke's ``N_NODES``) of
   Poisson(4) int32 ids over 500,000 columns with int32 ``indptr``, like
@@ -33,8 +50,11 @@ of as many int32 (``torch.take``, one and two dependent levels) as a
 yardstick of the card's random reads, and the wrapper's host time a
 call with its launcher bound once or every call. Then for each build's
 ``SASS_KERNELS``: the SASS instruction count by opcode (``cuobjdump -sass``; the
-hash's integer instructions in ``threefry_bits_kernel``). Needs a CUDA
-device; exits 2 without one.
+hash's integer instructions in ``threefry_bits_kernel``), split by the
+pipe that issues them (``PIPES``: the integer ALU and the FMA pipe at 64
+lanes a clock an SM each, conversions and MUFU at 16), with what each
+pipe's count alone predicts for the timed launches. Needs a CUDA device;
+exits 2 without one.
 """
 
 from __future__ import annotations
@@ -42,6 +62,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import json
 import re
 import subprocess
 import sys
@@ -57,9 +78,24 @@ ROW_COUNTS = (409_600, 262_144)
 SCAN_SHAPE = (4, 2048, 4096)
 ITERS = 20
 SEED = 27
+BITS_COUNTS = (1_638_400, 65_536)
+RANDINT_COUNT = 1_048_576
+SCALAR_BOUNDS = ((0, 10_000_000), (0, 7))
+WALK_STEP_COUNT = 65_536
+PARTS = ("draws", "sample", "scan")
 # integer ALU instructions of the hash (csrc/threefry.cu): adds, shifts
 # and funnel shifts, three-input logic, multiply-adds
 INT_OPS = ("IADD3", "SHF", "LOP3", "IMAD", "LEA", "IADD", "ISETP", "SEL", "PRMT")
+# the pipe each SASS opcode issues to on Hopper (by its name before the
+# first dot), and that pipe's lanes a clock on one SM: the integer ALU
+# (adds, logic, shifts, compares, selects) and the FMA pipe's IMAD (every
+# form: .IADD, .SHL, .HI, .WIDE, .MOV) at 64, conversions and MUFU at 16
+PIPES = {
+    "alu": (("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "IMNMX", "VIMNMX", "PRMT"),
+            64),
+    "fma": (("IMAD",), 64),
+    "xu": (("MUFU", "I2F", "F2I"), 16),
+}
 SASS_KERNELS = ("threefry_bits_kernel", "randint_kernel", "csr_row_sample_kernel",
                 "rglru_scan_bwd_kernel")
 
@@ -189,6 +225,172 @@ def ab(label, fns, bound_ms, extra=""):
                f"{theirs:.4f} ms: {theirs / mine:.2f}x")
 
 
+def draw_launchers(lib: ctypes.CDLL) -> dict:
+    """A threefry library's draw entries, bound to the port's argument
+    types: ``bits`` and ``randint``."""
+    from repro_torch.kernels import threefry
+
+    out = {}
+    for key, name in (("bits", "threefry_bits_launch"), ("randint", "randint_launch")):
+        fn = getattr(lib, name)
+        fn.argtypes = threefry.ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        out[key] = fn
+    return out
+
+
+def checked(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def draw_calls(fns: dict, key, device) -> dict:
+    """{label: (call, output, plain version, args)}: one build's launches
+    of the draw kernels at the A/B's shapes, each into its own output;
+    ``args`` are a randint's ``randint_cuda`` arguments (None for bits)."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.kernels import ref
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    cpu = torch.device("cpu")
+    calls = {}
+    for n in BITS_COUNTS:
+        out = torch.empty(n, dtype=torch.int32, device=device)
+        calls[f"threefry_bits {n:,}"] = (
+            lambda o=out, n=n: checked(fns["bits"](*key, o.data_ptr(), n, stream()),
+                                       "threefry_bits_launch"),
+            out, lambda n=n: ref.threefry_bits_ref(key, n, cpu), None)
+    k1, k2 = prng.split(key)
+    sub = (int(k1[0]), int(k1[1]), int(k2[0]), int(k2[1]))
+    rng = np.random.default_rng(SEED)
+    per_element = torch.from_numpy((1 + rng.poisson(3.0, WALK_STEP_COUNT)).astype(np.int32))
+    cases = [(f"scalar ({lo}, {hi:,})", RANDINT_COUNT, lo, hi) for lo, hi in SCALAR_BOUNDS]
+    cases.append(("per-element hi", WALK_STEP_COUNT, 0, per_element.to(device)))
+    for what, n, lo, hi in cases:
+        out = torch.empty(n, dtype=torch.int32, device=device)
+        hi_p, hi_s = (hi.data_ptr(), 0) if isinstance(hi, torch.Tensor) else (None, hi)
+        call = (lambda o=out, lo=lo, hi_p=hi_p, hi_s=hi_s, n=n: checked(
+            fns["randint"](*sub, None, lo, hi_p, hi_s, o.data_ptr(), n, stream()),
+            "randint_launch"))
+        hi_cpu = hi.cpu() if isinstance(hi, torch.Tensor) else hi
+        calls[f"randint {n:,} {what}"] = (
+            call, out,
+            lambda lo=lo, hi=hi_cpu, n=n: ref.randint_ref(k1, k2, lo, hi, n, cpu),
+            (k1, k2, lo, hi, n, device))
+    return calls
+
+
+def busy_ms(fn, iters: int) -> float:
+    """The card's busy time a call of ``fn``, which launches each of its
+    kernels once: the sum of each device activity's mean duration over a
+    profiled window of ``iters`` back-to-back calls
+    (``chip_smoke.device_activity``), so an event the profiler drops
+    lowers no reading."""
+    import chip_smoke as cs
+
+    acts = cs.device_activity(fn, iters)
+    return sum(us / n for n, us in acts.values()) / 1e3
+
+
+def run_draws(builds, device):
+    """threefry_bits and randint of each build at the A/B's shapes: equal
+    to the plain version bit for bit, then timed in turns (builds in
+    order and back), by the profiler and on the card alone, beside the
+    bound, the ALU-pipe floor and the two yardsticks."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core import prng
+
+    calls = {who: draw_calls(draw_launchers(lib), prng.key(SEED), device)
+             for who, lib in builds.items()}
+    int_rate = cs.card_int_ops_per_s()
+    names = list(builds)
+    for label in calls["this"]:
+        want = None
+        for who in names:
+            fn, out, plain, args = calls[who][label]
+            fn()
+            cs.sync()
+            want = plain() if want is None else want
+            if not torch.equal(out.cpu(), want):
+                raise AssertionError(f"{label}: the {who} build differs from the plain "
+                                     "version")
+        got = collections.defaultdict(lambda: {"profiler": [], "alone": []})
+        for who in names + names[::-1]:
+            fn = calls[who][label][0]
+            got[who]["profiler"].append(busy_ms(fn, 50))
+            got[who]["alone"].append(cs.cold_ms(fn, ITERS, host_ahead=True))
+        n = want.numel()
+        if args is None:
+            nbytes, ops, hashes = 4 * n, cs.bits_ops(n), n
+        else:
+            nbytes, ops = cs.draw_bytes("randint", args, {}), cs.randint_ops(args)
+            hashes = cs.randint_hashes(args)
+        bound = max(nbytes / cs.HBM_BYTES_PER_S, ops / int_rate) * 1e3
+        alu = cs.alu_floor_ms(hashes * cs.HASH_ALU_OPS)
+        for who, t in got.items():
+            cs.log(f"{label}: {who}: profiler "
+                   f"{' / '.join(f'{x:.4f}' for x in t['profiler'])} ms, on the card "
+                   f"alone {' / '.join(f'{x:.4f}' for x in t['alone'])} ms; bound "
+                   f"{bound:.4f} ms (bytes {nbytes}, operations {ops}); ALU-pipe floor "
+                   f"{alu:.4f} ms ({hashes} hashes); equal to the plain version bit "
+                   "for bit")
+        mine = np.mean(got["this"]["profiler"])
+        for who in names[:-1]:
+            theirs = np.mean(got[who]["profiler"])
+            alone = np.mean(got[who]["alone"]) / np.mean(got["this"]["alone"])
+            cs.log(f"{label}: by the profiler this tree {mine:.4f} ms against {who} "
+                   f"{theirs:.4f} ms: {theirs / mine:.2f}x (on the card alone "
+                   f"{alone:.2f}x)")
+        draw_yardsticks(label, n, device)
+    launcher_host_us(calls, names)
+
+
+def launcher_host_us(calls: dict, names: list, n_calls: int = 2000) -> None:
+    """Host time a call of each build's threefry_bits and randint
+    launchers at a walk step's 65,536 elements (the card's microsecond or
+    two hides under it): wall time over ``n_calls`` back-to-back calls
+    through ctypes, the builds in turns and back."""
+    import time
+
+    import chip_smoke as cs
+
+    for label in (f"threefry_bits {WALK_STEP_COUNT:,}",
+                  f"randint {WALK_STEP_COUNT:,} per-element hi"):
+        got = collections.defaultdict(list)
+        for who in names + names[::-1]:
+            fn = calls[who][label][0]
+            for _ in range(100):
+                fn()
+            cs.sync()
+            t0 = time.perf_counter()
+            for _ in range(n_calls):
+                fn()
+            cs.sync()
+            got[who].append((time.perf_counter() - t0) / n_calls * 1e6)
+        cs.log(f"{label}: host time a launcher call: " + "; ".join(
+            f"{who} {' / '.join(f'{us:.2f}' for us in t)} us" for who, t in got.items()))
+
+
+def draw_yardsticks(label: str, n: int, device) -> None:
+    """``fill_(0)`` and ``torch.randint`` of ``n`` int32 on the card, timed
+    as the draws are."""
+    import torch
+
+    import chip_smoke as cs
+
+    buf = torch.empty(n, dtype=torch.int32, device=device)
+    for what, fn in (("fill_(0)", lambda: buf.fill_(0)),
+                     ("torch.randint", lambda: torch.randint(
+                         0, 2**31 - 1, (n,), dtype=torch.int32, device=device))):
+        cs.log(f"{label}: yardstick {what} of {n:,} int32: profiler "
+               f"{busy_ms(fn, 50):.4f} ms, on the card alone "
+               f"{cs.cold_ms(fn, ITERS, host_ahead=True):.4f} ms")
+
+
 def run_sample(builds, device):
     import torch
 
@@ -219,7 +421,7 @@ def run_sample(builds, device):
         nbytes = cs.draw_bytes("csr_row_sample", args, kwargs)
         sectors = cs.draw_sector_bytes(args, kwargs)
         bound = max(nbytes / cs.HBM_BYTES_PER_S,
-                    r.numel() * cs.RANDINT_OPS / int_rate) * 1e3
+                    cs.row_sample_ops(args, kwargs) / int_rate) * 1e3
         ab(f"csr_row_sample {label}", fns, bound,
            f" (bytes {nbytes}; 32-byte sectors {sectors / cs.HBM_BYTES_PER_S * 1e3:.4f} "
            "ms); equal to the plain version bit for bit")
@@ -317,32 +519,69 @@ def run_scan(builds, device):
        nbytes / cs.HBM_BYTES_PER_S * 1e3, "; equal to its loop bit for bit")
 
 
-def sass_counts(lib: Path) -> None:
+def sass_counts(lib: Path, launches: dict) -> None:
     """Per kernel function of ``lib`` named in SASS_KERNELS: its SASS
     instructions by opcode, the integer ALU ones summed (one hash an
-    element in threefry_bits_kernel)."""
+    element in threefry_bits_kernel), and by pipe (``PIPES``). For the
+    functions named in ``launches`` ({name: {label: elements}}), each
+    pipe's count an element (the static count over the elements a thread
+    takes in a loop iteration, the function's first template argument or
+    1, so the prologue and the tail's stores count too) and the time that
+    count alone predicts at each launch, at the pipe's lanes a clock on
+    every SM at the card's maximum clock."""
     from repro_torch.kernels import build
 
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
+    import chip_smoke as cs
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(cs.device_line("clocks.max.sm").split()[0])
     for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", text,
                                re.S):
         if not any(k in fn for k in SASS_KERNELS):
             continue
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+        full = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                          body)
+        ops = [op.split(".")[0] for op in full]
         kinds = collections.Counter(ops)
         int_ops = sum(kinds[k] for k in INT_OPS)
         top = ", ".join(f"{k} {v}" for k, v in kinds.most_common(12))
         print(f"#   {fn}: {len(ops)} instructions, integer ALU {int_ops}, MUFU "
               f"{kinds['MUFU']}, I2F {kinds['I2F']}, F2I {kinds['F2I']}; {top}")
+        pipes = {p: sum(kinds[k] for k in names) for p, (names, _) in PIPES.items()}
+        imad = collections.Counter(op for op in full if op.startswith("IMAD"))
+        print(f"#     by pipe: {json.dumps(pipes)}, other "
+              f"{len(ops) - sum(pipes.values())}; IMAD forms {json.dumps(dict(imad))}")
+        per_thread = re.search(r"kernelILi(\d+)E", fn)
+        per = int(per_thread[1]) if per_thread else 1
+        for name, counts in launches.items():
+            if name not in fn:
+                continue
+            for label, n in counts.items():
+                parts = []
+                for p, (_, lanes) in PIPES.items():
+                    ms = n * pipes[p] / per / (lanes * sms * mhz * 1e6) * 1e3
+                    parts.append(f"{p} {pipes[p] / per:.2f} an element -> {ms:.4f} ms")
+                issue = n * len(ops) / per / (cs.INT_LANE_OPS_PER_CLOCK * sms * mhz
+                                              * 1e6) * 1e3
+                print(f"#     {name} at {label}: " + "; ".join(parts)
+                      + f"; every instruction at the issue rate -> {issue:.4f} ms "
+                      f"({sms} SMs at {mhz:.0f} MHz)")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other-csrc", type=Path, action="append", default=[],
                         help="directory with another tree's threefry.cu and rglru_scan.cu")
+    parser.add_argument("--parts", default=",".join(PARTS),
+                        help=f"comma-separated parts to run, of {', '.join(PARTS)}")
     args = parser.parse_args()
+    parts = set(args.parts.split(","))
+    if not parts <= set(PARTS):
+        parser.error(f"--parts takes {', '.join(PARTS)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -359,19 +598,25 @@ def main() -> int:
     for tag, csrc in enumerate(args.other_csrc):
         who = str(csrc)
         other = build_other(csrc.resolve(), ROOT / "build" / "draw_bwd_ab", tag)
-        builds[who] = launchers(ctypes.CDLL(str(other["threefry"])),
-                                ctypes.CDLL(str(other["rglru_scan"])))
+        builds[who] = (ctypes.CDLL(str(other["threefry"])),
+                       ctypes.CDLL(str(other["rglru_scan"])))
         paths[who] = other
-    builds["this"] = launchers(build.library("threefry"), build.library("rglru_scan"))
+    builds["this"] = (build.library("threefry"), build.library("rglru_scan"))
     paths["this"] = {name: build.library_path(name) for name in ("threefry", "rglru_scan")}
-    run_sample(builds, device)
-    run_scan(builds, device)
+    if "draws" in parts:
+        run_draws({who: libs[0] for who, libs in builds.items()}, device)
+    if "sample" in parts:
+        run_sample({who: launchers(*libs) for who, libs in builds.items()}, device)
+    if "scan" in parts:
+        run_scan({who: launchers(*libs) for who, libs in builds.items()}, device)
+    launches = {"threefry_bits_kernel": {f"{n:,}": n for n in BITS_COUNTS},
+                "randint_kernel": {f"{RANDINT_COUNT:,}": RANDINT_COUNT}}
     for who, libs in paths.items():
         for name, lib in libs.items():
             print(f"# SASS of the {who} build's {name}:")
-            sass_counts(lib)
+            sass_counts(lib, launches)
     cs.log(f"integer rate {cs.card_int_ops_per_s():.4g} a second; HASH_OPS "
-           f"{cs.HASH_OPS}; {cs.device_line(cs.CLOCK_FIELDS)}")
+           f"{cs.HASH_OPS} below 2^32 elements; {cs.device_line(cs.CLOCK_FIELDS)}")
     return 0
 
 

@@ -377,6 +377,9 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor peak (float32 table entry)
 # clock (one a scheduler), 32 lanes each; the float32 entry above counts a
 # fused multiply-add as two flops, so it is twice the integer rate
 INT_LANE_OPS_PER_CLOCK = 4 * 32
+# of which the integer ALU pipe (adds, logic, shifts, compares) takes 16
+# lanes a clock on each of the 4 schedulers; IMAD goes to the FMA pipe
+ALU_LANE_OPS_PER_CLOCK = 4 * 16
 
 POINT_PAIRS = 8192
 ALTERS_NODES = 2048
@@ -1678,8 +1681,12 @@ def kernel_record(name, symbols, source, replaces, launches, err, kernel, plain,
                   library=None, library_none="") -> dict:
     """``ms`` is the device time of one call of ``kernel``, summed over
     ``symbols``, the kernels one call launches, each once or (name, n) n
-    times (``call_device_ms`` over the profiler's events, so it holds when
-    the profiler drops events; where
+    times (``call_device_ms`` over the profiler's events, from the first
+    of up to PROFILER_WINDOWS windows that delivered every event of the
+    listed kernels: the events of a window that lost some have read under
+    a kernel's bound, 40 of 50 of a draw's at half its time; where no
+    window was whole, the last that saw each kernel, so it holds when the
+    profiler drops events; where
     the profiler lost every event of a symbol in all windows, or every
     device event of them, the event-timed time per call, an upper bound,
     and ``ms_from`` says which);
@@ -1690,19 +1697,24 @@ def kernel_record(name, symbols, source, replaces, launches, err, kernel, plain,
     ``ops_rate``; ``check_readings`` refuses a reading under it. The
     kernel's event-timed time per call (host launch included) and the
     window's other device activity are printed beside."""
-    ms, seen = None, {}
+    ms, seen, acts, whole = None, {}, {}, False
     for _ in range(PROFILER_WINDOWS):
         try:
-            acts = device_activity(kernel, iters)
+            window = device_activity(kernel, iters)
         except ProfilerLostEvents:
-            acts = {}  # every device event of the windows lost: as below
-        ms, seen = call_device_ms(acts, symbols, iters)
-        if ms is not None:
+            window = {}  # every device event of the windows lost: as below
+        window_ms, window_seen = call_device_ms(window, symbols, iters)
+        if window_ms is None and ms is not None:
+            continue  # keep the partial window found before
+        ms, seen, acts = window_ms, window_seen, window
+        whole = ms is not None and all(
+            seen[sym] == iters * n for sym, n in symbol_counts(symbols))
+        if whole:
             break
     names = [sym for sym, _ in symbol_counts(symbols)]
     other = {k: v for k, v in acts.items() if not any(sym in k for sym in names)}
     call_ms = cuda_ms(kernel, iters)
-    ms_from = "profiler"
+    ms_from = "profiler" if whole else "profiler, a window that lost events"
     if ms is None:
         # the profiler lost every window's launches of a kernel: the
         # event-timed call (host launch included) bounds its time from above
@@ -2128,14 +2140,97 @@ def draw_shape(name, args, kwargs) -> tuple:
 
 
 # integer instructions of one threefry-2x32 hash in csrc/threefry.cu, the
-# fewest it compiles to: 2 key adds, 20 rounds of an add, a rotate and an
-# xor, 5 injections of one add to x1 each, the last injection's add to x0
-# (the other four fold into the next round's three-input add), the xor of
-# the output words; of one int32 randint: two hashes and at least 9 for the
-# reduction (span, multiplier, remainders, a product, adds).
-# benchmarks/torch_draw_bwd_ab.py counts them in the built library's SASS.
-HASH_OPS = 2 + 20 * 3 + 5 + 1 + 1
+# fewest it compiles to where the counter's high word is 0 (an element
+# below 2^32): the key add to the low word (x0 starts at the key word), 20
+# rounds of an add, a rotate and an xor, 5 injections of one add to x1
+# each, the last injection's add to x0 (the other four fold into the next
+# round's three-input add), the xor of the output words; an element at
+# 2^32 or above adds the high word too (``high_word_adds``); of one int32
+# randint: two hashes and at least 9 for the reduction (span, multiplier,
+# remainders, a product, adds) where the multiplier (2^16 mod span)^2 mod
+# span is not 0; where it is 0 (a span above 2^16, or one that divides
+# 2^16) the high word's bits drop out of the offset, lb mod span, so one
+# hash and at least 3 (a high product, a multiply-subtract, the add of
+# lo); a span of 1 draws lo and needs no hash (the kernel draws one there
+# all the same: no caller draws a scalar span of 1, and per-element
+# bounds keep one plan). benchmarks/torch_draw_bwd_ab.py counts them in
+# the built library's SASS. HASH_ALU_OPS: the hash's instructions that
+# only the integer ALU pipe issues (the 20 rotates, the 20 round xors, the
+# output xor), a diagnostic floor at ALU_LANE_OPS_PER_CLOCK, not the bound.
+HASH_OPS = 1 + 20 * 3 + 5 + 1 + 1
 RANDINT_OPS = 2 * HASH_OPS + 9
+RANDINT_ONE_HASH_OPS = HASH_OPS + 3
+HASH_ALU_OPS = 20 + 20 + 1
+
+
+def draw_hash_counts(lo, hi):
+    """The hashes an int32 randint draw over bounds ``lo``, ``hi`` (ints
+    or int tensors of one a draw) needs, by ``_randint``'s span and
+    multiplier: a 0-dim tensor for scalar bounds, else one a draw."""
+    import torch
+
+    as64 = lambda b: b.long() if isinstance(b, torch.Tensor) else torch.tensor(int(b))  # noqa: E731
+    lo64, hi64 = as64(lo), as64(hi)
+    span = torch.where(hi64 <= lo64, 1, (hi64 - lo64) & 0xFFFFFFFF)
+    mult = ((torch.remainder(65536, span) ** 2) & 0xFFFFFFFF) % span
+    return torch.where(span == 1, 0, torch.where(mult == 0, 1, 2))
+
+
+def randint_hash_counts(lo, hi, n: int) -> tuple:
+    """(draws that need no hash, one, two) of ``n`` int32 randint draws
+    over bounds ``lo``, ``hi``."""
+    hashes = draw_hash_counts(lo, hi)
+    counts = [int((hashes == h).sum()) for h in range(3)]
+    if hashes.dim() == 0:
+        counts = [n * c for c in counts]
+    return tuple(counts)
+
+
+def high_word_adds(n: int, hashes=1) -> int:
+    """The adds of a counter's high word to the key that ``n`` elements
+    need, ``hashes`` hashes an element (an int, or a tensor of one an
+    element): only elements at 2^32 and above have a high word that is not
+    0."""
+    tail = max(0, n - 2**32)
+    if not tail:
+        return 0
+    if isinstance(hashes, int) or hashes.dim() == 0:
+        return tail * int(hashes)
+    return int(hashes[2**32:].sum())
+
+
+def bits_ops(n: int) -> int:
+    """The integer instructions ``n`` elements of threefry bits need."""
+    return n * HASH_OPS + high_word_adds(n)
+
+
+def randint_ops(args) -> int:
+    """The integer instructions a randint launch (``randint_cuda``'s
+    arguments) needs, counted from its bounds."""
+    n = int(args[4])
+    _, one, two = randint_hash_counts(args[2], args[3], n)
+    return one * RANDINT_ONE_HASH_OPS + two * RANDINT_OPS \
+        + high_word_adds(n, draw_hash_counts(args[2], args[3]))
+
+
+def randint_hashes(args) -> int:
+    """The hashes a randint launch needs."""
+    _, one, two = randint_hash_counts(args[2], args[3], int(args[4]))
+    return one + 2 * two
+
+
+def row_sample_ops(args, kwargs) -> int:
+    """The integer instructions a row sample's draws need: a randint over
+    [0, max(length, 1)) a row."""
+    length, _ = draw_row_lengths(args, kwargs)
+    return randint_ops((None, None, 0, length.clamp(min=1), length.numel()))
+
+
+def alu_floor_ms(alu_ops: int) -> float:
+    """The time ``alu_ops`` integer-ALU-pipe instructions take at
+    ALU_LANE_OPS_PER_CLOCK an SM, ms: a diagnostic, not a bound."""
+    return alu_ops / card_int_ops_per_s() * INT_LANE_OPS_PER_CLOCK \
+        / ALU_LANE_OPS_PER_CLOCK * 1e3
 
 
 def draw_bytes(name, args, kwargs, exact: bool = True) -> int:
@@ -2677,34 +2772,52 @@ def draw_timing(sampling: dict) -> list:
     it, the same launch on the card alone (``cold_ms(host_ahead=True)``)
     and both readings at the phase's three most frequent launch shapes,
     each with its launch count and launches x (device time - bound)."""
+    import torch
+
     records = []
     launches, worst = sampling["launches"], sampling["worst"]
     int_rate = card_int_ops_per_s()
     log(f"timing: integer instructions at {int_rate:.4g} a second ("
         f"{INT_LANE_OPS_PER_CLOCK} lane instructions a clock an SM at the maximum SM "
-        f"clock); a hash counted {HASH_OPS}, a randint {RANDINT_OPS}")
-    for name, ops_per, replaces in (
-        ("threefry_bits", HASH_OPS,
+        f"clock); a hash counted {HASH_OPS} below 2^32 elements, a randint {RANDINT_OPS} "
+        f"({RANDINT_ONE_HASH_OPS} where the high word drops out, none at span 1)")
+    for name, replaces in (
+        ("threefry_bits",
          "none: XLA fuses jax.random's threefry2x32 on the TPU (the layer "
          "choice, src/repro/core/traversal.py:369)"),
-        ("randint", RANDINT_OPS,
+        ("randint",
          "none: XLA fuses jax.random.randint on the TPU "
          "(src/repro/core/estimators.py:48)"),
     ):
         _, args, kwargs = sampling["heaviest"][name]
-        n = int(args[1] if name == "threefry_bits" else args[4])
+        if name == "threefry_bits":
+            n, ops, hashes = int(args[1]), bits_ops(int(args[1])), int(args[1])
+        else:
+            n, ops, hashes = int(args[4]), randint_ops(args), randint_hashes(args)
         kernel = lambda a=args, k=kwargs, nm=name: draw_kernel(nm, a, k)  # noqa: E731
         plain = lambda a=args, k=kwargs, nm=name: draw_plain(nm, a, k)  # noqa: E731
         err = draw_err(kernel(), plain())
-        records.append(kernel_record(
+        rec = kernel_record(
             name, (f"{name}_kernel",), "src/repro_torch/csrc/threefry.cu", replaces,
             launches.get(name, 0), max(err, worst.get(name, 0)), kernel, plain, 50,
-            draw_bytes(name, args, kwargs), n * ops_per,
+            draw_bytes(name, args, kwargs), ops,
             f"{draw_shape(name, args, kwargs)} (the sampling phase's heaviest)",
             ops_rate=int_rate,
             library_none="no torch call draws threefry bits (torch's generators "
                          "are Philox)",
-        ))
+        )
+        records.append(rec)
+        device = args[-1]
+        buf = torch.empty(n, dtype=torch.int32, device=device)
+        alone = [cold_ms(fn, 20, host_ahead=True) for fn in (
+            kernel, lambda: buf.fill_(0),
+            lambda: torch.randint(0, 2**31 - 1, (n,), dtype=torch.int32, device=device))]
+        log(f"timing: {name} at {rec['shape']}: on the card alone the kernel "
+            f"{alone[0]:.4f} ms beside yardsticks on the card: fill_(0) of {n} int32 "
+            f"{alone[1]:.4f} ms, torch.randint of {n} int32 (Philox) {alone[2]:.4f} ms; "
+            f"ALU-pipe floor ({hashes} hashes x {HASH_ALU_OPS} rotates and xors at "
+            f"{ALU_LANE_OPS_PER_CLOCK} lanes a clock an SM, a diagnostic) "
+            f"{alu_floor_ms(hashes * HASH_ALU_OPS):.4f} ms; bound {rec['bound_ms']:.4f} ms")
     _, args, kwargs = sampling["heaviest"]["csr_row_sample"]
     kernel = lambda: draw_kernel("csr_row_sample", args, kwargs)  # noqa: E731
     plain = lambda: draw_plain("csr_row_sample", args, kwargs)  # noqa: E731
@@ -2712,9 +2825,8 @@ def draw_timing(sampling: dict) -> list:
     ms = cold_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 5)
     nbytes = draw_bytes("csr_row_sample", args, kwargs)
-    n = args[2].numel()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * RANDINT_OPS / int_rate * 1e3
+    ops_ms = row_sample_ops(args, kwargs) / int_rate * 1e3
     sectors = draw_sector_bytes(args, kwargs)
     rec = {
         "name": "csr_row_sample", "route": "cuda",
@@ -2760,9 +2872,8 @@ def row_sample_shapes(sampling: dict, int_rate: float) -> float:
         kernel = lambda a=args, k=kwargs: draw_kernel("csr_row_sample", a, k)  # noqa: E731
         ms = cold_ms(kernel, 20)
         device_ms = cold_ms(kernel, 20, host_ahead=True)
-        n = args[2].numel()
         bound = max(draw_bytes("csr_row_sample", args, kwargs) / HBM_BYTES_PER_S,
-                    n * RANDINT_OPS / int_rate) * 1e3
+                    row_sample_ops(args, kwargs) / int_rate) * 1e3
         sectors_ms = draw_sector_bytes(args, kwargs) / HBM_BYTES_PER_S * 1e3
         check_readings({"name": f"csr_row_sample at {shape}", "ms": device_ms,
                         "library_ms": None, "bound_ms": bound})

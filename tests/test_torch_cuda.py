@@ -430,6 +430,86 @@ def test_randint_kernel_matches_plain(cuda_device, case, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 2, 3, 5, 4 * 2501 + 1, 65_537, 1_638_402])
+def test_threefry_bits_kernel_vector_tail(cuda_device, n):
+    """Counts that end in a partial group of the kernel's four elements a
+    thread (its scalar tail), none (no launch), small grids of narrowed
+    blocks, and more than one resident wave (the grid-stride loop):
+    bit-identical to the plain version."""
+    key = (2718281828, 3141592653)
+    before = launch_counts["threefry_bits"]
+    got = ops.threefry_bits(key, n, cuda_device)
+    assert launch_counts["threefry_bits"] == before + (n > 0)
+    assert torch.equal(got.cpu(), ref.threefry_bits_ref(key, n, torch.device("cpu")))
+
+
+_SCALAR_BOUNDS = sorted(k for k, b in _RANDINT_BOUNDS.items()
+                        if all(isinstance(x, int) for x in b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4 * 2501 + 1, (1 << 20) + 3])
+@pytest.mark.parametrize("case", _SCALAR_BOUNDS)
+def test_randint_kernel_scalar_plans(cuda_device, case, n):
+    """Scalar bounds, whose span, multiplier and reciprocal the host
+    computes once (two hashes a draw, one where the multiplier is 0, span
+    1 among them), at a ragged count and past one resident wave:
+    bit-identical to the plain version."""
+    from repro_torch.core import prng
+
+    lo, hi = _RANDINT_BOUNDS[case]
+    k1, k2 = prng.split(prng.key(619))
+    before = launch_counts["randint"]
+    got = ops.randint(k1, k2, lo, hi, n, cuda_device)
+    assert launch_counts["randint"] == before + 1
+    assert torch.equal(got.cpu(), ref.randint_ref(k1, k2, lo, hi, n, torch.device("cpu")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 4 * 2501 + 3])
+def test_randint_kernel_unaligned_bounds(cuda_device, n):
+    """Per-element bounds that start 4 bytes past a 16-byte boundary (the
+    kernel's element-wise loads) at ragged counts: bit-identical."""
+    from repro_torch.core import prng
+
+    rng = np.random.default_rng(620)  # seed 620
+    lo = torch.from_numpy(rng.integers(-5, 5, n + 1).astype(np.int32))
+    hi = torch.from_numpy(rng.integers(-2, 70_000, n + 1).astype(np.int32))
+    k1, k2 = prng.split(prng.key(621))
+    lo_d, hi_d = lo.to(cuda_device)[1:], hi.to(cuda_device)[1:]
+    assert lo_d.data_ptr() % 16 == 4
+    got = ops.randint(k1, k2, lo_d, hi_d, n, cuda_device)
+    want = ref.randint_ref(k1, k2, lo[1:], hi[1:], n, torch.device("cpu"))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [1_000, 409_600])
+def test_csr_row_sample_kernel_after_hash_change(cuda_device, n_rows):
+    """409,600 rows (the sampling phase's heaviest launch) and 1,000 (a
+    grid of narrowed blocks) of a layer with rows of 65,536 and 70,000 ids
+    (the multiplier is 0 past 2^16) beside short and empty ones: the row
+    sample, which shares the hash, the reduction and the grid with the
+    draw kernels, stays bit-identical to its plain version."""
+    from repro_torch.core import prng
+    from repro_torch.core.csr import csr_from_arrays
+
+    rng = np.random.default_rng(622)  # seed 622
+    lengths = rng.integers(0, 13, 4000)
+    lengths[[7, 31]] = [65_536, 70_000]
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    ids = rng.integers(0, 1 << 20, int(indptr[-1])).astype(np.int32)
+    rows = rng.integers(-3, 4003, n_rows).astype(np.int32)
+    rows[:2] = [7, 31]
+    k1, k2 = prng.split(prng.key(623))
+    base = csr_from_arrays(indptr, ids, None, 4000, 1 << 20, cuda_device)
+    cbase = csr_from_arrays(indptr, ids, None, 4000, 1 << 20, torch.device("cpu"))
+    got, ok = ops.csr_row_sample(base, None, torch.from_numpy(rows).to(cuda_device), k1, k2)
+    want, wok = ref.csr_row_sample_ref(cbase, None, torch.from_numpy(rows), k1, k2)
+    assert torch.equal(got.cpu(), want) and torch.equal(ok.cpu(), wok)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 33, 1000])
 @pytest.mark.parametrize("overlay", [False, True])
 @pytest.mark.parametrize("indptr_dtype", [np.int32, np.int64])
@@ -454,10 +534,10 @@ def test_csr_row_sample_kernel_matches_plain(cuda_device, ids_dtype, indptr_dtyp
 
 
 def _sample_block() -> int:
-    """Threads (rows) a block of csr_row_sample_kernel, read from
-    csrc/threefry.cu."""
+    """Threads (rows) of csr_row_sample_kernel's widest block (the draw
+    kernels' grid), read from csrc/threefry.cu."""
     text = (Path(ops.__file__).parents[1] / "csrc" / "threefry.cu").read_text()
-    return int(re.search(r"constexpr int kThreads = (\d+);", text)[1])
+    return int(re.search(r"constexpr int kDrawThreads = (\d+);", text)[1])
 
 
 _SAMPLE_BLOCK = _sample_block()

@@ -39,29 +39,39 @@ def _constants(source: str, *names: str) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+SMS = 132  # an H100 SXM's SMs
+
+
 def _grid_plan(source: str = "threefry.cu") -> tuple:
-    """(threads a block, most blocks a launch) of the draw kernels."""
+    """(the widest block, the narrowest, most blocks a launch on SMS SMs)
+    of the draw kernels' grid, ``draw_grid``."""
     text = (CSRC / source).read_text()
-    cap = re.search(r"blocks < (\d+) \* (\d+) \?", text)
-    return _constants(source, "kThreads")[0], int(cap[1]) * int(cap[2])
+    narrowest = int(re.search(r"while \(threads > (\d+) &&", text)[1])
+    widest, per_sm = _constants(source, "kDrawThreads", "kMaxBlocksPerSm")
+    return widest, narrowest, SMS * per_sm
 
 
-THREADS, MAX_BLOCKS = _grid_plan()
+THREADS, MIN_THREADS, MAX_BLOCKS = _grid_plan()
 
 
 def _plan(n: int, max_blocks: int = MAX_BLOCKS) -> np.ndarray:
     """The element indices the kernel's threads take, in launch order:
-    ``grid_for(n)`` blocks of THREADS, each thread striding by the grid
-    from its global index."""
-    blocks = min(-(-n // THREADS), max_blocks)
-    first = np.arange(blocks * THREADS)
-    steps = [first + k * blocks * THREADS for k in range(-(-n // (blocks * THREADS)))]
+    ``draw_grid(n, false)``, one row a thread in blocks of THREADS halved
+    (to MIN_THREADS at least) while the grid would leave one of SMS SMs
+    without a block, at most ``max_blocks`` of them, each thread striding
+    by the grid from its global index."""
+    threads = THREADS
+    while threads > MIN_THREADS and -(-n // threads) < SMS:
+        threads //= 2
+    blocks = min(-(-n // threads), max_blocks)
+    first = np.arange(blocks * threads)
+    steps = [first + k * blocks * threads for k in range(-(-n // (blocks * threads)))]
     taken = np.concatenate(steps) if steps else np.zeros(0, np.int64)
     return taken[taken < n]
 
 
 def _draw(hb, lb, span):
-    """threefry.cu's ``draw`` from the two words of bits, in uint64 numpy
+    """threefry.cu's ``offset`` from the two words of bits, in uint64 numpy
     with the kernel's uint32 wrap: mult = (2^16 mod span)^2 mod span (the
     square wraps to 0 past 2^16), ((hb mod span) mult + lb mod span) mod
     span."""

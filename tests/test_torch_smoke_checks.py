@@ -220,6 +220,23 @@ def test_kernel_record_counts_each_kernel_once_a_call_when_events_drop(
     assert rec["ms"] == pytest.approx(0.200 + 0.050)
 
 
+def test_kernel_record_prefers_a_window_whose_events_all_arrived(smoke, monkeypatch):
+    # the first window lost 4 of 10 events and read half the time; the
+    # second delivered all 10: its reading is the record's
+    _stub_timing(smoke, monkeypatch, {})
+    windows = [{"ssd_tc_kernel": [6, 600.0]}, {"ssd_tc_kernel": [10, 2000.0]}]
+    calls = []
+
+    def device_activity(fn, iters):
+        calls.append(iters)
+        return windows[len(calls) - 1]
+
+    monkeypatch.setattr(smoke, "device_activity", device_activity)
+    rec = _ssd_record(smoke, ("ssd_tc_kernel",))
+    assert rec["ms"] == pytest.approx(0.200)
+    assert rec["ms_from"] == "profiler" and calls == [10, 10]
+
+
 def test_kernel_record_falls_back_to_event_time_when_a_kernel_is_lost(
         smoke, monkeypatch):
     acts = {"ssd_tc_kernel": [10, 2000.0]}  # copy_kernel lost in every window
@@ -1370,16 +1387,18 @@ def test_integer_rate_counts_four_warp_instructions_a_clock_an_sm(smoke):
     """The draw kernels' operations bound: 132 SMs x 4 warp instructions of
     32 lanes a clock at the H100's maximum SM clock, 1,980 MHz, which is
     half the float32 table entry (that counts a fused multiply-add as two
-    flops); a hash counted as the 69 instructions it compiles to at
-    least."""
+    flops); a hash counted as the 68 instructions it compiles to at
+    least where the counter's high word is 0 (below 2^32 elements), 69
+    above."""
     rate = smoke.int_ops_per_s(132, 1980.0)
     assert rate == pytest.approx(132 * 4 * 32 * 1980e6, rel=1e-12)
     assert rate == pytest.approx(smoke.SCALAR_OPS_PER_S / 2, rel=2e-3)
-    assert smoke.HASH_OPS == 69 and smoke.RANDINT_OPS == 2 * 69 + 9
+    assert smoke.HASH_OPS == 68 and smoke.RANDINT_OPS == 2 * 68 + 9
+    assert smoke.bits_ops(2**32 + 5) == (2**32 + 5) * 68 + 5
     # threefry_bits at the sampling phase's 1,638,400 elements: bound by
-    # its instructions (0.0034 ms), not its 4 bytes an element (0.0020)
-    ops_ms = 1_638_400 * smoke.HASH_OPS / rate * 1e3
-    assert ops_ms == pytest.approx(0.003379, rel=1e-3)
+    # its instructions (0.0033 ms), not its 4 bytes an element (0.0020)
+    ops_ms = smoke.bits_ops(1_638_400) / rate * 1e3
+    assert ops_ms == pytest.approx(0.0033302, rel=1e-3)
     assert ops_ms > 4 * 1_638_400 / smoke.HBM_BYTES_PER_S * 1e3
 
 
