@@ -1,21 +1,21 @@
 #!/usr/bin/env python3
 """Device time of the threefry draw kernels (``threefry_bits_kernel``,
-``randint_kernel``, ``csr_row_sample_kernel``) and ``rglru_scan_bwd_kernel``
-built from this tree's ``csrc`` against the same C entries built from
-another tree's, on the same inputs in one process, and the SASS of both
-builds.
+``randint_kernel``, ``csr_row_sample_kernel``), ``rglru_scan_bwd_kernel``
+and the padded-row ``intersect_count`` entry built from this tree's
+``csrc`` against the same C entries built from another tree's, on the
+same inputs in one process, and the SASS of both builds.
 
     python3 benchmarks/torch_draw_bwd_ab.py [--other-csrc DIR ...]
-        [--parts draws,sample,scan]
+        [--parts draws,sample,scan,intersect]
 
-Each ``DIR`` holds another commit's ``threefry.cu`` and ``rglru_scan.cu``
-(a ``git archive`` of its ``src/repro_torch/csrc`` into a gitignored
-directory), or a variant of them; the script compiles them with the
-port's own nvcc flags and names each build by its directory. The entries
-``threefry_bits_launch``, ``randint_launch``, ``csr_row_sample_launch``
-and ``rglru_scan_bwd_launch`` must take the same arguments in every
-tree. ``--parts`` picks what runs (all three by default). Inputs,
-seeded:
+Each ``DIR`` holds another commit's ``threefry.cu``, ``rglru_scan.cu`` and
+``intersect.cu`` (a ``git archive`` of its ``src/repro_torch/csrc`` into
+a gitignored directory), or a variant of them; the script compiles the
+ones the chosen parts need with the port's own nvcc flags and names each
+build by its directory. The entries ``threefry_bits_launch``,
+``randint_launch``, ``csr_row_sample_launch``, ``rglru_scan_bwd_launch``
+and ``intersect_count_launch`` must take the same arguments in every
+tree. ``--parts`` picks what runs (all four by default). Inputs, seeded:
 
 - draws: ``threefry_bits`` at 1,638,400 elements (the sampling phase's
   heaviest launch) and 65,536 (a walk step's); ``randint`` at 1,048,576
@@ -37,7 +37,19 @@ seeded:
   262,144 (the walk fleet's), and at 262,144 with a delta overlay that
   dirties 1 % of the rows;
 - a, h, dh [4, 2048, 4096] f32 and h0 [4, 4096] (recurrentgemma's
-  training shape).
+  training shape);
+- intersect: ``INTERSECT_ROWS`` = 8,192 row pairs (the sharded phase's
+  edge-value launches and the smoke's timed shape) of sorted, unique,
+  SENTINEL-padded int32 rows, ``a`` and ``b`` both ``w`` wide, each row's
+  real length uniform in [0, w] over ids below 4 w, at each width of
+  ``INTERSECT_WIDTHS``: 1, 4 and 6 (the Households, Workplaces and
+  Schools rows of the sharded path), 32 (the narrow route's widest), and
+  128 and 512 (the Panel recipe's cap). Timed by the profiler and on the
+  card alone in turns, beside yardsticks timed the same two ways: an
+  empty kernel at the parent's grid (1,024 blocks of 256 threads) and at
+  one-wave grids (32 blocks of 256, 64 of 128), and ``fill_(0)`` of
+  8,192 int32; the bound is the bytes the function must move, 4 B an
+  entry of both operands and 4 B a count.
 
 Each launch's outputs must equal the plain version's bit for bit. Times:
 ``chip_smoke.cold_ms`` (CUDA events, the L2 flushed by writing 256 MB
@@ -82,7 +94,21 @@ BITS_COUNTS = (1_638_400, 65_536)
 RANDINT_COUNT = 1_048_576
 SCALAR_BOUNDS = ((0, 10_000_000), (0, 7))
 WALK_STEP_COUNT = 65_536
-PARTS = ("draws", "sample", "scan")
+PARTS = ("draws", "sample", "scan", "intersect")
+# the csrc source each part builds
+PART_SOURCES = {"draws": "threefry", "sample": "threefry", "scan": "rglru_scan",
+                "intersect": "intersect"}
+INTERSECT_ROWS = 8192
+INTERSECT_WIDTHS = (1, 4, 6, 32, 128, 512)
+EMPTY_GRIDS = ((1024, 256), (32, 256), (64, 128))
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, cudaStream_t stream) {
+  empty_kernel<<<blocks, threads, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 # integer ALU instructions of the hash (csrc/threefry.cu): adds, shifts
 # and funnel shifts, three-input logic, multiply-adds
 INT_OPS = ("IADD3", "SHF", "LOP3", "IMAD", "LEA", "IADD", "ISETP", "SEL", "PRMT")
@@ -100,13 +126,14 @@ SASS_KERNELS = ("threefry_bits_kernel", "randint_kernel", "csr_row_sample_kernel
                 "rglru_scan_bwd_kernel")
 
 
-def build_other(csrc: Path, out: Path, tag: int) -> dict:
-    """Another tree's two sources, built as the port builds its own."""
+def build_other(csrc: Path, out: Path, tag: str, names) -> dict:
+    """{name: library path}: the sources ``names`` of ``csrc``, built in
+    parallel as the port builds its own."""
     from repro_torch.kernels import build
 
     out.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
-    for name in ("threefry", "rglru_scan"):
+    for name in names:
         lib = out / f"lib{name}-{tag}.so"
         cmd = [build.nvcc_path(), "-Xptxas=-v", *build.NVCC_FLAGS, "-o", str(lib),
                str(csrc / f"{name}.cu")]
@@ -126,16 +153,12 @@ def ptxas_lines(text: str) -> str:
                      if "registers" in ln or "Compiling entry" in ln or "spill" in ln)
 
 
-def launchers(threefry_lib: ctypes.CDLL, rglru_lib: ctypes.CDLL) -> tuple:
-    """(csr_row_sample_launch, rglru_scan_bwd_launch) of two libraries,
-    bound to the port's argument types."""
-    from repro_torch.kernels import rglru_scan, threefry
-
-    sample, bwd = threefry_lib.csr_row_sample_launch, rglru_lib.rglru_scan_bwd_launch
-    sample.argtypes = threefry.ARGTYPES["csr_row_sample_launch"]
-    bwd.argtypes = rglru_scan._BWD_ARGTYPES
-    sample.restype = bwd.restype = ctypes.c_int
-    return sample, bwd
+def bound_entry(lib: ctypes.CDLL, name: str, argtypes):
+    """``lib``'s C entry ``name`` with the port's argument types."""
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def sample_inputs(device):
@@ -230,13 +253,9 @@ def draw_launchers(lib: ctypes.CDLL) -> dict:
     types: ``bits`` and ``randint``."""
     from repro_torch.kernels import threefry
 
-    out = {}
-    for key, name in (("bits", "threefry_bits_launch"), ("randint", "randint_launch")):
-        fn = getattr(lib, name)
-        fn.argtypes = threefry.ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        out[key] = fn
-    return out
+    return {key: bound_entry(lib, name, threefry.ARGTYPES[name])
+            for key, name in (("bits", "threefry_bits_launch"),
+                              ("randint", "randint_launch"))}
 
 
 def checked(err: int, what: str) -> None:
@@ -405,7 +424,7 @@ def run_sample(builds, device):
         ov = overlay if "overlay" in label else None
         outs = {}
         fns = {}
-        for who, (fn, _) in builds.items():
+        for who, fn in builds.items():
             out = torch.empty(r.numel(), dtype=torch.int32, device=device)
             valid = torch.empty(r.numel(), dtype=torch.bool, device=device)
             outs[who] = (out, valid)
@@ -500,7 +519,7 @@ def run_scan(builds, device):
     dh = torch.randn(SCAN_SHAPE, generator=g, device=device)
     want = ref.rglru_scan_bwd_loop(a, h, h0, dh)
     fns = {}
-    for who, (_, fn) in builds.items():
+    for who, fn in builds.items():
         da, db, dh0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
 
         def call(f=fn, da=da, db=db, dh0=dh0):
@@ -517,6 +536,84 @@ def run_scan(builds, device):
     nbytes = 4 * 5 * a.numel() + 8 * h0.numel()
     ab(f"rglru_scan_bwd at [{B},{S},{dr}] f32, h0 [{B},{dr}]", fns,
        nbytes / cs.HBM_BYTES_PER_S * 1e3, "; equal to its loop bit for bit")
+
+
+def run_intersect(builds, device):
+    """The padded-row intersect_count entry of each build (``builds``:
+    {who: intersect_count_launch}) at each of INTERSECT_WIDTHS: equal to
+    ``intersect_count_ref`` bit for bit, then timed by the profiler and on
+    the card alone, the builds in order and back, beside the yardsticks."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ref
+
+    out_dir = ROOT / "build" / "draw_bwd_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "empty.cu").write_text(EMPTY_SOURCE)
+    lib = out_dir / "libempty.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(out_dir / "empty.cu")], check=True)
+    empty = bound_entry(ctypes.CDLL(str(lib)), "empty_launch",
+                        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    n = INTERSECT_ROWS
+    yard = {f"empty kernel {b} x {t}": (lambda b=b, t=t: checked(
+        empty(b, t, stream()), "empty_launch")) for b, t in EMPTY_GRIDS}
+    buf = torch.empty(n, dtype=torch.int32, device=device)
+    yard[f"fill_(0) of {n:,} int32"] = lambda: buf.fill_(0)
+    for what, t in turns(yard).items():
+        cs.log(f"intersect_count yardstick {what}: profiler {fmt5(t['profiler'])} ms, "
+               f"on the card alone {fmt5(t['alone'])} ms")
+    rng = np.random.default_rng(SEED)
+    names = list(builds)
+    for w in INTERSECT_WIDTHS:
+        a = cs.sorted_rows(rng, n, w, 4 * w, device)
+        b = cs.sorted_rows(rng, n, w, 4 * w, device)
+        want = ref.intersect_count_ref(a, b)
+        fns = {}
+        for who, fn in builds.items():
+            out = torch.empty(n, dtype=torch.int32, device=device)
+            fns[who] = (lambda f=fn, o=out: checked(
+                f(a.data_ptr(), b.data_ptr(), o.data_ptr(), n, w, w, stream()),
+                "intersect_count_launch"))
+            fns[who]()
+            cs.sync()
+            if not torch.equal(out, want):
+                raise AssertionError(f"intersect_count width {w}: the {who} build "
+                                     "differs from intersect_count_ref")
+        bound = (4 * n * 2 * w + 4 * n) / cs.HBM_BYTES_PER_S * 1e3
+        got = turns(fns)
+        label = f"intersect_count [{n},{w}]x[{n},{w}]"
+        for who, t in got.items():
+            cs.log(f"{label}: {who}: profiler {fmt5(t['profiler'])} ms, on the card "
+                   f"alone {fmt5(t['alone'])} ms; bound {bound:.6f} ms (bytes); equal "
+                   "to intersect_count_ref bit for bit")
+        mine = np.mean(got["this"]["profiler"])
+        for who in names[:-1]:
+            theirs = np.mean(got[who]["profiler"])
+            alone = np.mean(got[who]["alone"]) / np.mean(got["this"]["alone"])
+            cs.log(f"{label}: by the profiler this tree {mine:.5f} ms against {who} "
+                   f"{theirs:.5f} ms: {theirs / mine:.2f}x (on the card alone "
+                   f"{alone:.2f}x)")
+
+
+def turns(fns: dict) -> dict:
+    """{name: {"profiler": [...], "alone": [...]}}: each call timed by the
+    profiler (``busy_ms``) and on the card alone, in the order of ``fns``
+    and back."""
+    import chip_smoke as cs
+
+    got = collections.defaultdict(lambda: {"profiler": [], "alone": []})
+    names = list(fns)
+    for who in names + names[::-1]:
+        got[who]["profiler"].append(busy_ms(fns[who], 50))
+        got[who]["alone"].append(cs.cold_ms(fns[who], ITERS, host_ahead=True))
+    return got
+
+
+def fmt5(xs) -> str:
+    return " / ".join(f"{x:.5f}" for x in xs)
 
 
 def sass_counts(lib: Path, launches: dict) -> None:
@@ -589,32 +686,40 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from repro_torch.kernels import build
+    from repro_torch.kernels import intersect, rglru_scan, threefry
 
     device = torch.device("cuda")
     cs.log(f"{cs.device_line()}; {cs.device_line(cs.CLOCK_FIELDS)}; torch "
            f"{torch.__version__}, CUDA {torch.version.cuda}")
-    build.build(("threefry", "rglru_scan"), verbose=True)
-    builds, paths = {}, {}
-    for tag, csrc in enumerate(args.other_csrc):
-        who = str(csrc)
-        other = build_other(csrc.resolve(), ROOT / "build" / "draw_bwd_ab", tag)
-        builds[who] = (ctypes.CDLL(str(other["threefry"])),
-                       ctypes.CDLL(str(other["rglru_scan"])))
-        paths[who] = other
-    builds["this"] = (build.library("threefry"), build.library("rglru_scan"))
-    paths["this"] = {name: build.library_path(name) for name in ("threefry", "rglru_scan")}
+    names = sorted({PART_SOURCES[p] for p in parts})
+    build.build(names, verbose=True)
+    paths = {str(csrc): build_other(csrc.resolve(), ROOT / "build" / "draw_bwd_ab",
+                                    str(tag), names)
+             for tag, csrc in enumerate(args.other_csrc)}
+    paths["this"] = {name: build.library_path(name) for name in names}
+    builds = {who: {name: ctypes.CDLL(str(lib)) for name, lib in libs.items()}
+              for who, libs in paths.items()}
     if "draws" in parts:
-        run_draws({who: libs[0] for who, libs in builds.items()}, device)
+        run_draws({who: libs["threefry"] for who, libs in builds.items()}, device)
     if "sample" in parts:
-        run_sample({who: launchers(*libs) for who, libs in builds.items()}, device)
+        run_sample({who: bound_entry(libs["threefry"], "csr_row_sample_launch",
+                                     threefry.ARGTYPES["csr_row_sample_launch"])
+                    for who, libs in builds.items()}, device)
     if "scan" in parts:
-        run_scan({who: launchers(*libs) for who, libs in builds.items()}, device)
+        run_scan({who: bound_entry(libs["rglru_scan"], "rglru_scan_bwd_launch",
+                                   rglru_scan._BWD_ARGTYPES)
+                  for who, libs in builds.items()}, device)
+    if "intersect" in parts:
+        run_intersect({who: bound_entry(libs["intersect"], "intersect_count_launch",
+                                        intersect._ARGTYPES)
+                       for who, libs in builds.items()}, device)
     launches = {"threefry_bits_kernel": {f"{n:,}": n for n in BITS_COUNTS},
                 "randint_kernel": {f"{RANDINT_COUNT:,}": RANDINT_COUNT}}
     for who, libs in paths.items():
         for name, lib in libs.items():
-            print(f"# SASS of the {who} build's {name}:")
-            sass_counts(lib, launches)
+            if name != "intersect":
+                print(f"# SASS of the {who} build's {name}:")
+                sass_counts(lib, launches)
     cs.log(f"integer rate {cs.card_int_ops_per_s():.4g} a second; HASH_OPS "
            f"{cs.HASH_OPS} below 2^32 elements; {cs.device_line(cs.CLOCK_FIELDS)}")
     return 0

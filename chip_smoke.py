@@ -18,7 +18,10 @@ fails (non-zero exit) if any phase fails:
 3. kernels  — each CUDA kernel against its plain torch version on seeded
               inputs at the recipe's widths (exact match required), the
               union's count-only output and its wide route (rows past the
-              in-block capacity) among them, and the CSR-route intersect
+              in-block capacity) among them, the padded intersect entry on
+              8,191 rows at (Ka, Kb) of 1, 4, 6, 7/5, 32, 33/32, 6/33 and
+              512 (rows of all pads, rows without a pad; both its lane-group
+              and its warp route), and the CSR-route intersect
               kernel on a 3,000-node layer under a hand-made delta
               overlay (dirty rows, a delta with more and longer rows than
               the base, int32 and int64 indptr, with and without a filter);
@@ -254,8 +257,16 @@ fails (non-zero exit) if any phase fails:
               backward's tensor-core route, its FMA route's counts and
               ``ssd_scan_bwd_copies`` 0; ``rglru_scan_bwd``), the scans'
               plain versions called 0 times in the steps, ms a step in
-              parts, tokens/s, peak GB. At most 150 s;
-17. timing  — each kernel, its plain version and its bound at the heaviest
+              parts, tokens/s, peak GB. Every trainer gets the policy of
+              the one card it trains on (``make_policy(make_host_mesh(1),
+              cfg)``), as ``launch/train.py`` passes it. At most 150 s;
+17. dryrun  — ``repro_torch.launch.dryrun.run_cell`` for all 40 cells of
+              the (arch x shape) matrix on both production meshes (16x16
+              and 2x16x16 cards) on the meta device: per card the
+              parameter, optimizer and cache or carry bytes, whether they
+              fit this card's memory, a step's analytic HBM bytes and
+              FLOPs; 32 cells a mesh ok and 8 skipped, no error;
+18. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
               by CUDA events with the L2 flushed before each launch; the
@@ -324,6 +335,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# the card's rates, kept once for the port: H100 SXM5 datasheet (dense
+# bf16 tensor-core FLOP/s, HBM3 bytes/s)
+from repro_torch.perf.analytic import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.perf.analytic import PEAK_FLOPS as BF16_TENSOR_OPS_PER_S  # noqa: E402
 
 # Memberships drawn per node per layer; group spaces scale with n. At 10M
 # nodes: 10M households memberships over 4M groups, 40M workplaces over
@@ -371,7 +388,6 @@ DYAD_PAIRS = 1 << 20  # one dyad sample, as threadleR's sampling analyses draw
 PAIR_CHUNK = 1 << 16  # pairs drawn at a time by panel_pairs
 L2_FLUSH_BYTES = 256 << 20  # written between cold launches (the L2 is 50 MB)
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor peak (float32 table entry)
 # 32-bit integer instructions: an SM issues at most 4 warp instructions a
 # clock (one a scheduler), 32 lanes each; the float32 entry above counts a
@@ -510,21 +526,21 @@ SERVE_P99_BUDGET_MS = 50.0  # the reference's p99 budget, printed
 SERVE_PHASE_LIMIT_S = 180.0
 SERVE_KERNELS = ("intersect_rows", "segmented_union", "frontier_compact",
                  "csr_row_sample")
-# the CUDA kernel each graph launch count launches, once a count: a
-# profiled window that holds fewer of these kernels' device events than
-# the counts rose by lost events
+# the CUDA kernels each graph launch count may launch, one of them once a
+# count: a profiled window that holds fewer of these kernels' device
+# events than the counts rose by lost events
 GRAPH_KERNEL_SYMBOLS = {
-    "intersect_rows": "intersect_rows_kernel",
-    "intersect_count": "intersect_count_kernel",
-    "segmented_union": "segmented_union_kernel",
-    "segmented_union_count": "segmented_union_kernel",
-    "segmented_union_wide": "segmented_union_kernel",
-    "union_merge": "union_merge_kernel",
-    "union_compact": "union_compact_kernel",
-    "frontier_compact": "frontier_kernel",
-    "csr_row_sample": "csr_row_sample_kernel",
-    "threefry_bits": "threefry_bits_kernel",
-    "randint": "randint_kernel",
+    "intersect_rows": ("intersect_rows_kernel",),
+    "intersect_count": ("intersect_count_kernel", "intersect_count_kernel_lanes"),
+    "segmented_union": ("segmented_union_kernel",),
+    "segmented_union_count": ("segmented_union_kernel",),
+    "segmented_union_wide": ("segmented_union_kernel",),
+    "union_merge": ("union_merge_kernel",),
+    "union_compact": ("union_compact_kernel",),
+    "frontier_compact": ("frontier_kernel",),
+    "csr_row_sample": ("csr_row_sample_kernel",),
+    "threefry_bits": ("threefry_bits_kernel",),
+    "randint": ("randint_kernel",),
 }
 # (b) sends one attribute write over the wire half way through the open
 # loop, on a column no request of the trace reads
@@ -575,7 +591,6 @@ LM_FAULT_BITS = 5
 # timed generate calls per call kind, after one warm-up: 1 since the train
 # phase brought the smoke to 1,059-1,111 s of its 1,200 (3 before)
 LM_REPEATS = 1
-BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 # lm_families phase: the other families at full width in bf16, random
 # weights from SEED, the lm phase's traffic (audio: LM_PROMPT steps of its 4
@@ -821,6 +836,34 @@ def sorted_rows(rng, rows: int, width: int, universe: int, device):
     return torch.sort(vals, dim=1).values.contiguous().to(device)
 
 
+# the padded intersect entry's checks: (Ka, Kb) on both sides of its
+# narrow route's 32-entry edge, the sharded path's 1, 4 and 6 and the
+# Panel cap's 512 among them
+INTERSECT_COUNT_WIDTHS = ((1, 1), (4, 4), (6, 6), (7, 5), (32, 32), (33, 32),
+                          (6, 33), (512, 512))
+
+
+def count_rows(rng, ka: int, kb: int, device):
+    """(a, b) for the padded intersect entry: POINT_PAIRS - 1 rows (no
+    multiple of a block's), sorted and SENTINEL-padded over ids below
+    2 max(Ka, Kb); every 7th row of a and every 11th of b all pads, the
+    last 64 rows of both without a pad."""
+    import torch
+
+    from repro_torch.core.csr import SENTINEL
+
+    rows, universe = POINT_PAIRS - 1, 2 * max(ka, kb)
+    out = []
+    for k, every in ((ka, 7), (kb, 11)):
+        x = sorted_rows(rng, rows, k, universe, device)
+        x[::every] = int(SENTINEL)
+        full = np.sort(np.stack([rng.choice(universe, k, replace=False)
+                                 for _ in range(64)]), axis=1)
+        x[-64:] = torch.from_numpy(full.astype(np.int32)).to(device)
+        out.append(x)
+    return out
+
+
 def flat_rows(rng, rows: int, width: int, device, universe: int | None = None):
     """Unsorted rows with duplicates and SENTINEL holes, like a gathered
     co-member block; ids below ``universe`` (default width // 3)."""
@@ -851,14 +894,12 @@ def phase_kernels(device, seed: int) -> dict:
     worst = {"intersect_count": 0, "intersect_rows": 0, "segmented_union": 0,
              "segmented_union_count": 0, "segmented_union_wide": 0,
              "frontier_compact": 0}
-    max_memb = max(p for _, p, _ in LAYER_RECIPE)
-    for width in (8, 32, 128, max_memb):
-        a = sorted_rows(rng, POINT_PAIRS, width, 4 * width, device)
-        b = sorted_rows(rng, POINT_PAIRS, width, 4 * width, device)
+    for ka, kb in INTERSECT_COUNT_WIDTHS:
+        a, b = count_rows(rng, ka, kb, device)
         err = max_abs_err(ops.intersect_count(a, b), ref.intersect_count_ref(a, b))
         worst["intersect_count"] = max(worst["intersect_count"], err)
-        log(f"kernels: intersect_count width {width} rows {POINT_PAIRS}: "
-            f"max_abs_err {err}")
+        log(f"kernels: intersect_count [{a.shape[0]},{ka}]x[{b.shape[0]},{kb}] (all-pad, "
+            f"no-pad and random rows): max_abs_err {err}")
     worst["intersect_rows"] = overlay_rows_check(device, seed)
     for width, rows, max_out in ((1 * 32, 2048, MAX_ALTERS),
                                  (4 * 256, 2048, MAX_ALTERS),
@@ -3707,7 +3748,8 @@ def graph_kernel_events(acts: dict) -> int:
     import re
 
     pattern = re.compile(
-        r"\b(" + "|".join(sorted(set(GRAPH_KERNEL_SYMBOLS.values()))) + r")\b")
+        r"\b(" + "|".join(sorted({sym for syms in GRAPH_KERNEL_SYMBOLS.values()
+                                   for sym in syms})) + r")\b")
     return sum(n for name, (n, _) in acts.items() if pattern.search(name))
 
 
@@ -5324,6 +5366,71 @@ def train_opt_config(steps: int):
                        warmup_steps=TRAIN_WARMUP, decay_steps=steps)
 
 
+DRYRUN_MESHES = ("single", "multi")
+DRYRUN_OK_A_MESH = 32  # 10 archs x 4 shapes, less the 8 full-attention long_500k
+DRYRUN_SKIPS_A_MESH = 8
+
+
+def phase_dryrun() -> None:
+    """``repro_torch.launch.dryrun.run_cell`` for every cell of the 40-cell
+    matrix on both production meshes (16x16 and 2x16x16 cards), on the
+    meta device: each cell's parameter, optimizer and cache or carry bytes
+    a card, whether they fit this card's memory, and the analytic step's
+    bytes and least time a card. 32 cells a mesh must be ok and 8 skipped;
+    a cell that raises fails the phase."""
+    import torch
+
+    from repro_torch.configs.shapes import all_cells
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    cap = torch.cuda.get_device_properties(0).total_memory
+    log(f"dryrun: every cell on the meta device against this card's {cap} bytes "
+        f"({device_line()}); JSON under {dryrun.ART_DIR}")
+    gib = 2**30
+    for mesh in DRYRUN_MESHES:
+        ok, skipped, errors = 0, 0, []
+        for arch, shape, skip in all_cells(include_skipped=True):
+            if skip:
+                skipped += 1
+                continue
+            rec = dryrun.run_cell(arch, shape, mesh, capacity=cap)
+            if rec["status"] != "ok":
+                errors.append(f"{arch} {shape}: {rec['error']}")
+                continue
+            ok += 1
+            pc, an = rec["per_card"], rec["analytic"]
+            held = (f"optimizer {pc['optimizer_bytes'] / gib:.3f} GiB, carries "
+                    f"{pc['carry_bytes'] / gib:.3f} GiB (accum {rec['accum_steps']})"
+                    if rec["kind"] == "train" else f"cache {pc['cache_bytes'] / gib:.3f} GiB")
+            log(f"dryrun: {mesh} ({rec['chips']} cards) {arch} {shape}: a card holds "
+                f"parameters {pc['param_bytes'] / gib:.3f} GiB, {held}, "
+                f"{pc['total_bytes'] / gib:.3f} GiB in all: "
+                f"{'fits' if pc['fits'] else 'does not fit'}; a step's HBM bytes a card "
+                f"{an['hbm_bytes_per_device']:.4g}, FLOPs "
+                f"{an['flops']['total'] / rec['chips']:.4g}, at least "
+                f"{an['bound_ms_per_device']:.3f} ms")
+        if errors or ok != DRYRUN_OK_A_MESH or skipped != DRYRUN_SKIPS_A_MESH:
+            raise AssertionError(f"dryrun: {mesh}: {ok} ok and {skipped} skipped (want "
+                                 f"{DRYRUN_OK_A_MESH} and {DRYRUN_SKIPS_A_MESH}); "
+                                 f"errors: {errors}")
+        log(f"dryrun: {mesh}: {ok} cells ok, {skipped} skipped (full attention at "
+            "500k)")
+    log(f"dryrun: {time.perf_counter() - t0:.3f} s; {device_line()}")
+
+
+def one_card_policy(cfg):
+    """The sharding policy of the one card the phase trains on, as
+    ``launch/train.py`` passes it (``make_policy(make_host_mesh(1), cfg)``):
+    every mesh axis of size 1, so it places nothing."""
+    from repro_torch.launch.mesh import make_host_mesh, make_policy
+
+    policy = make_policy(make_host_mesh(1), cfg)
+    if not policy.one_card:
+        raise AssertionError(f"train: {cfg.name}: {policy} spans more than one card")
+    return policy
+
+
 def check_losses(label: str, losses: list) -> None:
     """Every step's loss finite, and the last below the first."""
     if not all(math.isfinite(x) for x in losses):
@@ -5578,7 +5685,8 @@ def train_scan_family(cfg, device, seed: int) -> dict:
             f"(whole, its f32 logits over a vocabulary of {cfg.vocab_size} took the "
             f"step to 79.8 GB at 5 layers beside a 1M-node network)")
     trainer = Trainer(model, train_opt_config(TRAIN_SCAN_STEPS),
-                      TrainerConfig(steps=TRAIN_SCAN_STEPS, seed=seed))
+                      TrainerConfig(steps=TRAIN_SCAN_STEPS, seed=seed),
+                      policy=one_card_policy(cfg))
     state = trainer.init_state(seed)
     batches = [synthetic_batch_at(step, seed=seed, batch_size=TRAIN_BATCH,
                                   seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size,
@@ -5667,7 +5775,8 @@ def train_full(batch_at, cfg, device, seed: int) -> dict:
     t0 = time.perf_counter()
     model = Model(cfg, device=device)
     trainer = Trainer(model, train_opt_config(TRAIN_STEPS),
-                      TrainerConfig(steps=TRAIN_STEPS, seed=seed))
+                      TrainerConfig(steps=TRAIN_STEPS, seed=seed),
+                      policy=one_card_policy(cfg))
     state = trainer.init_state(seed)
     sync()
     n_params = sum(p.numel() for p in state["params"].values())
@@ -5735,7 +5844,7 @@ def train_resume(batch_at, cfg, device, seed: int) -> None:
     def trainer_at(steps: int, ckpt_dir: str) -> Trainer:
         return Trainer(Model(cut, device=device), opt_cfg, TrainerConfig(
             steps=steps, ckpt_dir=ckpt_dir, ckpt_every=half, log_every=1,
-            keep_ckpts=1, seed=seed))
+            keep_ckpts=1, seed=seed), policy=one_card_policy(cut))
 
     with tempfile.TemporaryDirectory(prefix="train_resume_") as tmp:
         t0 = time.perf_counter()
@@ -6022,11 +6131,6 @@ def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print("chip_smoke: src/repro_torch is missing beside this script",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -6090,6 +6194,8 @@ def run() -> int:
     mark("lm_families")
     train = phase_train(net, device, SEED)
     mark("train")
+    phase_dryrun()
+    mark("dryrun")
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
                            panel, traversal, sampling, lm, device)
     for rec in records:  # the launch columns include the later phases'

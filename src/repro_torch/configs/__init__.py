@@ -1,9 +1,8 @@
 """Architecture registry: ``get_config(arch_id)``.
 
 Each <id>.py holds the exact published config, copied from
-``src/repro/configs/`` (pure data). The JAX package's ``shapes.py`` (its
-input-shape cells) is not carried over: the port serves, and its shapes
-come from the caller.
+``src/repro/configs/`` (pure data). ``shapes.py`` holds the input-shape
+cells of the (arch × shape) matrix that ``launch/dryrun.py`` walks.
 """
 
 from importlib import import_module

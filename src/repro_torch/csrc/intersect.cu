@@ -64,10 +64,35 @@
 // byte count above does not see; the staging keeps a lane's loads
 // independent so that many of these random reads are in flight at once.
 //
-// intersect_count, design. One warp owns one row pair. Each lane takes
-// a-entries (lanes on consecutive addresses), skips SENTINEL pads, and
-// binary-searches the b row; a warp shuffle sums the hits and lane 0
-// writes the count. It must read 4*B*(Ka+Kb) bytes and write 4*B.
+// intersect_count, design. It must read 4*B*(Ka+Kb) bytes and write 4*B,
+// so it is bound by memory, but at the sharded path's widths (1, 4 and 6
+// entries a row, 8,192 rows) that is ~0.13 us against a launch of ~0.8 us:
+// what a launch costs beyond an empty kernel's is how many dependent trips
+// to device memory it makes and how many warps it spreads them over. Two
+// routes, chosen by the launcher from the widths:
+//  - Narrow rows (Ka, Kb <= kNarrowMax, 32): a group of G lanes a row
+//    pair, G = next_pow2(max(Ka, Kb)) (8 at the Schools rows' 6). Lane g
+//    of a group loads entry g of its a row and entry g of its b row into
+//    registers (SENTINEL past the row's width), so a warp's loads cover
+//    32 / G consecutive rows of each operand, coalesced, and all of them
+//    are in flight at once. The group's b entries, one a lane, form a
+//    sorted array of G: each lane finds its a entry's lower bound in it
+//    with a branchless binary search of log2(G) shuffles, one more
+//    shuffle reads the entry there, and log2(G) xor-shuffles sum the
+//    group's hits. One trip to device memory and at most 11 dependent
+//    shuffles; no shared memory and no dependent global load. A block of
+//    kLaneThreads lanes takes kLaneThreads / G pairs, so 8,192 pairs at
+//    G = 8 are 128 blocks, one wave. (A thread a pair merging both rows
+//    out of shared memory was measured first: its merge is a chain of
+//    dependent shared-memory loads, 64 steps at 32 entries a row, and it
+//    took 1.7x the warp route there.)
+//  - Wider rows (the Panel recipe's rows reach 512): one warp owns one row
+//    pair. Each lane takes a-entries (lanes on consecutive addresses),
+//    skips SENTINEL pads, and binary-searches the b row; a warp shuffle
+//    sums the hits and lane 0 writes the count.
+// Both count each real entry of a found in b once: the rows are sorted and
+// their real entries unique, so the counts equal the all-pairs count bit
+// for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,7 +106,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // ---------------------------------------------------------------------------
 
 constexpr int32_t kSentinel = 0x7fffffff;
-constexpr int kThreads = 256;  // 8 warps, 8 row pairs per block
+constexpr int kThreads = 256;  // wide route: 8 warps, 8 row pairs per block
+constexpr int kNarrowMax = 32;  // widest row the narrow route takes
+constexpr int kLaneThreads = 512;  // narrow route: lanes a block
+static_assert(kLaneThreads % 32 == 0, "the narrow route's blocks are whole warps");
 
 __global__ void intersect_count_kernel(const int32_t* __restrict__ a,
                                        const int32_t* __restrict__ b,
@@ -113,6 +141,32 @@ __global__ void intersect_count_kernel(const int32_t* __restrict__ a,
     hits += __shfl_down_sync(kFull, hits, off);
   }
   if (lane == 0) out[row] = hits;
+}
+
+// A group of 1 << lg lanes a row pair (see the design note above).
+__global__ void __launch_bounds__(kLaneThreads)
+    intersect_count_kernel_lanes(const int32_t* __restrict__ a,
+                                 const int32_t* __restrict__ b,
+                                 int32_t* __restrict__ out, int64_t rows,
+                                 int ka, int kb, int lg) {
+  const int width = 1 << lg;
+  const int g = threadIdx.x & (width - 1);
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * kLaneThreads + threadIdx.x) >> lg;
+  const bool live = row < rows;  // every lane stays for the shuffles
+  const int32_t x = live && g < ka ? __ldg(a + row * ka + g) : kSentinel;
+  const int32_t y = live && g < kb ? __ldg(b + row * kb + g) : kSentinel;
+  int pos = 0;  // lower bound of x among the group's y, clamped to width-1
+  for (int step = width >> 1; step > 0; step >>= 1) {
+    const int32_t v = __shfl_sync(kFull, y, pos + step - 1, width);
+    pos += v < x ? step : 0;
+  }
+  const int32_t at = __shfl_sync(kFull, y, pos, width);
+  int hits = x != kSentinel && at == x ? 1 : 0;
+  for (int off = width >> 1; off > 0; off >>= 1) {
+    hits += __shfl_xor_sync(kFull, hits, off, width);
+  }
+  if (live && g == 0) out[row] = hits;
 }
 
 // ---------------------------------------------------------------------------
@@ -420,9 +474,25 @@ int launch_rows(const void* indptr, const void* ids, int wide, int64_t n_rows,
 
 // a: int32[rows, ka], b: int32[rows, kb], out: int32[rows], all contiguous
 // on the current device. Launches on `stream`; returns cudaGetLastError().
+// Rows of at most kNarrowMax entries (both operands) take the narrow
+// route, wider ones the warp-a-pair route.
 extern "C" int intersect_count_launch(const int32_t* a, const int32_t* b,
                                       int32_t* out, int64_t rows, int ka,
                                       int kb, cudaStream_t stream) {
+  if (rows < 0 || ka < 0 || kb < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  if (ka <= kNarrowMax && kb <= kNarrowMax) {
+    int lg = 0;
+    while ((1 << lg) < ka || (1 << lg) < kb) ++lg;
+    const int64_t per_block = kLaneThreads >> lg;
+    const int64_t blocks = (rows + per_block - 1) / per_block;
+    intersect_count_kernel_lanes<<<static_cast<unsigned>(blocks),
+                                   kLaneThreads, 0, stream>>>(a, b, out, rows,
+                                                              ka, kb, lg);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int64_t blocks = (rows * 32 + kThreads - 1) / kThreads;
   intersect_count_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                            stream>>>(a, b, out, rows, ka, kb);

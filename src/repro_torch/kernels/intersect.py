@@ -4,9 +4,11 @@
 number of hyperedges the two nodes share, read from their effective
 membership rows where they lie in the CSR and its delta overlay, one launch
 a batch. ``intersect_count_cuda``: per row pair, the values shared by two
-sorted, SENTINEL-padded int32 rows whose real entries are unique. Both
-replace the Pallas kernel ``src/repro/kernels/intersect.py::
-intersect_count_kernel``. The plain torch versions are
+sorted, SENTINEL-padded int32 rows whose real entries are unique; rows of
+at most 32 entries take a group of lanes a pair, which search the b row
+in registers by shuffles (``ref.intersect_count_lanes`` is that plan in
+plain torch), wider rows a warp a pair. Both replace the Pallas kernel
+``src/repro/kernels/intersect.py::intersect_count_kernel``. The plain torch versions are
 ``kernels/ref.py::intersect_rows_ref`` (the degree-bucketed route) and
 ``intersect_count_ref``; the choice between kernel and plain version is
 made in ``kernels/ops.py`` by the tensors' device.

@@ -28,6 +28,36 @@ def intersect_count_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return eq.sum(dim=(1, 2)).to(torch.int32)
 
 
+def intersect_count_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``intersect_count_ref`` by the CUDA kernel's narrow-route plan
+    (``csrc/intersect.cu``, rows of at most 32 entries): a group of G =
+    next_pow2(max(Ka, Kb)) lanes a row pair holds the b row padded with
+    SENTINEL to G entries; each a entry finds its lower bound among them by
+    a branchless binary search of log2(G) halving steps, clamped to G - 1,
+    and counts a hit where the entry there equals it and it is no pad.
+    Equal to the all-pairs count for sorted, SENTINEL-padded rows with
+    unique real entries.
+
+    a: int32[B, Ka], b: int32[B, Kb] -> int32[B].
+    """
+    rows, ka = a.shape
+    kb = b.shape[1]
+    width = 1
+    while width < max(ka, kb):
+        width *= 2
+    y = torch.full((rows, width), _SENT, dtype=torch.int32, device=a.device)
+    y[:, :kb] = b
+    x = a.to(torch.int32)
+    pos = torch.zeros((rows, ka), dtype=torch.int64, device=a.device)
+    step = width // 2
+    while step > 0:
+        v = y.gather(1, pos + step - 1)
+        pos += (v < x).to(torch.int64) * step
+        step //= 2
+    hit = (x != _SENT) & (y.gather(1, pos) == x)
+    return hit.sum(dim=1).to(torch.int32)
+
+
 def intersect_rows_ref(base, ov, u, v, node_filter, widths) -> torch.Tensor:
     """|row(u[i]) ∩ row(v[i])| over the effective rows of the membership
     CSR ``base`` with its overlay ``ov`` -> int32[B], 0 where v[i] fails

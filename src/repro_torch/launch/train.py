@@ -5,10 +5,11 @@ of the architecture (its reduction) on the graph-walk corpus of a demo
 population network, or the published config with ``--full``. Runs on the
 CUDA card; ``--device cpu`` runs on the CPU. Fault tolerance is on by
 default: atomic checkpoints every ``--ckpt-every`` steps and at the last,
-auto-resume from the latest committed one, SIGTERM-safe. One device: no
-mesh is built (sharding is ROADMAP Queue 1 item 13.5). Every family
-trains on the card, the Mamba2 and RG-LRU scans through their backward
-kernels.
+auto-resume from the latest committed one, SIGTERM-safe. One device: the
+trainer gets the policy of a one-card host mesh
+(``launch/mesh.py::make_policy(make_host_mesh(1), cfg)``), which places
+nothing; a mesh over several cards is not ported. Every family trains on
+the card, the Mamba2 and RG-LRU scans through their backward kernels.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from repro_torch.data.pipeline import (
     demo_population_network,
     synthetic_batch_at,
 )
+from repro_torch.launch.mesh import make_host_mesh, make_policy
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_loop import Trainer, TrainerConfig
@@ -90,6 +92,7 @@ def main(argv=None) -> None:
             steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
             accum_steps=args.accum, seed=args.seed,
         ),
+        policy=make_policy(make_host_mesh(1), cfg),
     )
     _, history = trainer.fit(None, batch_at, resume=not args.no_resume)
     if history:

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from .config import ModelConfig
+from .sharding import active_policy
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -138,6 +139,7 @@ def attention_blocked(q, k, v, cfg: ModelConfig, *, chunk: int = ATTN_CHUNK):
     win = cfg.attn_window
     use_window = win is not None and win + chunk <= S
     kspan = win + chunk if use_window else S
+    pol = active_policy()
     kf, vf = k.float(), v.float()
     ar_q = torch.arange(chunk, device=q.device)
     ar_k = torch.arange(kspan, device=q.device)
@@ -146,6 +148,7 @@ def attention_blocked(q, k, v, cfg: ModelConfig, *, chunk: int = ATTN_CHUNK):
         qc = qc.float().reshape(B, chunk, Hkv, G, Dh)
         s = torch.einsum("bcngd,bsnd->bngcs", qc, kc) * scale
         s = _softcap(s, cfg.attn_logit_softcap)
+        s = pol.constrain(s, pol.dp_spec, pol.tp, None, None, None)  # heads on tp
         mask = q_pos[:, None] >= k_pos[None, :]
         if win is not None:
             mask &= k_pos[None, :] > q_pos[:, None] - win
@@ -226,7 +229,8 @@ class Attention(nn.Module):
         B, S, d = x.shape
         x2 = x.reshape(B * S, d)
         q, k, v = (
-            (x2 @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+            active_policy().act_bshd((x2 @ w.reshape(d, -1)).view(
+                B, S, w.shape[1], w.shape[2]))
             for w in (self.wq, self.wk, self.wv)
         )
         if self.cfg.qk_norm:
@@ -254,6 +258,7 @@ class Attention(nn.Module):
         slot ``pos[0] mod S_cache`` for the whole batch and attends over the
         cache."""
         B, S, _ = x.shape
+        pol = active_policy()
         q, k, v = self._qkv(self.ln(x), positions)
         if cache is None or S > 1:
             o = self._attend(q, k, v)
@@ -266,15 +271,17 @@ class Attention(nn.Module):
                     )
                 _fit_seq_(cache["k"], k)
                 _fit_seq_(cache["v"], v)
+                cache["k"], cache["v"] = pol.cache(cache["k"]), pol.cache(cache["v"])
         else:
             pos = positions if positions.dim() == 1 else positions[:, 0]
             write_at = torch.remainder(pos[:1].long(), cache["k"].shape[1])
             cache["k"].index_copy_(1, write_at, k.to(cache["k"].dtype))
             cache["v"].index_copy_(1, write_at, v.to(cache["v"].dtype))
-            o = attention_decode(q, cache["k"], cache["v"], pos, self.cfg)
+            kc, vc = pol.cache(cache["k"]), pol.cache(cache["v"])
+            o = attention_decode(q, kc, vc, pos, self.cfg)
         h, dh, d = self.wo.shape
         out = o.reshape(B, S, h * dh) @ self.wo.reshape(h * dh, d)
-        return out, cache
+        return pol.act_bsd(out), cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device):
@@ -315,9 +322,11 @@ class MLP(nn.Module):
         self.ln.init(generator)
 
     def forward(self, x):
+        pol = active_policy()
         h = self.ln(x)
-        z = _act(self.cfg.mlp_act)(h @ self.w_gate) * (h @ self.w_up)
-        return z @ self.w_down
+        z = _act(self.cfg.mlp_act)(pol.act_bsf(h @ self.w_gate)) * pol.act_bsf(
+            h @ self.w_up)
+        return pol.act_bsd(z @ self.w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +399,7 @@ class MoE(nn.Module):
         T, E, K = B * S, cfg.n_experts, cfg.n_experts_per_token
         C = min(max(int(cfg.moe_capacity_factor * T * K / E), 1), T)
         act = _act(cfg.mlp_act)
+        pol = active_policy()
 
         h = self.ln(x).reshape(T, D)
         logits = h.float() @ self.router  # (T, E) f32
@@ -407,10 +417,10 @@ class MoE(nn.Module):
             slot = torch.where(keep, pos_t, C)  # slot C: dropped
             buf = torch.zeros((E, C + 1, D), dtype=h.dtype, device=x.device)
             buf[eidx, slot] = h
-            buf = buf[:, :C]
+            buf = pol.act_ecd(buf[:, :C])
             g = act(torch.bmm(buf, self.experts_gate))
             u = torch.bmm(buf, self.experts_up)
-            eo = F.pad(torch.bmm(g * u, self.experts_down), (0, 0, 0, 1))
+            eo = F.pad(pol.act_ecd(torch.bmm(g * u, self.experts_down)), (0, 0, 0, 1))
             out = out + eo[eidx, slot].float() * (gate * keep)[:, None]
             f_frac = f_frac + onehot.float().mean(dim=0)
             masked = masked * (1.0 - onehot)  # the chosen expert is out for the next k
@@ -428,7 +438,7 @@ class MoE(nn.Module):
             hs = h.reshape(B, S, D)
             routed = routed + (act(hs @ self.shared_gate) * (hs @ self.shared_up)
                                ) @ self.shared_down
-        return routed, aux
+        return pol.act_bsd(routed), aux
 
 
 # ---------------------------------------------------------------------------
@@ -544,7 +554,7 @@ class Mamba(nn.Module):
         if cache is not None:
             cache["conv"].copy_(new_conv)
             cache["ssm"].copy_(new_ssm)
-        return out, cache
+        return active_policy().act_bsd(out), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device):
@@ -602,9 +612,10 @@ class RGLRU(nn.Module):
         ``h_t = a_t h_(t-1) + b_t`` through ``ops.rglru_scan`` from the
         cache's h (or 0); a decode step is ``a h + b`` in plain torch."""
         S = x.shape[1]
+        pol = active_policy()
         hin = self.ln(x)
-        u = hin @ self.w_in
-        gate = _act("gelu")(hin @ self.w_gate_branch)
+        u = pol.act_bsf(hin @ self.w_in)
+        gate = _act("gelu")(pol.act_bsf(hin @ self.w_gate_branch))
         uc, new_conv = _causal_conv(
             u.float(), self.conv_w, self.conv_b, None if cache is None else cache["conv"]
         )
@@ -622,7 +633,7 @@ class RGLRU(nn.Module):
         if cache is not None:
             cache["conv"].copy_(new_conv)
             cache["h"].copy_(new_h)
-        return out, cache
+        return pol.act_bsd(out), cache
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, device):

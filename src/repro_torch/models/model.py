@@ -54,6 +54,7 @@ from .layers import (
     model_dtype,
     normal_,
 )
+from .sharding import active_policy
 
 _MIX = {"attn": Attention, "mamba": Mamba, "rglru": RGLRU}
 _FFN = {"mlp": MLP, "moe": MoE}
@@ -152,15 +153,18 @@ class Model(nn.Module):
         if prefix_embeds is not None:
             prefix = torch.as_tensor(prefix_embeds).to(device=x.device, dtype=x.dtype)
             x = torch.cat([prefix, x], dim=1)
-        return x
+        return active_policy().act_bsd(x)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_ln(x)
         if self.cfg.n_codebooks:
             if self.head is None:
-                return torch.einsum("bsd,kvd->bskv", x, self.embed)
-            return torch.einsum("bsd,kdv->bskv", x, self.head)
-        return x @ (self.embed.T if self.head is None else self.head)
+                logits = torch.einsum("bsd,kvd->bskv", x, self.embed)
+            else:
+                logits = torch.einsum("bsd,kdv->bskv", x, self.head)
+        else:
+            logits = x @ (self.embed.T if self.head is None else self.head)
+        return active_policy().act_logits(logits)
 
     def _layers(self, x, positions, layers, caches):
         """``layers`` in order -> (x, load-balance sum, z-loss sum)."""

@@ -16,8 +16,13 @@ The state is ``{"params": the model's parameters (name -> Parameter),
 "opt": the AdamW state keyed by the same names}``. A step updates both
 in place. Checkpoints hold the JAX package's tree (``params`` and each
 moment through ``convert.params_to_jax``), so the JAX trainer restores
-the port's and the other way round. Sharding (the reference's
-``MeshPolicy``) is not ported: ROADMAP Queue 1 item 13.5.
+the port's and the other way round.
+
+``policy`` is a ``models.sharding.MeshPolicy``. One whose every mesh axis
+has size 1 (``launch/mesh.py::make_policy(make_host_mesh(1), cfg)``)
+places nothing: the trainer installs it as the active policy around each
+step and trains exactly as without one. A policy over more than one card
+raises ``NotImplementedError``: the multi-card path is not ported.
 
 Unlike the reference, ``fit(None, ...)`` resumes too: it builds the state
 first and restores into it (the reference asserts a template and so
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.models.model import Model
+from repro_torch.models.sharding import MULTI_CARD, MeshPolicy, use_policy
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from .optimizer import AdamWConfig, adamw_update, init_opt_state
 
@@ -54,11 +60,10 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, model: Model, opt_cfg: AdamWConfig,
-                 trainer_cfg: TrainerConfig, policy=None):
-        if policy is not None:
-            raise NotImplementedError(
-                "sharded training (a MeshPolicy) is not ported yet (ROADMAP "
-                "Queue 1 item 13.5)")
+                 trainer_cfg: TrainerConfig, policy: MeshPolicy | None = None):
+        if policy is not None and not policy.one_card:
+            raise NotImplementedError(f"training under {policy}: {MULTI_CARD}")
+        self.policy = MeshPolicy() if policy is None else policy
         self.model = model
         self.opt_cfg = opt_cfg
         self.cfg = trainer_cfg
@@ -90,6 +95,10 @@ class Trainer:
     def train_step(self, state: dict, batch: dict) -> tuple[dict, dict]:
         """One optimizer step on ``batch`` -> (state, metrics); the
         parameters and the optimizer state change in place."""
+        with use_policy(self.policy):
+            return self._train_step(state, batch)
+
+    def _train_step(self, state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         accum = self.cfg.accum_steps
         if accum > 1:

@@ -76,6 +76,39 @@ def test_intersect_kernel_matches_plain(cuda_device, K):
                                rtol=0, atol=0)
 
 
+def _full_rows(rng, B, K, universe):
+    """Sorted unique rows with no pad."""
+    return torch.from_numpy(np.sort(np.stack(
+        [rng.choice(universe, size=K, replace=False) for _ in range(B)]),
+        axis=1).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ka,kb,rows", [
+    (1, 1, 8192), (4, 4, 8192), (6, 6, 8191), (7, 5, 129), (32, 32, 1000),
+    (32, 33, 8192), (33, 7, 257), (512, 512, 300), (0, 6, 64), (6, 0, 64),
+])
+def test_intersect_count_routes_exact(cuda_device, ka, kb, rows):
+    """Both routes of the padded-row kernel (rows of at most 32 entries a
+    group of lanes a pair, wider a warp a pair) at and across the 32-entry
+    edge: rows of all pads (every 5th), rows with no pad (the last 64 rows
+    of a and b, from a small universe, so they share entries), Ka != Kb,
+    and row counts that are not a multiple of a block's rows. The kernel
+    and the plain version of its narrow plan are exact. Seed 29."""
+    rng = np.random.default_rng(29)
+    universe = max(2 * max(ka, kb), 4)
+    a = _sorted_rows(rng, rows, ka, universe)
+    b = _sorted_rows(rng, rows, kb, universe)
+    tail = min(64, rows)
+    if ka and kb:
+        a[-tail:] = _full_rows(rng, tail, ka, universe)
+        b[-tail:] = _full_rows(rng, tail, kb, universe)
+    got = ops.intersect_count(a.to(cuda_device), b.to(cuda_device)).cpu()
+    want = ref.intersect_count_ref(a, b)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(ref.intersect_count_lanes(a, b), want, rtol=0, atol=0)
+
+
 # The CSR route's staging budget: the two rows of a pair with at most this
 # many entries together are merged by one lane, longer ones by the warp; a
 # warp stages at most ROWS_WARP_BUF entries at a time.

@@ -345,9 +345,13 @@ def test_grad_accum_matches_full_batch(tiny, tmp_path):
 
 
 def test_trainer_refuses_a_mesh_policy(tiny):
-    with pytest.raises(NotImplementedError, match="13.5"):
+    from repro_torch.models.sharding import MeshPolicy, MeshShape
+
+    policy = MeshPolicy(MeshShape((2, 1), ("data", "model")), dp=("data",),
+                        tp="model")
+    with pytest.raises(NotImplementedError, match="multi-card path"):
         Trainer(Model(tiny[3], device="cpu"), opt.AdamWConfig(), TrainerConfig(),
-                policy=object())
+                policy=policy)
 
 
 # ---------------------------------------------------------------------------
