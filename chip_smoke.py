@@ -260,13 +260,33 @@ fails (non-zero exit) if any phase fails:
               parts, tokens/s, peak GB. Every trainer gets the policy of
               the one card it trains on (``make_policy(make_host_mesh(1),
               cfg)``), as ``launch/train.py`` passes it. At most 150 s;
-17. dryrun  — ``repro_torch.launch.dryrun.run_cell`` for all 40 cells of
+17. multicard — the multi-card path (``MeshPolicy`` over a torch
+              ``DeviceMesh``, DTensor): a ``torch.distributed`` world of one
+              NCCL rank on a local store, a (1, 1) ("data", "model") mesh,
+              qwen3-1.7b at full width trained 3 AdamW steps through
+              ``Trainer`` on the train phase's first 3 walk batches with its
+              seed and schedule, every parameter a DTensor; each loss equal
+              to the train phase's within 1e-6 relative; one greedy batch
+              (2 x 64 tokens, 8 new) through ``ServeEngine`` under the policy
+              equal to the one-card engine's on the same parameters; counts
+              reset before and read after (flash_attention,
+              flash_attention_bwd, rmsnorm and rmsnorm_bwd must launch,
+              through ``local_map``), the kernels against their plain
+              versions at the phase's shapes; its step time beside the
+              one-card step's. At most 60 s. With two cards or more, a world
+              of min(count, 4) NCCL ranks on a (count / 2, 2) mesh then
+              trains the same steps in bf16 and in f32 (a witness that
+              separates rounding from a fault), each step held to its own
+              limit against one card (bf16 1e-4, 1e-3, 2e-2; f32 1e-4),
+              at most 120 s; on one card a line says that run was not made
+              and why;
+18. dryrun  — ``repro_torch.launch.dryrun.run_cell`` for all 40 cells of
               the (arch x shape) matrix on both production meshes (16x16
               and 2x16x16 cards) on the meta device: per card the
               parameter, optimizer and cache or carry bytes, whether they
               fit this card's memory, a step's analytic HBM bytes and
               FLOPs; 32 cells a mesh ok and 8 skipped, no error;
-18. timing  — each kernel, its plain version and its bound at the heaviest
+19. timing  — each kernel, its plain version and its bound at the heaviest
               shape its phase launched (the CSR-route intersect kernel on
               the Panel's dyads and on the main path's heaviest call, cold,
               by CUDA events with the L2 flushed before each launch; the
@@ -324,6 +344,7 @@ from __future__ import annotations
 
 import collections
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -509,11 +530,13 @@ CLI_QUERIES = 8
 SERVE_REQUESTS = 10_000
 SERVE_SEED = 17
 SERVE_CACHE = 4096
-# the loop of single calls runs every 8th request (cut): all 10,000 took
+# the loop of single calls runs every 16th request (cut): all 10,000 took
 # 169.4 s on an NVIDIA H100 80GB HBM3 at 700 W, past the phase's 180 s;
 # every 4th until the train phase brought the smoke to 1,111 s of its
-# 1,200 on a slow host (this phase 171.0 s there, its loop 41.6 s of it)
-SERVE_LOOP_STRIDE = 8
+# 1,200 on a slow host (this phase 171.0 s there, its loop 41.6 s of it);
+# every 8th until the multicard phase (13.7-17.5 s) brought it to 1,137.6 s
+# on a slow host (this phase 165.6 s there, its loop 27.6 s of it)
+SERVE_LOOP_STRIDE = 16
 SERVE_CLIENTS = 8
 SERVE_CAPACITY_REQUESTS = 2_000
 SERVE_LOAD = 0.8
@@ -5469,7 +5492,7 @@ def bwd_plain(name: str, args, kwargs) -> list:
     return list(zip(("dq", "dk", "dv"), ref.attention_bwd_ref(*args[:4], **kwargs)))
 
 
-def bwd_kernel_checks(seen: dict) -> dict:
+def bwd_kernel_checks(seen: dict, phase: str = "train") -> dict:
     """Each backward kernel against its plain version in f32, on the inputs
     the main path gave it (``KernelInputs``): every element of every output
     within TRAIN_REL_TOL of its reference value plus TRAIN_FLOOR_TOL of the
@@ -5497,7 +5520,7 @@ def bwd_kernel_checks(seen: dict) -> dict:
                 bitwise = f"; bit-identical to its loop: {same}"
             caught = zero_ratio > 1.0 and coarse_ratio > 1.0
             worst[name] = max(worst.get(name, 0.0), err)
-            log(f"train: {name} {out} at {[list(sh) for sh, _ in shapes]} "
+            log(f"{phase}: {name} {out} at {[list(sh) for sh, _ in shapes]} "
                 f"{shapes[0][1]} against its plain version in f32: max_abs_err "
                 f"{err:.3e} (reference max {float(want.abs().max()):.3e}); worst ratio "
                 f"to the limit {ratio:.3f} ({'ok' if ok else 'FAILS'}; limit "
@@ -5508,7 +5531,7 @@ def bwd_kernel_checks(seen: dict) -> dict:
                 bad.append(f"{name}/{out}{[list(sh) for sh, _ in shapes]}")
         del got
     if bad:
-        raise AssertionError(f"train: backward kernel checks failed: {bad}")
+        raise AssertionError(f"{phase}: backward kernel checks failed: {bad}")
     return worst
 
 
@@ -5940,10 +5963,333 @@ def phase_train(net, device, seed: int, cfg=None, scan_configs=None) -> dict:
         f"{seconds - (t1 - t0):.3f} s; phase {seconds:.3f} s (limit "
         f"{TRAIN_PHASE_LIMIT_S:g} s); {device_line()}")
     check_phase_time("train", seconds, TRAIN_PHASE_LIMIT_S)
-    return {**full, "worst": worst, "seconds": seconds, "scans": scans}
+    return {**full, "worst": worst, "seconds": seconds, "scans": scans,
+            "batches": batches}
 
 
-def train_timing(train: dict) -> list:
+# multicard: the multi-card path (a MeshPolicy over a torch DeviceMesh) on
+# this machine's cards. A world of one NCCL rank on the card trains
+# TRAIN_ARCH at its published widths for MULTICARD_STEPS steps on the train
+# phase's first walk batches (its seed, its AdamW schedule), every parameter
+# a DTensor, and serves one greedy batch; where the machine has two cards or
+# more, a world of min(count, 4) ranks trains on a (count / 2, 2) mesh too,
+# in bf16 and, as a witness that separates rounding from a fault, in f32.
+MULTICARD_STEPS = 3
+MULTICARD_MESH = (1, 1)
+MULTICARD_AXES = ("data", "model")
+# the one-rank world runs each kernel on the same whole tensors as the
+# train phase, and its collectives over one rank move nothing: its losses
+# are expected equal to the train phase's; this bound admits a last-bit
+# difference of a reordered f32 sum (none expected)
+MULTICARD_LOSS_RTOL = 1e-6
+# ranks against one card, a limit a step. bf16: the ranks sum the tp
+# partial products and the dp gradients across cards in bf16, and AdamW's
+# early steps, near sign(g), amplify the differences step by step (four
+# H100s read 1.2e-5, 1.6e-4, 1.5e-2); step 1, the forward alone, is held
+# where a fault of the forward fails. f32 (the witness): the same steps
+# with f32 weights, where only f32 sums are reordered (1e-7 on the CPU), so
+# a fault of a few tenths of a percent in the loss fails every step
+MULTICARD_RANKS_RTOL = {"bfloat16": (1e-4, 1e-3, 2e-2), "float32": (1e-4, 1e-4, 1e-4)}
+MULTICARD_MAX_RANKS = 4
+MULTICARD_PHASE_LIMIT_S = 60.0
+# the world of min(count, 4) ranks: spawned, built, both dtypes' steps and
+# the f32 one-card reference (runs only where there are two cards or more;
+# 54.9 s on four H100s, a host that ran other parts 1.5x slower would
+# take ~80 s)
+MULTICARD_RANKS_LIMIT_S = 120.0
+MULTICARD_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd",
+                     "ssd_scan", "ssd_scan_bwd")
+# kernels whose inputs the phase records: the forward ones are checked on
+# them, the backward ones at the shapes the train phase did not check
+MULTICARD_RECORDED = ("flash_attention", "rmsnorm", "ssd_scan") + TRAIN_RECORDED + (
+    "ssd_scan_bwd",)
+
+
+def multicard_steps(cfg, policy, batches, device, seed: int) -> tuple:
+    """MULTICARD_STEPS AdamW steps of ``cfg`` (the train phase's schedule
+    and seed) under ``policy`` on ``batches`` -> (losses, ms a step)."""
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    trainer = Trainer(Model(cfg, device=device), train_opt_config(TRAIN_STEPS),
+                      TrainerConfig(steps=TRAIN_STEPS, seed=seed), policy=policy)
+    state = trainer.init_state(seed)
+    losses, step_ms = [], []
+    for batch in batches[:MULTICARD_STEPS]:
+        batch = {k: v.to(device) for k, v in batch.items()}
+        if device.type == "cuda":
+            sync()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms
+
+
+def multicard_rank(rank: int, n: int, store: str, batches: str, out: str,
+                   cfgs: dict, seed: int, device_type: str) -> None:
+    """One rank of an ``n``-rank world, each on its own card (NCCL; gloo on
+    the CPU): ``multicard_steps`` of each config of ``cfgs`` ({dtype: cfg})
+    under ``make_policy`` on an (n / 2, 2) mesh, on the batches saved at
+    ``batches``; rank 0 writes the losses and step times to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_device_mesh, make_policy
+
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    else:
+        torch.set_num_threads(1)
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    dist.init_process_group("nccl" if cuda else "gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    try:
+        device = torch.device(device_type, rank) if cuda else torch.device("cpu")
+        mesh = make_device_mesh((n // 2, 2), MULTICARD_AXES, device_type)
+        batch_list = torch.load(batches)
+        runs, policy = {}, None
+        for dtype, cfg in cfgs.items():
+            policy = make_policy(mesh, cfg)
+            losses, step_ms = multicard_steps(cfg, policy, batch_list, device, seed)
+            runs[dtype] = {"losses": losses, "step_ms": step_ms}
+            if cuda:
+                torch.cuda.empty_cache()
+        if rank == 0:
+            Path(out).write_text(json.dumps({"runs": runs,
+                                             "policy": f"dp {policy.dp} tp {policy.tp}"}))
+    finally:
+        dist.destroy_process_group()
+
+
+def multicard_ranks(n: int, batches: list, cfgs: dict, seed: int, device_type: str) -> dict:
+    """An ``n``-rank world (``multicard_rank``), each rank a process of its
+    own started and joined here -> what rank 0 wrote."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="multicard_") as tmp:
+        tmp = Path(tmp)
+        torch.save([{k: v.cpu() for k, v in b.items()} for b in batches[:MULTICARD_STEPS]],
+                   tmp / "batches.pt")
+        mp.spawn(multicard_rank, nprocs=n, join=True, args=(
+            n, str(tmp / "store"), str(tmp / "batches.pt"), str(tmp / "out.json"), cfgs,
+            seed, device_type))
+        return json.loads((tmp / "out.json").read_text())
+
+
+def multicard_across(n: int, train: dict, cfg, device, seed: int) -> dict:
+    """``cfg`` in bf16 and f32 (MULTICARD_RANKS_RTOL's keys) across ``n``
+    ranks (``multicard_ranks``) against one card on the train phase's
+    batches: bf16 against the train phase's losses, f32 against
+    ``multicard_steps`` on this card. Fails past a step's limit or past
+    MULTICARD_RANKS_LIMIT_S -> {dtype: {losses, one_card, rel, step_ms}}."""
+    import dataclasses
+
+    import torch
+
+    t0 = time.perf_counter()
+    cfgs = {d: dataclasses.replace(cfg, dtype=d) for d in MULTICARD_RANKS_RTOL}
+    f32_losses, f32_ms = multicard_steps(cfgs["float32"], one_card_policy(cfg),
+                                         train["batches"], device, seed)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    one_card = {"bfloat16": (train["losses"][:MULTICARD_STEPS], train["step_ms"]),
+                "float32": (f32_losses, f32_ms)}
+    out = multicard_ranks(n, train["batches"], cfgs, seed, device.type)
+    seconds = time.perf_counter() - t0
+    result, bad = {}, []
+    for dtype, limits in MULTICARD_RANKS_RTOL.items():
+        got, (ref, ref_ms) = out["runs"][dtype], one_card[dtype]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref)]
+        bad += [(dtype, i + 1) for i, (r, lim) in enumerate(zip(rel, limits)) if r > lim]
+        result[dtype] = {"losses": got["losses"], "one_card": ref, "rel": rel,
+                         "step_ms": got["step_ms"]}
+        log(f"multicard: {n} ranks on a ({n // 2}, 2) mesh ({out['policy']}), {dtype}: "
+            f"losses {got['losses']} against one card's {ref} (relative differences "
+            f"{rel}, limits {list(limits)}); ms a step {[round(x, 1) for x in got['step_ms']]}"
+            f" beside one card's {[round(x, 1) for x in ref_ms]}; {device_line()}")
+    log(f"multicard: {n} ranks {seconds:.3f} s, the f32 one-card steps included "
+        f"(limit {MULTICARD_RANKS_LIMIT_S:g} s); {device_line()}")
+    if bad or len(result["bfloat16"]["losses"]) != MULTICARD_STEPS:
+        raise AssertionError(f"multicard: {n} ranks' losses differ from one card's past "
+                             f"the limit at (dtype, step) {bad}")
+    check_phase_time("multicard ranks", seconds, MULTICARD_RANKS_LIMIT_S)
+    return result
+
+
+def multicard_scan(cfg, mesh, device, seed: int) -> tuple:
+    """``cfg`` (a Mamba2 family) under ``make_policy`` over ``mesh`` (the
+    DP-only fold of a sub-1B model): MULTICARD_STEPS AdamW steps on the
+    synthetic batches and schedule the train phase's ``train_scan_family``
+    trains it on -> (losses, ms a step, the policy)."""
+    from repro_torch.data.pipeline import synthetic_batch_at
+    from repro_torch.launch.mesh import make_policy
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    policy = make_policy(mesh, cfg)
+    trainer = Trainer(Model(cfg, device=device), train_opt_config(TRAIN_SCAN_STEPS),
+                      TrainerConfig(steps=TRAIN_SCAN_STEPS, seed=seed), policy=policy)
+    state = trainer.init_state(seed)
+    losses, step_ms = [], []
+    for step in range(MULTICARD_STEPS):
+        batch = synthetic_batch_at(step, seed=seed, batch_size=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size,
+                                   device=device)
+        sync()
+        t1 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    return losses, step_ms, policy
+
+
+def phase_multicard(train: dict, device, seed: int, cfg=None, scan_cfg=None) -> dict:
+    """The multi-card path on one rank: a ``torch.distributed`` world of one
+    (NCCL on the card, gloo on the CPU) on a local store, a
+    MULTICARD_MESH ``DeviceMesh`` and ``make_policy`` over it; ``cfg``
+    (TRAIN_ARCH's published config by default) trained for MULTICARD_STEPS
+    steps through ``Trainer`` on the train phase's batches, every parameter
+    a DTensor, then one greedy batch served through ``ServeEngine`` under the
+    same policy, then ``scan_cfg`` (mamba2-130m's published config by
+    default) under its DP-only fold (``multicard_scan``), launch counts set
+    to 0 before and read after. Each loss must equal the train phase's within
+    MULTICARD_LOSS_RTOL, the served tokens those of the one-card engine on
+    the same parameters, and the flash, flash-backward, RMSNorm and SSD
+    kernels must have launched (through ``local_map``); the forward kernels
+    are checked against their plain versions at the shapes the phase
+    launched them, and the backward kernels at each shape the train phase
+    did not check them at. Fails past MULTICARD_PHASE_LIMIT_S. With two
+    cards or more, ``multicard_across`` then runs min(count,
+    MULTICARD_MAX_RANKS) ranks, under a limit of its own."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_device_mesh, make_policy
+    from repro_torch.models.lm_serve import Request, ServeEngine
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding import is_placed
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = cfg or get_config(TRAIN_ARCH)
+    scan_cfg = scan_cfg or get_config("mamba2-130m")
+    # DTensor's notes on merging collectives over two mesh dims of one rank
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh(MULTICARD_MESH, MULTICARD_AXES, device.type)
+        policy = make_policy(mesh, cfg)
+        trainer = Trainer(Model(cfg, device=device), train_opt_config(TRAIN_STEPS),
+                          TrainerConfig(steps=TRAIN_STEPS, seed=seed), policy=policy)
+        model = trainer.model
+        state = trainer.init_state(seed)
+        plain = [n for n, p in model.named_parameters() if not is_placed(p)]
+        if plain:
+            raise AssertionError(f"multicard: parameters not placed: {plain[:8]}")
+        log(f"multicard: a world of {dist.get_world_size()} {dist.get_backend()} rank, "
+            f"mesh {MULTICARD_MESH} {MULTICARD_AXES}, policy dp {policy.dp} tp "
+            f"{policy.tp}; {cfg.name}'s {len(state['params'])} parameters DTensors; "
+            f"built in {time.perf_counter() - t0:.3f} s")
+        prompts = np.random.default_rng(seed + 33).integers(
+            2, cfg.vocab_size, (TRAIN_SERVE_REQUESTS, TRAIN_SERVE_PROMPT))
+        reqs = [Request(prompt=p, max_new_tokens=TRAIN_SERVE_NEW, rid=i)
+                for i, p in enumerate(prompts)]
+        max_seq = TRAIN_SERVE_PROMPT + TRAIN_SERVE_NEW
+        build.launch_counts.clear()
+        losses, step_ms = [], []
+        with KernelInputs("multicard", MULTICARD_RECORDED) as rec:
+            for step in range(MULTICARD_STEPS):
+                batch = train["batches"][step]
+                sync()
+                t1 = time.perf_counter()
+                state, metrics = trainer.train_step(state, batch)
+                losses.append(float(metrics["loss"]))
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            del state, trainer
+            served = ServeEngine(model, max_seq=max_seq, seed=seed,
+                                 policy=policy).generate(reqs)
+            scan_losses, scan_ms, scan_policy = multicard_scan(scan_cfg, mesh, device, seed)
+            sync()
+        launches = dict(build.launch_counts)
+        one_card = Model(cfg, device=device)
+        with torch.no_grad():
+            for name, p in one_card.named_parameters():
+                p.copy_(model.get_parameter(name).full_tensor())
+        del model
+        want = ServeEngine(one_card, max_seq=max_seq, seed=seed).generate(reqs)
+        del one_card
+    finally:
+        dist.destroy_process_group()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ref = train["losses"][:MULTICARD_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    scan_ref = train["scans"]["runs"][scan_cfg.name]["losses"][:MULTICARD_STEPS]
+    scan_rel = [abs(a - b) / abs(b) for a, b in zip(scan_losses, scan_ref)]
+    med = statistics.median(step_ms[1:] if len(step_ms) > 1 else step_ms)
+    ref_ms = train["step_ms"]
+    ref_med = statistics.median(ref_ms[1:] if len(ref_ms) > 1 else ref_ms)
+    log(f"multicard: launch counts {json.dumps(launches, sort_keys=True)}")
+    log(f"multicard: losses {losses} against the train phase's {ref} (relative "
+        f"differences {rel}, limit {MULTICARD_LOSS_RTOL:g}; bit-equal: {losses == ref})")
+    log(f"multicard: a step under the DTensor policy {med:.1f} ms (median after the "
+        f"first; {step_ms[0]:.1f} ms first) beside the one-card step's {ref_med:.1f} ms "
+        f"(train phase), {ref_med and med / ref_med:.3f} times; {device_line()}")
+    log(f"multicard: {scan_cfg.name} under policy dp {scan_policy.dp} tp "
+        f"{scan_policy.tp}: losses {scan_losses} against the train phase's {scan_ref} "
+        f"(relative differences {scan_rel}; bit-equal: {scan_losses == scan_ref}); "
+        f"ms a step {[round(x, 1) for x in scan_ms]} beside the one-card "
+        f"{[round(x, 1) for x in train['scans']['runs'][scan_cfg.name]['step_ms']]}")
+    tokens = [c.tokens.tolist() for c in served]
+    log(f"multicard: served {TRAIN_SERVE_NEW} greedy tokens a request under the policy "
+        f"{tokens}; the one-card engine's {[c.tokens.tolist() for c in want]}")
+    if len(losses) != MULTICARD_STEPS or max(rel + scan_rel) > MULTICARD_LOSS_RTOL:
+        raise AssertionError(f"multicard: losses {losses}, {scan_losses} differ from the "
+                             f"train phase's {ref}, {scan_ref} past "
+                             f"{MULTICARD_LOSS_RTOL:g}")
+    if tokens != [c.tokens.tolist() for c in want]:
+        raise AssertionError("multicard: the tokens served under the policy differ from "
+                             "the one-card engine's")
+    assert_launched("multicard", launches, MULTICARD_KERNELS)
+    # the forward under grad also writes its residuals: its o is checked
+    worst = lm_kernel_checks({k: (a, {n: x for n, x in kw.items() if n != "residuals"})
+                              for k, (a, kw) in rec.seen.items()
+                              if not k[0].endswith("_bwd")}, "multicard")
+    checked = {(name, shapes) for name, _, shapes in
+               (*train["seen"], *train["scans"]["seen"])}
+    bwd = {k: v for k, v in rec.seen.items() if k[0].endswith("_bwd")}
+    log(f"multicard: {len(bwd)} backward kernel launch shapes, "
+        f"{len([k for k in bwd if (k[0], k[2]) in checked])} of them checked in the "
+        "train phase; the others checked here")
+    worst.update(bwd_kernel_checks({k: v for k, v in bwd.items()
+                                    if (k[0], k[2]) not in checked}, "multicard"))
+    seconds = time.perf_counter() - t0
+    log(f"multicard: worst kernel errors {json.dumps(worst, sort_keys=True)}; phase "
+        f"{seconds:.3f} s (limit {MULTICARD_PHASE_LIMIT_S:g} s); {device_line()}")
+    check_phase_time("multicard", seconds, MULTICARD_PHASE_LIMIT_S)
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    ranks = None
+    if count >= 2:
+        ranks = multicard_across(min(count, MULTICARD_MAX_RANKS) // 2 * 2, train, cfg,
+                                 device, seed)
+    else:
+        log(f"multicard: no run of more than one rank: this machine has {count} card "
+            "(NCCL takes one card a rank); a multi-rank world runs where there are two "
+            "or more (tests/test_torch_multicard.py runs 2 and 4 gloo ranks on the CPU)")
+    return {"losses": losses, "step_ms": step_ms, "launches": launches,
+            "calls": rec.calls, "seconds": seconds, "ranks": ranks}
+
+
+def train_timing(train: dict, more: tuple = ()) -> list:
     """The backward kernels' records at the heaviest shape the train phase
     recorded (by elements of the first operand, then its width): the kernel
     and the library call cold (CUDA events, the L2 flushed before each
@@ -5955,7 +6301,9 @@ def train_timing(train: dict) -> list:
     2.5 times the chunked products at the chunk the backward runs
     (``bwd_chunk``) at the bf16 tensor-core peak;
     the RG-LRU's bytes, a, h, dh (and h0) read and da, db (and dh0)
-    written."""
+    written. Launches: the train phase's, and those of the phases in
+    ``more`` (their ``launches`` and ``calls``), split by width for
+    rmsnorm_bwd."""
     import torch
     import torch.nn.functional as F
 
@@ -5964,7 +6312,8 @@ def train_timing(train: dict) -> list:
     heaviest = {}
     seen = {**train["seen"], **train["scans"]["seen"]}
     launches = collections.Counter(train["launches"])
-    launches.update(train["scans"]["launches"])
+    for phase in (train["scans"], *more):  # the launch columns add these phases'
+        launches.update(phase["launches"])
     for (name, label, _), (args, kwargs) in seen.items():
         size = (args[0].numel(), args[0].shape[-1])
         if name not in heaviest or size > heaviest[name][0]:
@@ -5976,7 +6325,8 @@ def train_timing(train: dict) -> list:
     narrow = sorted(((args[0].numel(), label, args, kw) for (name, label, _), (args, kw)
                      in seen.items() if name == "rmsnorm_bwd"
                      and args[0].shape[-1] == QNORM_WIDTH), key=lambda e: e[0])
-    narrow_calls = sum(n for (name, _, shapes), n in train.get("calls", {}).items()
+    narrow_calls = sum(n for phase in (train, *more)
+                       for (name, _, shapes), n in phase.get("calls", {}).items()
                        if name == "rmsnorm_bwd" and shapes[0][0][-1] == QNORM_WIDTH)
     if narrow and heaviest["rmsnorm_bwd"][2][0].shape[-1] != QNORM_WIDTH:
         at = [e[0] for e in entries].index("rmsnorm_bwd")
@@ -6194,18 +6544,20 @@ def run() -> int:
     mark("lm_families")
     train = phase_train(net, device, SEED)
     mark("train")
+    multicard = phase_multicard(train, device, SEED)
+    mark("multicard")
     phase_dryrun()
     mark("dryrun")
     records = phase_timing(net, queries, SEED, launches, worst, counted.heaviest,
                            panel, traversal, sampling, lm, device)
     for rec in records:  # the launch columns include the later phases'
-        for later in (sharded, families, train, train["scans"]):
+        for later in (sharded, families, train, train["scans"], multicard):
             rec["launches"] += later["launches"].get(rec["name"], 0)
     records.append(rglru_timing(families))
     records[-1]["launches"] += train["scans"]["launches"].get("rglru_scan", 0)
-    log("timing: launches with the sharded, lm_families and train phases' added: "
-        + ", ".join(f"{r['name']} {r['launches']}" for r in records))
-    records.extend(train_timing(train))
+    log("timing: launches with the sharded, lm_families, train and multicard phases' "
+        "added: " + ", ".join(f"{r['name']} {r['launches']}" for r in records))
+    records.extend(train_timing(train, more=(multicard,)))
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

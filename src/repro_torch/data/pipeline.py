@@ -15,6 +15,11 @@ VLM stub's ``prefix_embeds`` come from ``prng.normal``, whose ``erfinv``
 may differ from XLA's in the last bits.
 
 ``synthetic_batch_at`` is the synthetic token stream for pure-LM runs.
+
+Across the ranks of a device mesh every rank draws the same global batch
+(the same pure function of seed and step, on identical cards) and the
+model keeps its rank's rows (``MeshPolicy.shard_batch``, dim 0 on dp): no
+rank draws a batch of its own.
 """
 
 from __future__ import annotations

@@ -9,6 +9,14 @@ path's ``kernels/threefry.py``, and for the LM stack ``kernels/rmsnorm.py``,
 from ``kernels/ref.py``. The choice is made by the device of the
 tensors given, never by catching a failure: a CUDA tensor that the kernel
 refuses raises.
+
+The LM kernels also take DTensors (the multi-card path, under a policy
+over a device mesh, ``models/sharding.py``): each is then run through
+``local_map``, every rank's kernel (or, on the CPU, plain version) on its
+own shard at the local shapes, and never on a gathered full tensor. The
+shards are those the operands arrive with (the layers lay them out by the
+policy: batch on dp, heads or channels on tp); a partial sum, a split of
+a dim the kernel reads whole, or an uneven split is made whole first.
 """
 
 from __future__ import annotations
@@ -286,6 +294,144 @@ def pseudo_alters_flat(
 
 
 # ---------------------------------------------------------------------------
+# DTensor operands: each rank's kernel on its own shard
+# ---------------------------------------------------------------------------
+
+
+def _dt():
+    from torch.distributed import tensor
+
+    return tensor
+
+
+def is_placed(t) -> bool:
+    """Whether ``t`` is a DTensor."""
+    return isinstance(t, _dt().DTensor)
+
+
+def _local_layout(t, dims) -> list:
+    """``t``'s placements where they split one of ``dims`` evenly (every
+    rank's share the same size), ``Replicate()`` on the other mesh dims: a
+    partial sum, a split of another dim, or an uneven one is made whole."""
+    mesh = t.device_mesh
+    ways = {d: math.prod(mesh.size(m) for m, p in enumerate(t.placements)
+                         if p.is_shard(d)) for d in dims}
+    return [p if any(p.is_shard(d) and t.shape[d] % ways[d] == 0 for d in dims)
+            else _dt().Replicate() for p in t.placements]
+
+
+def _as(t, mesh, placements) -> torch.Tensor:
+    """``t`` laid out by ``placements`` over ``mesh``; a plain tensor (the
+    same on every rank) is taken as whole."""
+    dt = _dt()
+    if not is_placed(t):
+        t = dt.DTensor.from_local(t, mesh, [dt.Replicate()] * mesh.ndim, run_check=False)
+    return t if list(t.placements) == placements else t.redistribute(mesh, placements)
+
+
+def _batch_only(placements) -> list:
+    """The placements that split dim 0 (the batch); ``Replicate()`` else."""
+    return [p if p.is_shard(0) else _dt().Replicate() for p in placements]
+
+
+def _grad_placements(operand, out) -> list:
+    """The placements of an operand's gradient as a rank's kernel gives it:
+    a partial sum on each mesh dim where the operand is replicated and the
+    output sharded, the operand's own placement elsewhere."""
+    dt = _dt()
+    return [dt.Partial() if isinstance(o, dt.Shard) and not isinstance(p, dt.Shard)
+            else p for p, o in zip(operand, out)]
+
+
+def _local_map(fn, out, ins, grads, mesh):
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=out, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh)
+
+
+def _kv_for_heads(k, v, h0: int, hl: int, group: int):
+    """The kv heads that q heads [h0, h0 + hl) read (head h reads h // group),
+    laid out so that the kernel's own grouping maps local head j to them: a
+    slice where the range covers whole groups or one group, else one kv
+    head a q head."""
+    lo, hi = h0 // group, (h0 + hl - 1) // group + 1
+    if hi - lo == 1 or (h0 % group == 0 and hl % group == 0):
+        return k[:, lo:hi], v[:, lo:hi]
+    idx = torch.arange(h0, h0 + hl, device=k.device) // group
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _flash_placed(q, k, v, causal: bool, scale: float):
+    """``flash_attention`` on DTensors: q on its batch and head shards as
+    it lies (the layer puts batch on dp and heads on tp). k and v take q's
+    batch shards, and its head shards where the kv heads divide as many
+    ways; else every rank holds them all and hands its kernel the ones its
+    q heads read (their gradient a partial sum)."""
+    mesh, Hq, Hkv = q.device_mesh, q.shape[1], k.shape[1]
+    qp = _local_layout(q, (0, 1))
+    heads = [m for m, p in enumerate(qp) if p.is_shard(1)]
+    ways = math.prod(mesh.size(m) for m in heads)
+    split = Hkv % ways == 0  # each rank's q heads read only its own kv heads
+    kvp = qp if split else _batch_only(qp)
+    q, k, v = _as(q, mesh, qp), _as(k, mesh, kvp), _as(v, mesh, kvp)
+    h0 = 0
+    for m in heads:  # a dim split over several mesh dims: major to minor
+        h0 = h0 * mesh.size(m) + mesh.get_local_rank(m)
+    h0 *= Hq // ways
+
+    def local(ql, kl, vl):
+        if not split:
+            kl, vl = _kv_for_heads(kl, vl, h0, ql.shape[1], Hq // Hkv)
+        return flash_attention(ql, kl, vl, causal=causal, scale=scale)
+
+    kvg = _grad_placements(kvp, qp)
+    return _local_map(local, qp, (qp, kvp, kvp), (qp, kvg, kvg), mesh)(q, k, v)
+
+
+def _ssd_placed(x, dt_, a_log, bmat, cmat, chunk: int):
+    """``ssd_scan`` on DTensors: x on its batch and head shards as it lies
+    (the layer puts batch on dp and heads on tp), dt and a_log with it; B
+    and C, shared by the heads, on x's batch shards and whole on the
+    rest."""
+    mesh = x.device_mesh
+    xp = _local_layout(x, (0, 1))
+    bp = _batch_only(xp)
+    x, dt_, a_log = (_as(t, mesh, xp) for t in (x, dt_, a_log))
+    bmat, cmat = _as(bmat, mesh, bp), _as(cmat, mesh, bp)
+    bg = _grad_placements(bp, xp)
+    return _local_map(
+        lambda *a: ssd_scan(*a, chunk=chunk), xp, (xp, xp, xp, bp, bp),
+        (xp, xp, xp, bg, bg), mesh)(x, dt_, a_log, bmat, cmat)
+
+
+def _rglru_placed(a, b, h0):
+    """``rglru_scan`` on DTensors: a on its batch and channel shards as it
+    lies, b with it, h0 (B, dr) on the same shards."""
+    mesh = a.device_mesh
+    ap = _local_layout(a, (0, 2))
+    a, b = _as(a, mesh, ap), _as(b, mesh, ap)
+    if h0 is None:
+        return _local_map(lambda al, bl: rglru_scan(al, bl), ap, (ap, ap), (ap, ap),
+                          mesh)(a, b)
+    hp = [_dt().Shard(1) if p.is_shard(2) else p for p in ap]
+    h0 = _as(h0, mesh, hp)
+    return _local_map(rglru_scan, ap, (ap, ap, hp), (ap, ap, hp), mesh)(a, b, h0)
+
+
+def _rmsnorm_placed(x, w, eps: float, plus_one: bool):
+    """``rmsnorm`` on DTensors: rows as ``x`` lies (its last dim whole), the
+    weight whole on every rank (its gradient a partial sum over the mesh
+    dims that split the rows)."""
+    mesh = x.device_mesh
+    xp = _local_layout(x, range(x.ndim - 1))
+    whole = [_dt().Replicate()] * mesh.ndim
+    x, w = _as(x, mesh, xp), _as(w, mesh, whole)
+    return _local_map(lambda xl, wl: rmsnorm(xl, wl, eps=eps, plus_one=plus_one), xp,
+                      (xp, whole), (xp, _grad_placements(whole, xp)), mesh)(x, w)
+
+
+# ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
 
@@ -309,6 +455,8 @@ def flash_attention(
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if is_placed(q):
+        return _flash_placed(q, k, v, causal, scale)
     if not q.is_cuda:
         return ref.attention_heads_ref(q, k, v, scale=scale, causal=causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -358,6 +506,8 @@ def ssd_scan(
     route is ``ssd_scan.uses_tensor_cores``'s: bf16 at mamba2's widths on
     the tensor cores, f32 and other shapes on the CUDA cores; the gradient
     is the backward kernels'."""
+    if is_placed(x):
+        return _ssd_placed(x, dt, a_log, bmat, cmat, chunk)
     if x.is_cuda:
         return _SSDScan.apply(x, dt, a_log, bmat, cmat, chunk)
     return ref.ssd_scan_heads_ref(x, dt, a_log, bmat, cmat, chunk=chunk)
@@ -395,6 +545,8 @@ def rglru_scan(
     """The RG-LRU recurrence ``h_t = a_t h_(t-1) + b_t`` -> every h_t
     (B, S, dr) f32; on the CPU ``ref.rglru_scan_ref`` (autograd
     differentiates it), on the card the kernel and its backward kernel."""
+    if is_placed(a):
+        return _rglru_placed(a, b, h0)
     if a.is_cuda:
         return _RGLRUScan.apply(a, b, h0)
     return ref.rglru_scan_ref(a, b, h0)
@@ -429,6 +581,8 @@ def rmsnorm(
     plus_one: bool = False,
 ) -> torch.Tensor:
     """x·rsqrt(mean(x²)+eps)·(w [+1]) over the last axis, in x's dtype."""
+    if is_placed(x):
+        return _rmsnorm_placed(x, w, eps, plus_one)
     if x.is_cuda:
         return _RMSNorm.apply(x, w, eps, plus_one)
     return ref.rmsnorm_ref(x, w, eps=eps, plus_one=plus_one)

@@ -1,14 +1,25 @@
-"""Production meshes and the ``MeshPolicy`` for them, as descriptions.
+"""Meshes and the ``MeshPolicy`` for them: descriptions, and device
+meshes over the ranks of a ``torch.distributed`` world.
 
 ``src/repro/launch/mesh.py`` builds ``jax.sharding.Mesh`` objects over
-real or forced host devices. Here a mesh is a ``models.sharding.
+real or forced host devices. Here a description is a ``models.sharding.
 MeshShape`` (axis sizes and names): building one touches no device, so
-the dry run can describe a 512-card deployment from one process.
+the dry run can describe a 512-card deployment from one process. A
+device mesh (``make_device_mesh``) is a ``torch.distributed.DeviceMesh``
+over the current process group, its dims named as the axes: a policy
+built on it (``make_policy``) places tensors across the ranks.
+``init_distributed`` starts that group from torchrun's environment
+(``python -m torch.distributed.run --nproc-per-node N ...``): NCCL, one
+card a rank, on ``cuda``; gloo only when the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
+import math
+import os
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.sharding import MeshPolicy, MeshShape
 
@@ -26,9 +37,10 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
 TP_MIN_PARAMS = 1_000_000_000
 
 
-def make_policy(mesh: MeshShape, model_cfg=None, *,
-                seq_parallel: bool = False) -> MeshPolicy:
-    """MeshPolicy for a mesh built by make_production_mesh.
+def make_policy(mesh, model_cfg=None, *, seq_parallel: bool = False) -> MeshPolicy:
+    """MeshPolicy for a mesh: a ``MeshShape`` (make_production_mesh,
+    make_host_mesh), which the policy only describes, or a ``DeviceMesh``
+    (make_device_mesh), over which it places tensors.
 
     * KV-cache sharding is adaptive: shard the cache's sequence dim when
       the arch's kv-head count doesn't divide the tp axis.
@@ -38,6 +50,10 @@ def make_policy(mesh: MeshShape, model_cfg=None, *,
     """
     from repro_torch.models.config import param_count
 
+    device_mesh = None
+    if not isinstance(mesh, MeshShape):
+        device_mesh = mesh
+        mesh = MeshShape(tuple(mesh.shape), tuple(mesh.mesh_dim_names))
     axes = mesh.axis_names
     dp = tuple(a for a in axes if a in ("pod", "data"))
     tp = "model" if "model" in axes else None
@@ -46,13 +62,13 @@ def make_policy(mesh: MeshShape, model_cfg=None, *,
         if param_count(model_cfg) < TP_MIN_PARAMS:
             return MeshPolicy(
                 mesh=mesh, dp=dp + (tp,), tp=None,
-                shard_cache_seq=False, seq_parallel=False,
+                shard_cache_seq=False, seq_parallel=False, device_mesh=device_mesh,
             )
         tp_size = mesh.shape[tp]
         shard_cache_seq = model_cfg.n_kv_heads % tp_size != 0
     return MeshPolicy(
         mesh=mesh, dp=dp, tp=tp, shard_cache_seq=shard_cache_seq,
-        seq_parallel=seq_parallel and tp is not None,
+        seq_parallel=seq_parallel and tp is not None, device_mesh=device_mesh,
     )
 
 
@@ -64,3 +80,31 @@ def make_host_mesh(n_devices: int | None = None, model: int = 1) -> MeshShape:
     if n % model:
         raise ValueError(f"{n} devices do not split into model axes of {model}")
     return MeshShape((n // model, model), ("data", "model"))
+
+
+def init_distributed(device: str = "cuda") -> tuple[int, int]:
+    """Joins the ``torch.distributed`` world that torchrun's environment
+    describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) -> (rank, world size). On ``cuda`` each rank takes
+    card ``LOCAL_RANK`` and the group is NCCL's; ``device="cpu"`` uses gloo.
+    A world already joined is kept."""
+    if not dist.is_initialized():
+        if device == "cpu":
+            backend = "gloo"
+        else:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+            backend = "nccl"
+        dist.init_process_group(backend, rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]))
+    return dist.get_rank(), dist.get_world_size()
+
+
+def make_device_mesh(sizes, axes=("data", "model"), device: str = "cuda"):
+    """A ``DeviceMesh`` of ``sizes`` over the ranks of the current process
+    group, its dims named ``axes``; the ranks fill it in row-major order."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sizes, axes = tuple(sizes), tuple(axes)
+    if math.prod(sizes) != dist.get_world_size():
+        raise ValueError(f"a mesh of {sizes} over a world of {dist.get_world_size()}")
+    return init_device_mesh(torch.device(device).type, sizes, mesh_dim_names=axes)

@@ -5,16 +5,29 @@ of the architecture (its reduction) on the graph-walk corpus of a demo
 population network, or the published config with ``--full``. Runs on the
 CUDA card; ``--device cpu`` runs on the CPU. Fault tolerance is on by
 default: atomic checkpoints every ``--ckpt-every`` steps and at the last,
-auto-resume from the latest committed one, SIGTERM-safe. One device: the
-trainer gets the policy of a one-card host mesh
+auto-resume from the latest committed one, SIGTERM-safe. One process
+trains on one card under the policy of a one-card host mesh
 (``launch/mesh.py::make_policy(make_host_mesh(1), cfg)``), which places
-nothing; a mesh over several cards is not ported. Every family trains on
-the card, the Mamba2 and RG-LRU scans through their backward kernels.
+nothing; every family trains so, the Mamba2 and RG-LRU scans through their
+backward kernels. Started by torchrun with ``WORLD_SIZE`` > 1,
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m repro_torch.launch.train --arch qwen3-1.7b [...]
+
+each rank joins the world (NCCL, one card a rank; gloo with ``--device
+cpu``), builds a (N / --model-parallel, --model-parallel) ``("data",
+"model")`` device mesh and trains under ``make_policy(mesh, cfg)``, as the
+reference builds a policy when it sees more than one device: parameters
+and optimizer state sharded, each batch split on dp. The families whose
+placement is not ported (``Model.place``) refuse to start so.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import (
@@ -23,7 +36,12 @@ from repro_torch.data.pipeline import (
     demo_population_network,
     synthetic_batch_at,
 )
-from repro_torch.launch.mesh import make_host_mesh, make_policy
+from repro_torch.launch.mesh import (
+    init_distributed,
+    make_device_mesh,
+    make_host_mesh,
+    make_policy,
+)
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_loop import Trainer, TrainerConfig
@@ -47,7 +65,16 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="size of the device mesh's 'model' axis under torchrun")
     args = ap.parse_args(argv)
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        _, world = init_distributed(args.device)
+        mesh = make_device_mesh((world // args.model_parallel, args.model_parallel),
+                                ("data", "model"), args.device)
+    else:
+        mesh = make_host_mesh(1)
 
     cfg = get_config(args.arch)
     if not args.full:
@@ -92,11 +119,13 @@ def main(argv=None) -> None:
             steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
             accum_steps=args.accum, seed=args.seed,
         ),
-        policy=make_policy(make_host_mesh(1), cfg),
+        policy=make_policy(mesh, cfg),
     )
     _, history = trainer.fit(None, batch_at, resume=not args.no_resume)
     if history:
         print(f"final loss: {history[-1][1]:.4f}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -20,7 +20,17 @@ expert products, and the S = 1 recurrent steps are plain torch, as they
 are XLA ops in the reference.
 
 Caches are dicts of tensors, one per layer, updated in place (the JAX
-package returns new caches instead).
+package returns new caches instead); a prefill puts its fitted k and v
+into an attention layer's dict.
+
+Under a policy over a device mesh (``models/sharding.py``) parameters and
+activations are DTensors: each weight is gathered from its FSDP shards
+where it is used (``MeshPolicy.use``), activations are constrained as the
+reference constrains them, and the kernels run through ``local_map`` on
+each rank's shard. Attention, the MLP and the Mamba2 block run so (the
+families of ``Model.place``); a decode cache is replaced by a new DTensor
+at each write (the step's slot selected elementwise) rather than written in
+place.
 
 Parameters are trainable. On the card the gradients of RMSNorm, the flash
 attention and the Mamba2 and RG-LRU scans run through their hand-written
@@ -45,7 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from .config import ModelConfig
-from .sharding import active_policy
+from .sharding import active_policy, prune_spec, set_full_
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -71,7 +81,7 @@ def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
     then cast, as the JAX package's ``_normal``."""
     draw = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                        device=generator.device)
-    p.copy_(draw.mul_(std))
+    set_full_(p, draw.mul_(std))
 
 
 # ---------------------------------------------------------------------------
@@ -105,8 +115,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     if positions.dim() == 1:
         positions = positions[None, :]
     ang = positions[..., None].to(torch.float32) * freqs  # (B, S, half)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
+    pol = active_policy()
+    cos = pol.replicate(torch.cos(ang)[:, :, None, :])
+    sin = pol.replicate(torch.sin(ang)[:, :, None, :])
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
@@ -192,15 +203,33 @@ def attention_decode(q, k_cache, v_cache, pos, cfg: ModelConfig) -> torch.Tensor
     return o.reshape(B, 1, H, Dh).to(q.dtype)
 
 
-def _fit_seq_(cache: torch.Tensor, x: torch.Tensor) -> None:
-    """Write x (B, S, ...) into cache (B, S_cache, ...) in place: zero
-    padded when S < S_cache, its last S_cache steps when longer."""
-    S, S_cache = x.shape[1], cache.shape[1]
+def attention_decode_placed(q, k_cache, v_cache, pos, cfg: ModelConfig) -> torch.Tensor:
+    """``attention_decode`` on DTensors, each rank on its own rows and heads
+    (``local_map``): batch on dp; kv heads, with the q heads that read them,
+    on tp where they divide it, else every head on each rank of tp. A cache
+    sharded on its sequence is gathered first. ``pos`` (B,) is the same on
+    every rank."""
+    from torch.distributed.tensor.experimental import local_map
+
+    pol = active_policy()
+    Hkv = k_cache.shape[2]
+    tp = pol.tp if pol.tp and Hkv % pol.mesh.shape[pol.tp] == 0 else None
+    spec = prune_spec(pol.mesh, q.shape, (pol.dp_spec, None, tp, None))
+    pl = pol.placements(spec)
+    q, k_cache, v_cache = (t.redistribute(t.device_mesh, pl) for t in (q, k_cache, v_cache))
+    pos = pol.distribute(pos, spec[:1])
+    return local_map(lambda *a: attention_decode(*a, cfg), out_placements=pl,
+                     in_placements=(pl, pl, pl, pos.placements),
+                     device_mesh=pol.device_mesh)(q, k_cache, v_cache, pos)
+
+
+def _fit_seq(x: torch.Tensor, S_cache: int) -> torch.Tensor:
+    """x (B, S, ...) fitted to S_cache steps: zero padded when S < S_cache,
+    its last S_cache steps when longer."""
+    S = x.shape[1]
     if S >= S_cache:
-        cache.copy_(x[:, S - S_cache:])
-    else:
-        cache[:, :S].copy_(x)
-        cache[:, S:].zero_()
+        return x[:, S - S_cache:]
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, S_cache - S))
 
 
 class Attention(nn.Module):
@@ -228,8 +257,9 @@ class Attention(nn.Module):
     def _qkv(self, x, positions):
         B, S, d = x.shape
         x2 = x.reshape(B * S, d)
+        pol = active_policy()
         q, k, v = (
-            active_policy().act_bshd((x2 @ w.reshape(d, -1)).view(
+            pol.act_bshd((x2 @ pol.use(w).reshape(d, -1)).view(
                 B, S, w.shape[1], w.shape[2]))
             for w in (self.wq, self.wk, self.wv)
         )
@@ -269,18 +299,26 @@ class Attention(nn.Module):
                         f"windowed prefill length {S} must be a multiple of "
                         f"the cache window {S_cache}"
                     )
-                _fit_seq_(cache["k"], k)
-                _fit_seq_(cache["v"], v)
-                cache["k"], cache["v"] = pol.cache(cache["k"]), pol.cache(cache["v"])
+                cache["k"], cache["v"] = (pol.cache(_fit_seq(t.to(cache[n].dtype), S_cache))
+                                          for n, t in (("k", k), ("v", v)))
         else:
             pos = positions if positions.dim() == 1 else positions[:, 0]
             write_at = torch.remainder(pos[:1].long(), cache["k"].shape[1])
-            cache["k"].index_copy_(1, write_at, k.to(cache["k"].dtype))
-            cache["v"].index_copy_(1, write_at, v.to(cache["v"].dtype))
-            kc, vc = pol.cache(cache["k"]), pol.cache(cache["v"])
-            o = attention_decode(q, kc, vc, pos, self.cfg)
+            if pol.placed:  # a new cache: the step's slot selected elementwise
+                slot = pol.replicate((torch.arange(
+                    cache["k"].shape[1], device=write_at.device) == write_at)[
+                        None, :, None, None])
+                kc, vc = (pol.cache(torch.where(slot, t.to(cache[n].dtype), cache[n]))
+                          for n, t in (("k", k), ("v", v)))
+                cache["k"], cache["v"] = kc, vc
+                o = attention_decode_placed(q, kc, vc, pos, self.cfg)
+            else:
+                cache["k"].index_copy_(1, write_at, k.to(cache["k"].dtype))
+                cache["v"].index_copy_(1, write_at, v.to(cache["v"].dtype))
+                kc, vc = pol.cache(cache["k"]), pol.cache(cache["v"])
+                o = attention_decode(q, kc, vc, pos, self.cfg)
         h, dh, d = self.wo.shape
-        out = o.reshape(B, S, h * dh) @ self.wo.reshape(h * dh, d)
+        out = o.reshape(B, S, h * dh) @ pol.use(self.wo).reshape(h * dh, d)
         return pol.act_bsd(out), cache
 
 
@@ -324,9 +362,9 @@ class MLP(nn.Module):
     def forward(self, x):
         pol = active_policy()
         h = self.ln(x)
-        z = _act(self.cfg.mlp_act)(pol.act_bsf(h @ self.w_gate)) * pol.act_bsf(
-            h @ self.w_up)
-        return pol.act_bsd(z @ self.w_down)
+        z = _act(self.cfg.mlp_act)(pol.act_bsf(h @ pol.use(self.w_gate))) * pol.act_bsf(
+            h @ pol.use(self.w_up))
+        return pol.act_bsd(z @ pol.use(self.w_down))
 
 
 # ---------------------------------------------------------------------------
@@ -451,8 +489,7 @@ def _causal_conv(x, w, b, state=None):
     None -> (y (B, S, C), new_state)."""
     W, S = w.shape[0], x.shape[1]
     if state is None:
-        state = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
-                            device=x.device)
+        state = x.new_zeros((x.shape[0], W - 1, x.shape[2]))
     xp = torch.cat([state, x], dim=1)  # (B, S+W-1, C)
     y = sum(xp[:, i:i + S] * w[i][None, None, :] for i in range(W))
     new_state = xp[:, -(W - 1):] if W > 1 else state
@@ -496,7 +533,8 @@ class Mamba(nn.Module):
         self.conv_b.zero_()
         self.dt_bias.zero_()
         # A in [-16, -1]
-        self.a_log_p.copy_(torch.log(torch.linspace(1.0, 16.0, hs, dtype=torch.float32)))
+        set_full_(self.a_log_p, torch.log(torch.linspace(1.0, 16.0, hs,
+                                                         dtype=torch.float32)))
         self.d_skip.fill_(1.0)
         normal_(self.out_proj, 0.02 / math.sqrt(2 * self.cfg.n_layers), generator)
         self.ln.init(generator)
@@ -509,14 +547,17 @@ class Mamba(nn.Module):
         B, S, _ = x.shape
         di, n, hs, P = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
         mdt = model_dtype(cfg)
+        pol = active_policy()
+        use = pol.use
 
         h = self.ln(x)
-        zxbcdt = h @ self.in_proj
+        zxbcdt = h @ use(self.in_proj)
         z = zxbcdt[..., :di]
         dt_raw = zxbcdt[..., 2 * di + 2 * n:]
         conv_in = zxbcdt[..., di:2 * di + 2 * n].float()
         conv_out, new_conv = _causal_conv(
-            conv_in, self.conv_w, self.conv_b, None if cache is None else cache["conv"]
+            conv_in, use(self.conv_w), self.conv_b,
+            None if cache is None else cache["conv"]
         )
         conv_out = F.silu(conv_out).to(h.dtype)
         xin = conv_out[..., :di]
@@ -527,8 +568,9 @@ class Mamba(nn.Module):
         a_log = dt * -torch.exp(self.a_log_p)[None, None, :]
         xh = xin.reshape(B, S, hs, P).transpose(1, 2)  # (B, hs, S, P)
         if cache is None or S > 1:
-            y = ops.ssd_scan(
-                xh.to(mdt), dt.transpose(1, 2), a_log.transpose(1, 2),
+            y = ops.ssd_scan(  # heads on tp where the policy places them
+                pol.constrain(xh.to(mdt), pol.dp_spec, pol.tp, None, None),
+                dt.transpose(1, 2), a_log.transpose(1, 2),
                 bmat.to(mdt), cmat.to(mdt), chunk=min(cfg.ssm_chunk, S),
             )  # (B, hs, S, P)
             new_ssm = None
@@ -550,11 +592,11 @@ class Mamba(nn.Module):
         y = y.reshape(B, S, di)
         gate = F.silu(z.float()).to(x.dtype)
         y = self.gate_ln(y * gate)
-        out = (y @ self.out_proj).to(x.dtype)
+        out = (y @ use(self.out_proj)).to(x.dtype)
         if cache is not None:
             cache["conv"].copy_(new_conv)
             cache["ssm"].copy_(new_ssm)
-        return active_policy().act_bsd(out), cache
+        return pol.act_bsd(out), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device):
@@ -602,7 +644,7 @@ class RGLRU(nn.Module):
             p.zero_()
         # Λ so that a^c lies near 0.9..0.999 (long memory)
         lin = torch.linspace(0.3, 1.5, self.cfg.rnn_dim, dtype=torch.float32)
-        self.lam.copy_(torch.log(torch.expm1(lin)))
+        set_full_(self.lam, torch.log(torch.expm1(lin)))
         normal_(self.w_rnn_out, 0.02 / math.sqrt(2 * self.cfg.n_layers), generator)
         self.ln.init(generator)
 

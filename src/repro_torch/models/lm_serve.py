@@ -1,11 +1,16 @@
 """Batched LM serving engine: prefill, then decode with greedy or
 temperature sampling.
 
-Ported from ``src/repro/models/lm_serve.py`` for one device (the JAX
-engine's ``MeshPolicy`` sharding is not ported). Prompts of one batch must
-have one length; the cache holds ``max_seq`` steps. An audio model takes
-prompts (P, K) of its K codebooks and decodes K tokens a step. Greedy decoding is
-``argmax``, which picks the first of equal maxima as ``jnp.argmax`` does.
+Ported from ``src/repro/models/lm_serve.py``, with its ``policy``: on one
+card by default, or under a ``MeshPolicy`` over a device mesh, which
+places the model's parameters (``Model.place``) and runs prefill and
+decode under it, the caches laid out by ``cache_entries`` (kv heads on tp
+where they divide it, else the sequence). Every rank takes the same
+requests; logits are gathered whole before the draw, so every rank emits
+the same tokens. Prompts of one batch must have one length; the cache
+holds ``max_seq`` steps. An audio model takes prompts (P, K) of its K
+codebooks and decodes K tokens a step. Greedy decoding is ``argmax``,
+which picks the first of equal maxima as ``jnp.argmax`` does.
 Temperature sampling draws from ``softmax(logits / max(t, 1e-4))`` with a
 ``torch.Generator`` seeded from ``seed`` on the model's device: seeded and
 deterministic, but not JAX's threefry draws.
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from .model import Model
+from .sharding import MeshPolicy, use_policy
 
 
 @dataclass
@@ -36,7 +42,11 @@ class Completion:
 
 
 class ServeEngine:
-    def __init__(self, model: Model, *, max_seq: int = 256, seed: int = 0):
+    def __init__(self, model: Model, *, max_seq: int = 256, seed: int = 0,
+                 policy: MeshPolicy | None = None):
+        self.policy = MeshPolicy() if policy is None else policy
+        if self.policy.placed:
+            model.place(self.policy)
         self.model = model
         self.max_seq = max_seq
         self.generator = torch.Generator(device=model.device).manual_seed(seed)
@@ -44,6 +54,10 @@ class ServeEngine:
     def generate(self, requests: list[Request]) -> list[Completion]:
         """Serve a batch of requests whose prompts have one length ->
         completions of tokens (n,) or, for audio, (n, K)."""
+        with use_policy(self.policy):
+            return self._generate(requests)
+
+    def _generate(self, requests: list[Request]) -> list[Completion]:
         if not requests:
             raise ValueError("empty batch")
         P = len(requests[0].prompt)
@@ -71,6 +85,7 @@ class ServeEngine:
 
     def _sample(self, logits: torch.Tensor, requests) -> torch.Tensor:
         """logits (B, V) or (B, K, V) -> int32 (B,) or (B, K)."""
+        logits = self.policy.full(logits)
         temps = np.array([r.temperature for r in requests], dtype=np.float32)
         if (temps == 0).all():
             return torch.argmax(logits, dim=-1).to(torch.int32)

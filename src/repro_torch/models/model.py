@@ -28,6 +28,16 @@ forward), ``prefill`` and ``decode_step`` run under ``torch.no_grad``. With
 ``cfg.remat == "full"`` and gradients on, each group of ``block_pattern``
 layers is recomputed in the backward pass (the reference's
 ``jax.checkpoint`` of its scan body); the tail layers are not, as there.
+
+``Model.place(policy)`` lays the parameters out over the policy's device
+mesh (``models/sharding.py``), each a DTensor by ``param_specs``; under
+that policy (``use_policy``) every method takes the same global tokens on
+every rank, shards them on dp, and runs on DTensors (``models/layers.py``).
+``init`` then draws each full parameter from the generator on every rank
+and keeps the rank's shard, so a seed gives one card's values. Families
+whose placement is not ported (MoE, the RG-LRU hybrid, VLM and audio
+prefixes, windowed or soft-capped attention, sequence parallelism) refuse
+to be placed.
 """
 
 from __future__ import annotations
@@ -54,7 +64,7 @@ from .layers import (
     model_dtype,
     normal_,
 )
-from .sharding import active_policy
+from .sharding import MeshPolicy, active_policy, place_params
 
 _MIX = {"attn": Attention, "mamba": Mamba, "rglru": RGLRU}
 _FFN = {"mlp": MLP, "moe": MoE}
@@ -72,6 +82,27 @@ def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
             ffn = "none"
         kinds.append((kind, ffn))
     return kinds
+
+
+def placement_gaps(cfg: ModelConfig, policy: MeshPolicy) -> list[str]:
+    """What the multi-card path lacks to place ``cfg`` under ``policy``;
+    empty where it places it."""
+    kinds = layer_kinds(cfg)
+    gaps = []
+    if any(ffn == "moe" for _, ffn in kinds):
+        gaps.append("MoE expert parallelism on tp (act_ecd, the experts_* specs, "
+                    "the cumsum dispatch)")
+    if any(kind == "rglru" for kind, _ in kinds):
+        gaps.append("the RG-LRU hybrid")
+    if cfg.attn_window is not None or cfg.attn_logit_softcap is not None:
+        gaps.append("windowed or soft-capped attention (attention_blocked)")
+    if cfg.n_prefix_embeds:
+        gaps.append("the VLM prefix")
+    if cfg.n_codebooks:
+        gaps.append("the audio codebooks")
+    if policy.seq_parallel:
+        gaps.append("seq_parallel")
+    return gaps
 
 
 class Block(nn.Module):
@@ -137,34 +168,54 @@ class Model(nn.Module):
             layer.init(generator)
         return self
 
+    def place(self, policy: MeshPolicy) -> "Model":
+        """Lays every parameter out over ``policy.device_mesh`` by
+        ``param_specs``, from its current value (the same on every rank);
+        parameters already placed stay. Raises ``NotImplementedError``
+        naming the family and what is missing where its placement is not
+        ported."""
+        if not policy.placed:
+            raise ValueError(f"placing the parameters needs a policy over a device "
+                             f"mesh, not {policy}")
+        if gaps := placement_gaps(self.cfg, policy):
+            raise NotImplementedError(
+                f"{self.cfg.name} ({self.cfg.family}) under a device-mesh policy: "
+                f"{'; '.join(gaps)} not ported to the multi-card path")
+        place_params(self, policy)
+        return self
+
     # -- forward machinery ---------------------------------------------------
 
     def _embed(self, tokens: torch.Tensor, prefix_embeds=None) -> torch.Tensor:
         cfg = self.cfg
-        tokens = tokens.to(self.device)
+        pol = active_policy()
+        tokens = pol.shard_batch(tokens.to(self.device))
+        embed = pol.use(self.embed)
         if cfg.n_codebooks:  # tokens (B, S, K): codebook embeddings summed
-            x = sum(nn.functional.embedding(tokens[..., k], self.embed[k])
+            x = sum(nn.functional.embedding(tokens[..., k], embed[k])
                     for k in range(cfg.n_codebooks))
         else:
-            x = nn.functional.embedding(tokens, self.embed)
+            x = nn.functional.embedding(tokens, embed)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
                                  device=x.device).to(x.dtype)
         if prefix_embeds is not None:
             prefix = torch.as_tensor(prefix_embeds).to(device=x.device, dtype=x.dtype)
             x = torch.cat([prefix, x], dim=1)
-        return active_policy().act_bsd(x)
+        return pol.act_bsd(x)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        pol = active_policy()
         x = self.final_ln(x)
         if self.cfg.n_codebooks:
             if self.head is None:
-                logits = torch.einsum("bsd,kvd->bskv", x, self.embed)
+                logits = torch.einsum("bsd,kvd->bskv", x, pol.use(self.embed))
             else:
-                logits = torch.einsum("bsd,kdv->bskv", x, self.head)
+                logits = torch.einsum("bsd,kdv->bskv", x, pol.use(self.head))
         else:
-            logits = x @ (self.embed.T if self.head is None else self.head)
-        return active_policy().act_logits(logits)
+            logits = x @ (pol.use(self.embed).T if self.head is None
+                          else pol.use(self.head))
+        return pol.act_logits(logits)
 
     def _layers(self, x, positions, layers, caches):
         """``layers`` in order -> (x, load-balance sum, z-loss sum)."""
@@ -224,7 +275,10 @@ class Model(nn.Module):
     def _ce_terms(self, x_c, targets_c, mask_c):
         """Sum of the masked next-token NLL over one chunk, in f32; audio
         takes the mean over the codebooks."""
+        pol = active_policy()
         logits_f = self._logits(x_c).float()
+        if pol.placed:  # each row's logits whole on its rank: the gather reads any
+            logits_f = pol.constrain(logits_f, pol.dp_spec)
         logz = torch.logsumexp(logits_f, dim=-1)
         gold = torch.gather(logits_f, -1, targets_c[..., None].long())[..., 0]
         nll = logz - gold
@@ -241,10 +295,11 @@ class Model(nn.Module):
         divides S), each chunk's logits recomputed in the backward pass, so
         the (B, S, V) logits are never held whole. metrics: ``ce``,
         ``moe_load_balance``, ``moe_z_loss``, ``tokens``."""
+        pol = active_policy()
         x, aux = self._hidden(batch["tokens"], batch.get("prefix_embeds"))
-        targets = torch.as_tensor(batch["targets"]).to(x.device)
-        mask = torch.as_tensor(batch["loss_mask"]).to(device=x.device,
-                                                      dtype=torch.float32)
+        targets = pol.shard_batch(torch.as_tensor(batch["targets"]).to(x.device))
+        mask = pol.shard_batch(torch.as_tensor(batch["loss_mask"]).to(
+            device=x.device, dtype=torch.float32))
         if prefix := x.shape[1] - targets.shape[1]:
             x = x[:, prefix:]  # vlm: no loss on patch positions
         B, S = x.shape[:2]
@@ -263,6 +318,8 @@ class Model(nn.Module):
         denom = torch.clamp_min(mask.sum(), 1.0)
         ce = nll_sum / denom
         total = ce + 0.01 * aux["moe_load_balance"] + 0.001 * aux["moe_z_loss"]
+        if pol.placed:  # every rank holds the whole loss
+            total = pol.constrain(total)
         metrics = {
             "ce": ce,
             "moe_load_balance": aux["moe_load_balance"],
@@ -278,7 +335,14 @@ class Model(nn.Module):
             "mamba": lambda: init_mamba_cache(self.cfg, batch, self.device),
             "rglru": lambda: init_rglru_cache(self.cfg, batch, self.device),
         }
-        return [make[layer.kind]() for layer in self.layers]
+        caches = [make[layer.kind]() for layer in self.layers]
+        pol = active_policy()
+        if pol.placed:  # attention caches by cache_entries, the others on dp
+            caches = [{n: pol.distribute(t, pol.cache_spec(t.shape) if layer.kind == "attn"
+                                         else pol.spec(pol.dp_spec, shape=t.shape))
+                       for n, t in cache.items()}
+                      for layer, cache in zip(self.layers, caches)]
+        return caches
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_seq: int, prefix_embeds=None):

@@ -1,23 +1,34 @@
-"""Mesh/sharding policy as a description: DP(+pod) × FSDP × TP/EP.
+"""Mesh/sharding policy: DP(+pod) × FSDP × TP/EP over a torch
+``DeviceMesh`` (DTensor), or as a description of one.
 
 ``src/repro/models/sharding.py`` maps every tensor class onto a device
-mesh and lets GSPMD place it. The port runs on one card and has no GSPMD,
-so here the policy *describes* the same placement: each spec is the
-tuple of axis entries (None, an axis name, or a tuple of names) that
+mesh and lets GSPMD place it. Here the same policy does so with DTensor,
+PyTorch's counterpart of ``NamedSharding``: each spec is the tuple of
+axis entries (None, an axis name, or a tuple of names) that
 ``jax.sharding.PartitionSpec`` holds in the reference, pruned as
-``prune_spec`` prunes it there, over a ``MeshShape`` (axis names and
-sizes, no devices).
+``prune_spec`` prunes it there, and ``placements`` turns it into one
+``Shard(dim)`` / ``Replicate()`` a mesh dim (a tuple entry shards its dim
+over each of its axes, major to minor in the mesh's order).
 
   dp axes  ('pod','data') / ('data',) — batch parallel + FSDP param shards
   tp axis  'model'                    — heads / d_ff / vocab / experts
 
-``launch/dryrun.py`` reads the specs to count each card's share of the
-parameters and the optimizer state. ``MeshPolicy.constrain`` and its
-``act_*`` / ``cache`` helpers return the tensor unchanged when every axis
-of the mesh has size 1 (a policy of one card, as ``launch/train.py``
-passes); over a larger mesh they raise ``NotImplementedError``: placing
-tensors across cards is the multi-card path, which the port does not
-have.
+A policy holds a ``MeshShape`` (axis names and sizes, no devices), which
+``launch/dryrun.py`` reads to count each card's share, and optionally a
+``DeviceMesh`` over the ranks of a ``torch.distributed`` world, its dims
+named as the ``MeshShape``'s axes (``launch/mesh.py::make_device_mesh``).
+With a device mesh the policy *places*: ``place_params`` lays every
+parameter out by ``param_specs``, ``use`` gathers a parameter's FSDP (dp)
+shards at the point of use (DTensor's autograd reduce-scatters its
+gradient back, as GSPMD does), ``constrain`` and its ``act_*`` /
+``cache`` helpers redistribute an activation to its pruned spec (uneven
+dims allowed, as GSPMD pads), and ``shard_batch`` shards a global batch
+on dp along dim 0. It places even when every axis has size 1, so one card
+runs the same path. Without a device mesh the helpers return the tensor
+unchanged when every axis has size 1 (a policy of one card, as
+``launch/train.py`` passes for one process), and over a larger mesh they
+raise ``NotImplementedError`` naming the multi-card path and how to build
+a device mesh.
 
 Parameter specs are derived from leaf *names* via the rule table below
 and apply to the trailing dims, so a name of the port (``layers.3.mix.wq``)
@@ -33,14 +44,18 @@ from __future__ import annotations
 import math
 import re
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.kernels.ops import is_placed
+
 MULTI_CARD = (
-    "the multi-card path (placing tensors across the cards of a mesh by a "
-    "MeshPolicy) is not ported: the port runs on one card; pass a policy "
-    "whose every mesh axis has size 1, or none"
+    "the multi-card path needs a policy over a device mesh: a policy that only "
+    "describes a mesh places nothing; start a torch.distributed world "
+    "(launch/mesh.py::init_distributed), build its mesh with "
+    "launch/mesh.py::make_device_mesh and pass make_policy(that mesh, cfg), or "
+    "pass a policy whose every mesh axis has size 1, or none"
 )
 
 
@@ -115,6 +130,12 @@ def shard_numel(mesh, shape, spec) -> int:
     return n
 
 
+def _dtensor():
+    from torch.distributed import tensor
+
+    return tensor
+
+
 @dataclass(frozen=True)
 class MeshPolicy:
     mesh: MeshShape | None = None
@@ -122,6 +143,18 @@ class MeshPolicy:
     tp: str | None = None  # tensor/expert axis
     shard_cache_seq: bool = False  # decode cache: shard S instead of heads
     seq_parallel: bool = False  # Megatron-SP: hidden (B,S,D) shards S on tp
+    # the ranks the policy places tensors on; its dims named as mesh's axes
+    device_mesh: object = field(default=None, compare=False)
+
+    def __post_init__(self):
+        dm = self.device_mesh
+        if dm is None:
+            return
+        shape = MeshShape(tuple(dm.shape), tuple(dm.mesh_dim_names or ()))
+        if self.mesh is None:
+            object.__setattr__(self, "mesh", shape)
+        elif self.mesh != shape:
+            raise ValueError(f"device mesh {shape} is not the policy's mesh {self.mesh}")
 
     @property
     def dp_spec(self):
@@ -129,8 +162,13 @@ class MeshPolicy:
 
     @property
     def one_card(self) -> bool:
-        """No mesh, or every axis of size 1: nothing to place."""
+        """No mesh, or every axis of size 1."""
         return self.mesh is None or all(s == 1 for s in self.mesh.sizes)
+
+    @property
+    def placed(self) -> bool:
+        """Whether the policy places tensors over a device mesh."""
+        return self.device_mesh is not None
 
     def spec(self, *axes, shape=None) -> tuple:
         """The entries ``axes``, pruned against ``shape`` when given (the
@@ -138,11 +176,80 @@ class MeshPolicy:
         assert self.mesh is not None
         return prune_spec(self.mesh, shape, axes) if shape is not None else tuple(axes)
 
+    def placements(self, spec) -> list:
+        """A spec's entries -> one placement a mesh dim: ``Shard(d)`` on each
+        mesh dim named in entry d, ``Replicate()`` on the others. A tuple
+        entry must list its axes in the mesh's order (major to minor)."""
+        t = _dtensor()
+        names = self.mesh.axis_names
+        out = [t.Replicate()] * len(names)
+        for d, entry in enumerate(spec):
+            if entry is None:
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            dims = [names.index(a) for a in axes]
+            if dims != sorted(dims):
+                raise ValueError(f"spec entry {entry} is not in the mesh's order {names}")
+            for m in dims:
+                out[m] = t.Shard(d)
+        return out
+
     def constrain(self, x: torch.Tensor, *axes) -> torch.Tensor:
-        if self.one_card:
+        """``x`` redistributed to the entries ``axes`` (pruned, uneven dims
+        allowed); unchanged on one card without a device mesh."""
+        if not self.placed:
+            if self.one_card:
+                return x
+            raise NotImplementedError(
+                f"constraining {tuple(x.shape)} to {axes} on mesh {self.mesh}: "
+                f"{MULTI_CARD}")
+        if not is_placed(x):
+            raise TypeError(f"constraining a plain tensor {tuple(x.shape)} to {axes}: "
+                            "under a device-mesh policy every activation is a DTensor")
+        return x.redistribute(self.device_mesh, self.placements(
+            prune_spec(self.mesh, x.shape, axes, allow_uneven=True)))
+
+    # -- placing whole tensors ---------------------------------------------
+    def distribute(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """A full tensor, the same on every rank, laid out by ``spec`` (each
+        rank keeps its own shard: no communication)."""
+        return _dtensor().distribute_tensor(x, self.device_mesh, self.placements(spec),
+                                            src_data_rank=None)
+
+    def replicate(self, x: torch.Tensor) -> torch.Tensor:
+        """A full tensor, the same on every rank, as a replicated DTensor;
+        unchanged without a device mesh or when already placed."""
+        if not self.placed or is_placed(x):
             return x
-        raise NotImplementedError(
-            f"constraining {tuple(x.shape)} to {axes} on mesh {self.mesh}: {MULTI_CARD}")
+        return self.distribute(x, ())
+
+    def shard_batch(self, x) -> torch.Tensor:
+        """A global batch tensor, the same on every rank, sharded on dp along
+        dim 0 (a dividing prefix of the dp axes, or replicated, as
+        ``prune_spec`` prunes); unchanged without a device mesh or when
+        already placed."""
+        if not self.placed or is_placed(x):
+            return x
+        x = torch.as_tensor(x)
+        return self.distribute(x, prune_spec(self.mesh, x.shape, (self.dp_spec,)))
+
+    def use(self, p: torch.Tensor) -> torch.Tensor:
+        """A parameter at its compute placement: its shards on the dp (FSDP)
+        axes gathered, those on tp kept. The gradient flows back to the
+        parameter's own placement (a reduce-scatter over dp). Unchanged
+        when ``p`` is not a DTensor."""
+        if not is_placed(p):
+            return p
+        dp_dims = {self.mesh.axis_names.index(a) for a in self.dp}
+        want = [_dtensor().Replicate() if m in dp_dims else pl
+                for m, pl in enumerate(p.placements)]
+        return p if want == list(p.placements) else p.redistribute(p.device_mesh, want)
+
+    @staticmethod
+    def full(x):
+        """A DTensor gathered whole on every rank (Partial sums reduced); a
+        plain tensor unchanged."""
+        return x.full_tensor() if is_placed(x) else x
 
     # -- activation constraint helpers --------------------------------------
     def act_bsd(self, x):  # (B, S, D) hidden
@@ -167,8 +274,15 @@ class MeshPolicy:
             return (self.dp_spec, self.tp, None, None)
         return (self.dp_spec, None, self.tp, None)
 
+    def cache_spec(self, shape) -> tuple:
+        """The decode cache's entries pruned against its ``shape`` (exact,
+        as the reference's ``cache`` prunes)."""
+        return prune_spec(self.mesh, shape, self.cache_entries())
+
     def cache(self, x):
-        return self.constrain(x, *self.cache_entries())
+        if not self.placed:
+            return self.constrain(x, *self.cache_entries())
+        return x.redistribute(self.device_mesh, self.placements(self.cache_spec(x.shape)))
 
 
 # The active policy, a module-level context so that model code can stay
@@ -263,3 +377,27 @@ def param_specs(tree, policy: MeshPolicy) -> dict[str, tuple]:
     nested dict of tensors keyed by them, by leaf name."""
     return {name: _spec_for(name, tuple(t.shape), policy)
             for name, t in named_leaves(tree)}
+
+
+def place_params(module: torch.nn.Module, policy: MeshPolicy) -> None:
+    """Every parameter of ``module`` that is not yet a DTensor becomes one,
+    laid out over ``policy.device_mesh`` by ``param_specs`` from its
+    current (full) value, which must be the same on every rank."""
+    specs = param_specs(module, policy)
+    for name, p in list(module.named_parameters()):
+        if is_placed(p):
+            continue
+        owner, _, leaf = name.rpartition(".")
+        placed = policy.distribute(p.detach(), specs[name])
+        setattr(module.get_submodule(owner), leaf,
+                torch.nn.Parameter(placed, requires_grad=p.requires_grad))
+
+
+def set_full_(p: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """Copy a full ``value`` (the same on every rank) into ``p`` in place:
+    a DTensor takes its own shard of it."""
+    if is_placed(p):
+        value = _dtensor().distribute_tensor(
+            value.to(device=p.device, dtype=p.dtype), p.device_mesh, p.placements,
+            src_data_rank=None)
+    return p.copy_(value)

@@ -9,7 +9,10 @@ ways:
 
 A state is a nested dict of tensors (the trainer converts the port's
 per-layer parameters to the JAX tree, groups stacked, with
-``models.convert.params_to_jax``). Writes go to a ``.tmp_*`` directory
+``models.convert.params_to_jax``). Under a policy over a device mesh the
+trainer gathers each leaf whole and rank 0 writes, so a sharded save is
+one card's file; a restore reads whole leaves, which the trainer cuts to
+each rank's shard. Writes go to a ``.tmp_*`` directory
 that ``os.replace`` moves into place; readers trust only directories with
 the marker, and ``_gc`` removes half-written ones.
 

@@ -18,6 +18,11 @@ returns the new state around them (the JAX function returns new trees;
 in place keeps one copy of the 12 bytes a parameter of optimizer state on
 the card). The arithmetic is the reference's, leaf by leaf, in f32.
 
+Leaves may be DTensors (the trainer under a device-mesh policy): the
+moments and master weights take their layout, each leaf's int8 scale is
+its whole leaf's largest magnitude and the global gradient norm sums every
+element once, as the reference's do under GSPMD.
+
 Adafactor factors the second moment of every leaf of two or more axes
 over its last two. On the port's per-layer tree a norm weight is one
 axis; the JAX tree stacks it over the groups into two, so there it is
@@ -30,6 +35,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.models.sharding import MeshPolicy
 
 
 @dataclass(frozen=True)
@@ -82,7 +89,7 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
 
 
 def _count(params) -> torch.Tensor:
@@ -131,7 +138,9 @@ def adamw_update(grads, state: dict, cfg: AdamWConfig) -> tuple[dict, dict]:
     def f32(i):
         return g32[i] if g32[i] is not None else leaves[i][1].to(torch.float32)
 
-    squares = [torch.sum(torch.square(f32(i))) for i in range(len(leaves))]
+    # each leaf's sum whole on every rank before the stack: leaves differ in layout
+    squares = [MeshPolicy.full(torch.sum(torch.square(f32(i))))
+               for i in range(len(leaves))]
     gnorm = torch.sqrt(torch.sum(torch.stack(squares)))
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12), 1.0)
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=count.device),

@@ -1,4 +1,5 @@
-"""The training loop: ``src/repro/train/train_loop.py`` on one device.
+"""The training loop: ``src/repro/train/train_loop.py``, on one card or
+across the ranks of a device mesh.
 
 * checkpoint/restart: atomic checkpoints every ``ckpt_every`` steps, at a
   preemption and at the last step, auto-resume from the latest committed
@@ -18,11 +19,21 @@ in place. Checkpoints hold the JAX package's tree (``params`` and each
 moment through ``convert.params_to_jax``), so the JAX trainer restores
 the port's and the other way round.
 
-``policy`` is a ``models.sharding.MeshPolicy``. One whose every mesh axis
-has size 1 (``launch/mesh.py::make_policy(make_host_mesh(1), cfg)``)
-places nothing: the trainer installs it as the active policy around each
-step and trains exactly as without one. A policy over more than one card
-raises ``NotImplementedError``: the multi-card path is not ported.
+``policy`` is a ``models.sharding.MeshPolicy``. One over a device mesh
+(``launch/mesh.py::make_policy(make_device_mesh(...), cfg)``) places: the
+trainer lays the model's parameters out by ``param_specs``
+(``Model.place``), so the f32 master weights and the moments (``master``,
+``mu``, ``nu``, ``ef``) take the same layout; each (micro)batch, the same
+global batch on every rank, is sharded on dp along dim 0 by the model;
+each gradient is brought to its parameter's layout (a reduce over the
+ranks that held other rows); metrics are gathered whole on every rank.
+Checkpoints gather every leaf whole; rank 0 writes and the others wait on
+a barrier, and a restore gives each rank its shard of each leaf, whatever
+mesh saved it. A policy that only describes a mesh and whose every axis
+has size 1 (``make_policy(make_host_mesh(1), cfg)``) places nothing: the
+trainer installs it as the active policy around each step and trains
+exactly as without one. A description-only policy over more than one card
+raises ``NotImplementedError`` naming the multi-card path.
 
 Unlike the reference, ``fit(None, ...)`` resumes too: it builds the state
 first and restores into it (the reference asserts a template and so
@@ -37,10 +48,17 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.models.model import Model
-from repro_torch.models.sharding import MULTI_CARD, MeshPolicy, use_policy
+from repro_torch.models.sharding import (
+    MULTI_CARD,
+    MeshPolicy,
+    is_placed,
+    set_full_,
+    use_policy,
+)
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from .optimizer import AdamWConfig, adamw_update, init_opt_state
 
@@ -61,9 +79,11 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model: Model, opt_cfg: AdamWConfig,
                  trainer_cfg: TrainerConfig, policy: MeshPolicy | None = None):
-        if policy is not None and not policy.one_card:
+        if policy is not None and not policy.placed and not policy.one_card:
             raise NotImplementedError(f"training under {policy}: {MULTI_CARD}")
         self.policy = MeshPolicy() if policy is None else policy
+        if self.policy.placed:
+            model.place(self.policy)
         self.model = model
         self.opt_cfg = opt_cfg
         self.cfg = trainer_cfg
@@ -88,9 +108,10 @@ class Trainer:
         names = list(params)
         grads = torch.autograd.grad(loss, [params[n] for n in names],
                                     allow_unused=True)
-        grads = {n: torch.zeros_like(params[n]) if g is None else g
+        grads = {n: torch.zeros_like(params[n]) if g is None else _in_layout(g, params[n])
                  for n, g in zip(names, grads)}
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        full = self.policy.full
+        return full(loss.detach()), {k: full(v.detach()) for k, v in metrics.items()}, grads
 
     def train_step(self, state: dict, batch: dict) -> tuple[dict, dict]:
         """One optimizer step on ``batch`` -> (state, metrics); the
@@ -143,28 +164,40 @@ class Trainer:
         return out
 
     def save(self, state: dict, step: int) -> None:
-        """Checkpoints ``state`` as step ``step`` under ``ckpt_dir``."""
+        """Checkpoints ``state`` as step ``step`` under ``ckpt_dir``. Under a
+        device-mesh policy every rank gathers the leaves whole, rank 0
+        writes them and the others wait for it."""
         cfg = self.cfg
-        save_checkpoint(
-            cfg.ckpt_dir, step, self._jax_state(state, lambda t: t.detach().cpu()),
-            data_state={"seed": cfg.seed, "step": step}, keep_last=cfg.keep_ckpts,
-        )
+        writes = not self.policy.placed or dist.get_rank() == 0
+
+        def whole(t):  # a collective under the policy: every rank gathers
+            t = self.policy.full(t.detach())
+            return t.cpu() if writes else t.to("meta")
+
+        tree = self._jax_state(state, whole)
+        if writes:
+            save_checkpoint(cfg.ckpt_dir, step, tree,
+                            data_state={"seed": cfg.seed, "step": step},
+                            keep_last=cfg.keep_ckpts)
+        if self.policy.placed:
+            dist.barrier()
 
     def restore(self, path, state: dict) -> int:
         """Loads the checkpoint at ``path`` into ``state`` in place -> its
         step."""
-        template = self._jax_state(state, lambda t: t.detach().to("meta"))
+        template = self._jax_state(
+            state, lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"))
         loaded, step, _ = restore_checkpoint(path, template, device="cpu")
         cfg = self.model.cfg
         with torch.no_grad():
             for name, t in params_from_jax(loaded["params"], cfg).items():
-                state["params"][name].copy_(t)
+                set_full_(state["params"][name], t)
             opt = state["opt"]
             opt["count"].copy_(loaded["opt"]["count"])
             for k in _PARAM_TREES:
                 if k in opt:
                     for name, t in params_from_jax(loaded["opt"][k], cfg).items():
-                        opt[k][name].copy_(t)
+                        set_full_(opt[k][name], t)
         return step
 
     # ------------------------------------------------------------------
@@ -211,8 +244,9 @@ class Trainer:
                 loss = float(metrics["loss"])
                 dt = time.time() - t0
                 history.append((step + 1, loss))
-                print(f"step {step + 1:6d}  loss {loss:.4f}  "
-                      f"({dt / cfg.log_every:.2f}s/step)")
+                if not self.policy.placed or dist.get_rank() == 0:
+                    print(f"step {step + 1:6d}  loss {loss:.4f}  "
+                          f"({dt / cfg.log_every:.2f}s/step)")
                 t0 = time.time()
             must_ckpt = (step + 1) % cfg.ckpt_every == 0
             if must_ckpt or self._preempted or step + 1 == steps:
@@ -221,6 +255,14 @@ class Trainer:
                 print(f"preempted: checkpointed at step {step + 1}, exiting")
                 break
         return state, history
+
+
+def _in_layout(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's layout (a DTensor's partial sums
+    reduced, its shards cut as the parameter's)."""
+    if is_placed(p) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _micro(x, accum: int, i: int):

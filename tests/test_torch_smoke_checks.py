@@ -1452,3 +1452,172 @@ def test_row_sample_shapes_refuses_a_time_under_its_bound(smoke, monkeypatch):
     with pytest.raises(AssertionError, match="under its bound"):
         smoke.row_sample_shapes(_row_sample_sampling(smoke, {300: 3}),
                                 smoke.int_ops_per_s(132, 1980.0))
+
+
+# ---------------------------------------------------------------------------
+# The multicard: phase
+# ---------------------------------------------------------------------------
+
+
+def _one_card_run(smoke, cfg, batches, opt_steps, recorded) -> dict:
+    """The train phase's one-card steps of ``cfg`` on ``batches`` (its seed
+    and schedule for ``opt_steps``), the backward kernels' shapes recorded."""
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    tr = Trainer(Model(cfg, device="cpu"), smoke.train_opt_config(opt_steps),
+                 TrainerConfig(steps=opt_steps, seed=0), policy=smoke.one_card_policy(cfg))
+    state, losses = tr.init_state(0), []
+    with smoke.KernelInputs("train", recorded) as rec:
+        for batch in batches:
+            state, metrics = tr.train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+    return {"losses": losses, "step_ms": [1.0] * len(batches), "seen": rec.seen}
+
+
+def test_multicard_phase_rehearsed_on_the_cpu(train_smoke, monkeypatch, capsys):
+    """The phase on a gloo world of one on the CPU: the reduced bf16 qwen3
+    and mamba2 train under a (1, 1) device mesh on the batches a one-card
+    run trained on, every parameter a DTensor, their losses equal to that
+    run's, the served tokens to the one-card engine's; the kernels'
+    stand-ins run through ``local_map`` (counted) and pass the checks."""
+    from repro_torch.data.pipeline import synthetic_batch_at
+    from repro_torch.models.sharding import is_placed
+
+    smoke, cfg, scans, _ = train_smoke
+    scan_cfg = scans["mamba2-130m"]
+
+    def flash(q, k, v, *, causal=True, scale=None):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        if is_placed(q):
+            return ops._flash_placed(q, k, v, causal, scale)
+        return ops._FlashAttention.apply(q, k, v, scale, causal)
+
+    def norm(x, w, *, eps, plus_one):
+        if is_placed(x):
+            return ops._rmsnorm_placed(x, w, eps, plus_one)
+        return ops._RMSNorm.apply(x, w, eps, plus_one)
+
+    def scan(x, dt, a_log, bmat, cmat, *, chunk=128):
+        if is_placed(x):
+            return ops._ssd_placed(x, dt, a_log, bmat, cmat, chunk)
+        return ops._SSDScan.apply(x, dt, a_log, bmat, cmat, chunk)
+
+    monkeypatch.setattr(ops, "flash_attention", flash)
+    monkeypatch.setattr(ops, "rmsnorm", norm)
+    monkeypatch.setattr(ops, "ssd_scan", scan)
+
+    def batches(c):
+        return [synthetic_batch_at(t, seed=0, batch_size=smoke.TRAIN_BATCH,
+                                   seq_len=smoke.TRAIN_SEQ, vocab_size=c.vocab_size,
+                                   device="cpu") for t in range(smoke.MULTICARD_STEPS)]
+
+    train = _one_card_run(smoke, cfg, batches(cfg), smoke.TRAIN_STEPS, smoke.TRAIN_RECORDED)
+    runs = {scan_cfg.name: _one_card_run(smoke, scan_cfg, batches(scan_cfg),
+                                         smoke.TRAIN_SCAN_STEPS, ("ssd_scan_bwd",))}
+    train.update(batches=batches(cfg), scans={"runs": runs, "seen": runs[scan_cfg.name]["seen"]})
+    out = smoke.phase_multicard(train, torch.device("cpu"), 0, cfg, scan_cfg)
+    text = capsys.readouterr().out
+    assert out["losses"] == train["losses"]
+    L = cfg.n_layers
+    steps = smoke.MULTICARD_STEPS
+    # remat: each group's forward again in the backward pass; then the serving
+    assert out["launches"]["flash_attention_bwd"] == L * steps
+    assert out["launches"]["flash_attention"] == 2 * L * steps + L
+    n_scan = len(smoke_layer_kinds(scan_cfg))
+    assert out["launches"]["rmsnorm_bwd"] == (4 * L + 1) * steps + (2 * n_scan + 1) * steps
+    assert out["launches"]["ssd_scan_bwd"] == n_scan * steps
+    assert "DTensors" in text and text.count("bit-equal: True") == 2
+    # mamba2's norms: the train phase records only its scans' backward
+    assert "6 backward kernel launch shapes, 5 of them checked" in text
+    assert "multicard: rmsnorm_bwd dx at [[2, 32, 128], [128], [2, 32, 128]]" in text
+    assert "no run of more than one rank" in text
+    assert "multicard: served" in text
+    assert not torch.distributed.is_initialized()
+
+
+# the ranks of ``multicard_across`` in a process of their own: a hung
+# collective fails the test at this limit, not the suite's clock
+MULTICARD_RANKS_TIMEOUT_S = 120
+MULTICARD_RANKS_SCRIPT = """
+import json, torch
+import chip_smoke as s
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import synthetic_batch_at
+s.device_line = lambda fields="": "cpu"
+torch.set_num_threads(1)
+cfg = get_config("qwen3-1.7b").reduced(n_heads=4, n_kv_heads=2, dtype="bfloat16")
+batches = [synthetic_batch_at(t, seed=0, batch_size=4, seq_len=32,
+                              vocab_size=cfg.vocab_size, device="cpu")
+           for t in range(s.MULTICARD_STEPS)]
+dev = torch.device("cpu")
+losses, ms = s.multicard_steps(cfg, s.one_card_policy(cfg), batches, dev, 0)
+out = s.multicard_across(2, {"batches": batches, "losses": losses, "step_ms": ms},
+                         cfg, dev, 0)
+print(json.dumps(out))
+"""
+
+
+def test_multicard_ranks_rehearsed_on_a_gloo_world():
+    """The phase's run across ranks (``multicard_across``, which the phase
+    makes where there are two cards or more) on a gloo world of two ranks
+    on the CPU, each rank a process: the reduced qwen3 (4 heads, 2 kv
+    heads) in bf16 and f32 on a (1, 2) mesh against the one-card steps on
+    the same 4 x 32-token batches, each step within its limit of
+    MULTICARD_RANKS_RTOL."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run([sys.executable, "-c", MULTICARD_RANKS_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=MULTICARD_RANKS_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.splitlines()
+    out = json.loads(lines[-1])
+    smoke_limits = {"bfloat16": (1e-4, 1e-3, 2e-2), "float32": (1e-4, 1e-4, 1e-4)}
+    assert sorted(out) == sorted(smoke_limits)
+    for dtype, limits in smoke_limits.items():
+        assert len(out[dtype]["losses"]) == len(limits)
+        assert all(r <= lim for r, lim in zip(out[dtype]["rel"], limits)), out[dtype]
+    assert any("2 ranks on a (1, 2) mesh" in line and "float32" in line for line in lines)
+
+
+def test_train_timing_adds_the_multicard_launches_by_width(smoke, monkeypatch):
+    """``train_timing(train, more=(multicard,))`` adds the multicard
+    phase's launches to each backward record, rmsnorm_bwd's split between
+    the q-norm width and the others by the phase's recorded calls, as the
+    train phase's are."""
+    import collections
+
+    for stub in ("cold_ms", "cuda_ms"):
+        monkeypatch.setattr(smoke, stub, lambda fn, iters, **kw: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "device_line", lambda fields="": "cpu (stand-in)")
+    monkeypatch.setattr(smoke, "device_activity", lambda fn, iters: (fn(), {})[1])
+    monkeypatch.setattr(ssd_scan, "bwd_chunk", _bwd_chunk_standin)
+    seen = {}
+    for name in ("rmsnorm_bwd", "flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd"):
+        monkeypatch.setattr(ops, f"{name}_cuda", _bwd_standin(name))
+        seen.update(_bwd_seen(name))
+    rng = np.random.default_rng(2620)  # seed 2620
+    narrow = [_bf16(rng, (6, smoke.QNORM_WIDTH), 3.0),
+              torch.from_numpy((rng.standard_normal(smoke.QNORM_WIDTH) * 0.1
+                                ).astype(np.float32)),
+              _bf16(rng, (6, smoke.QNORM_WIDTH))]
+    shapes = tuple((tuple(a.shape), str(a.dtype)) for a in narrow)
+    seen[("rmsnorm_bwd", "train", shapes)] = (narrow, dict(eps=1e-6, plus_one=True))
+    train = {"seen": seen, "calls": collections.Counter({("rmsnorm_bwd", "train",
+                                                          shapes): 3}),
+             "launches": {"rmsnorm_bwd": 7, "flash_attention_bwd": 2},
+             "worst": {n: 0.0 for n, _, _ in seen},
+             "scans": {"seen": {}, "launches": {"rmsnorm_bwd": 4, "ssd_scan_bwd": 1,
+                                                "rglru_scan_bwd": 1}}}
+    multicard = {"launches": {"rmsnorm_bwd": 10, "flash_attention_bwd": 5,
+                              "ssd_scan_bwd": 2},
+                 "calls": collections.Counter({("rmsnorm_bwd", "multicard", shapes): 4})}
+    records = smoke.train_timing(train, more=(multicard,))
+    assert [(r["name"], r["launches"]) for r in records] == [
+        ("rmsnorm_bwd", 11 + 10 - 3 - 4), ("rmsnorm_bwd", 3 + 4),
+        ("flash_attention_bwd", 2 + 5), ("ssd_scan_bwd", 1 + 2), ("rglru_scan_bwd", 1)]
